@@ -8,9 +8,15 @@ on any failure:
   1. build    nvcc builds csrc/*.cu for sm_90a; prints the build seconds,
               each kernel's registers and spills, the card and its power
               limit.
-  2. kernels  K1..K4 at the SID main path's shapes against their plain
-              PyTorch versions on the card (TF32 off on the plain side):
-              max abs error, kernel and plain milliseconds (CUDA events).
+  2. kernels  K1..K4 at the SID validation path's shapes (one 1568 x 2272
+              frame) and the backward kernels K5 and K6 at the SID train
+              path's shapes (288 x 288 and its levels, at batch 8: the plain
+              side of K5 materializes the 8x candidate tensor several times,
+              which at batch 32 crowds the card's memory) against their plain
+              PyTorch versions on the card (TF32 off): max abs error, kernel,
+              plain and library-call milliseconds (CUDA events), and the
+              bound: the larger of counted bytes over 3.35 TB/s and counted
+              FLOP over 67 TFLOP/s (fp32 outside the tensor cores).
   3. slice    the full-width SID model (random weights from --seed) restores
               a 96 x 96 input with 2 steps and injected noise on the card and
               on the host (plain versions); the outputs must agree.
@@ -18,12 +24,24 @@ on any failure:
               --seed: time, PSNR (SSIM needs cv2, which this script does not
               assume), peak memory; every kernel's launch count must rise.
   5. sid      one 1424 x 2128 frame (1568 x 2272 in the network) restored
-              through the validation step with 50 steps: seconds per frame,
-              predictor + guide maps ms, ms per DY3h step, peak memory,
-              launches.
-Then one JSON line of kernel results (launches from the main phase, errors and
-times summed over phase 2's shapes), the card's `nvidia-smi` name and power
-limit, and last `{"ok": true, "device": {...}}`.
+              through the validation step with the validation schedule's
+              50 steps: seconds for the frame, predictor + guide maps ms,
+              ms per DY3h step, peak memory, launches.
+  6. train_slice  full width, crop 64, batch 2, dropout off, injected gammas
+              and noise, 2 AdamW steps on the card and on the host: the loss
+              of each step, every gradient of the first step and every
+              parameter after the second must agree.
+  7. train    the Trainer in its train phase at full width: crop 256 (288 x
+              288 in the network), batch 32 (halved while it does not fit),
+              8 optimize_parameters on one seeded batch with dropout on:
+              seconds per step, losses (finite, the last below the first),
+              peak memory, launches of K1..K6; then save_network, a reload
+              of the EMA weights by a validation Trainer and one test on a
+              96 x 96 input.
+Then one JSON line of kernel results (launches of K1..K4 from the main phase
+and of K5, K6 from the train phase, with both paths' counts beside them;
+errors the largest and times summed over phase 2's shapes), the card's
+`nvidia-smi` name and power limit, and last `{"ok": true, "device": {...}}`.
 
 Needs torch, numpy and the repository beside this file, and imports nothing
 of JAX or of the JAX package; exits non-zero, with no result line, when CUDA
@@ -38,12 +56,20 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SID_FRAME = (1424, 2128)          # a Sony SID test frame, H x W
 PAD = 64                          # the validation reflect pad
 NET_FRAME = (1568, 2272)          # SID_FRAME + 2 * PAD, to /32 in DY3h
+TRAIN_CROP = 256                  # the SID train crop
+TRAIN_NET = (TRAIN_CROP // 32 + 1) * 32   # 288: as DY3h pads the crop
+TRAIN_BATCH = 32                  # the SID train batch
+TRAIN_STEPS = 8
+KERNEL_BATCH = 8                  # batch of K5's and K6's phase-2 cases
+HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory
+FP32_FLOP_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
 
 # kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
@@ -55,7 +81,15 @@ KERNELS = {
                 'ucdir_tpu/ops/conv_pallas.py:688'),
     'gn1_stats': ('ucdir_tpu_torch/csrc/gn1_stats.cu',
                   'ucdir_tpu/ops/stats_pallas.py:38'),
+    'akgm_tail_bwd': ('ucdir_tpu_torch/csrc/akgm_tail_bwd.cu',
+                      'ucdir_tpu/ops/akgm_pallas.py:722'),
+    'conv3x3_bwd': ('ucdir_tpu_torch/csrc/conv3x3_bwd.cu',
+                    'ucdir_tpu/ops/conv_pallas.py:516'),
 }
+# the path whose run gives a kernel's `launches`
+OWNER = {'akgm_tail': 'main', 'conv3x3': 'main', 'conv1x1': 'main',
+         'gn1_stats': 'main', 'akgm_tail_bwd': 'train',
+         'conv3x3_bwd': 'train'}
 
 
 def say(phase, msg):
@@ -104,66 +138,154 @@ def timed(fn, reps):
 
 
 def kernel_cases(gen, dev):
-    """(kernel, label, kernel call, plain call) at the SID main path's
-    shapes: the padded frame 1568 x 2272 and its /2, /4, /8 levels."""
+    """One dict per case: the kernel's name, a label, the kernel call, the
+    plain call, the library call (one PyTorch call computing the same
+    function, or None), the FLOP and the bytes the function needs (each input
+    read once, each output written once), and how many trailing outputs are
+    (B, C) statistics. K1..K4 at the SID validation shapes (the padded frame
+    1568 x 2272 and its /2, /4, /8 levels); K5 and K6 at the SID train
+    shapes (288 x 288 and its levels) at batch KERNEL_BATCH."""
     import torch
+    import torch.nn.functional as F
     from ucdir_tpu_torch.ops import akgm, conv, stats
 
     H0, W0 = NET_FRAME
+    G = 8
 
     def rnd(*shape, scale=1.0, off=0.0):
         return torch.randn(shape, generator=gen, device=dev) * scale + off
 
+    def nbytes(*tensors):
+        return 4 * sum(t.numel() for t in tensors if t is not None)
+
+    def nchw(t):
+        return t.permute(0, 3, 1, 2)
+
     cases = []
-    for C, s in ((64, 1), (128, 2), (256, 4), (512, 8)):
-        H, W, G = H0 // s, W0 // s, 8
-        h, res = rnd(1, H, W, C, scale=0.5), rnd(1, H, W, C, scale=0.5)
-        att, aw = rnd(1, H, W, G, scale=0.5), rnd(1, G, scale=0.3, off=1.0)
+
+    def akgm_operands(B, H, W, C):
+        h = rnd(B, H, W, C, scale=0.5)
+        att, aw = rnd(B, H, W, G, scale=0.5), rnd(B, G, scale=0.3, off=1.0)
         w = rnd(9 * C // G, C * G, scale=(9 * C / G) ** -0.5)
         b = rnd(C * G, scale=0.1)
-        a, t = rnd(1, C, scale=0.2, off=1.0), rnd(1, C, scale=0.2)
-        kw = dict(norm_scale=a, norm_shift=t, attw=aw, emit_stats=True)
-        cases.append((
-            'akgm_tail', 'C=%d %dx%d fold+attw+stats' % (C, H, W),
-            lambda h=h, att=att, w=w, b=b, res=res, kw=kw:
-                akgm.akgm_block_tail(h, att, w, b, res, G, **kw),
-            lambda h=h, att=att, w=w, b=b, res=res, kw=kw:
-                akgm.akgm_block_tail_plain(h, att, w, b, res, G, **kw)))
+        kw = dict(norm_scale=rnd(B, C, scale=0.2, off=1.0),
+                  norm_shift=rnd(B, C, scale=0.2), attw=aw)
+        # the grouped conv, then the 8-candidate mix per channel
+        flop = B * H * W * C * G * (2 * 9 * C // G + 2)
+        return h, att, w, b, kw, flop
 
-    def conv_case(label, H, W, cin, cout, stride=1, fold=False, act=None):
-        x = rnd(1, H, W, cin, scale=0.5)
+    for C, s in ((64, 1), (128, 2), (256, 4), (512, 8)):
+        H, W = H0 // s, W0 // s
+        h, att, w, b, kw, flop = akgm_operands(1, H, W, C)
+        res = rnd(1, H, W, C, scale=0.5)
+        cases.append(dict(
+            name='akgm_tail', label='C=%d %dx%d fold+attw+stats' % (C, H, W),
+            kernel=lambda h=h, att=att, w=w, b=b, res=res, kw=kw:
+                akgm.akgm_block_tail(h, att, w, b, res, G, emit_stats=True,
+                                     **kw),
+            plain=lambda h=h, att=att, w=w, b=b, res=res, kw=kw:
+                akgm.akgm_block_tail_plain(h, att, w, b, res, G,
+                                           emit_stats=True, **kw),
+            library=None, stats=2, flop=flop,
+            bytes=nbytes(h, att, w, b, res, h, *kw.values()) + 8 * C))
+
+    def conv_case(label, B, H, W, cin, cout, stride=1, fold=False, act=None,
+                  backward=False):
+        x = rnd(B, H, W, cin, scale=0.5)
         w = rnd(9 * cin, cout, scale=(9 * cin) ** -0.5)
         b = rnd(cout, scale=0.1)
-        kw = dict(stride=stride, act=act, emit_stats=True)
-        if fold:
-            kw.update(norm_scale=rnd(1, cin, scale=0.2, off=1.0),
-                      norm_shift=rnd(1, cin, scale=0.2))
-        cases.append(('conv3x3', label,
-                      lambda: conv.conv3x3(x, w, b, **kw),
-                      lambda: conv.conv3x3_plain(x, w, b, **kw)))
+        k = w.reshape(3, 3, cin, cout).permute(3, 2, 0, 1).contiguous()
+        a = rnd(B, cin, scale=0.2, off=1.0) if fold else None
+        t = rnd(B, cin, scale=0.2) if fold else None
+        Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+        flop = 2 * 9 * cin * cout * B * Ho * Wo
+        n_out = B * Ho * Wo * cout
+        if not backward:
+            kw = dict(stride=stride, act=act, emit_stats=True, norm_scale=a,
+                      norm_shift=t)
+            cases.append(dict(
+                name='conv3x3', label=label,
+                kernel=lambda: conv.conv3x3(x, w, b, **kw),
+                plain=lambda: conv.conv3x3_plain(x, w, b, **kw),
+                library=lambda: F.conv2d(nchw(x), k, b, stride=stride,
+                                         padding=1),
+                stats=2, flop=flop,
+                bytes=nbytes(x, w, b, a, t) + 4 * n_out + 8 * B * cout))
+            return
+        go = rnd(B, H, W, cout)
+        kw = dict(act=act, norm_scale=a, norm_shift=t)
+        # the input and the weight gradient, and z again where swish needs it
+        cases.append(dict(
+            name='conv3x3_bwd', label=label,
+            kernel=lambda: conv.conv3x3_backward_kernel(x, w, b, go, act, a,
+                                                        t),
+            plain=lambda: conv.conv3x3_backward_plain(x, w, b, go, **kw),
+            library=lambda: torch.ops.aten.convolution_backward(
+                nchw(go), nchw(x), k, [cout], [1, 1], [1, 1], [1, 1], False,
+                [0, 0], 1, [True, True, True]),
+            stats=0, flop=flop * (3 if act else 2),
+            bytes=nbytes(x, go, w, b, a, t, x, w, b)))
 
-    conv_case('downs_0 6->64 %dx%d stats' % (H0, W0), H0, W0, 6, 64)
-    conv_case('conv1 192->64 %dx%d fold+swish+stats' % (H0, W0), H0, W0,
+    conv_case('downs_0 6->64 %dx%d stats' % (H0, W0), 1, H0, W0, 6, 64)
+    conv_case('conv1 192->64 %dx%d fold+swish+stats' % (H0, W0), 1, H0, W0,
               192, 64, fold=True, act='swish')
-    conv_case('downsample 64->64 stride 2 %dx%d stats' % (H0, W0), H0, W0,
+    conv_case('downsample 64->64 stride 2 %dx%d stats' % (H0, W0), 1, H0, W0,
               64, 64, stride=2)
     conv_case('upsample 128->4x128 packed %dx%d stats' % (H0 // 2, W0 // 2),
-              H0 // 2, W0 // 2, 128, 512)
+              1, H0 // 2, W0 // 2, 128, 512)
 
     x = rnd(1, H0, W0, 192, scale=0.5)
     w1, b1 = rnd(192, 64, scale=192 ** -0.5), rnd(64, scale=0.1)
-    cases.append(('conv1x1', 'res_conv 192->64 %dx%d' % (H0, W0),
-                  lambda: conv.conv1x1(x, w1, b1),
-                  lambda: conv.conv1x1_plain(x, w1, b1)))
+    cases.append(dict(
+        name='conv1x1', label='res_conv 192->64 %dx%d' % (H0, W0),
+        kernel=lambda: conv.conv1x1(x, w1, b1),
+        plain=lambda: conv.conv1x1_plain(x, w1, b1),
+        library=lambda: torch.addmm(b1, x.reshape(-1, 192), w1),
+        stats=0, flop=2 * 192 * 64 * H0 * W0,
+        bytes=nbytes(x, w1, b1) + 4 * 64 * H0 * W0))
     xs = rnd(1, H0 // 8, W0 // 8, 1024)
-    cases.append(('gn1_stats', 'C=1024 %dx%d' % (H0 // 8, W0 // 8),
-                  lambda: stats.gn1_stats(xs),
-                  lambda: stats.gn1_stats_plain(xs)))
+    cases.append(dict(
+        name='gn1_stats', label='C=1024 %dx%d' % (H0 // 8, W0 // 8),
+        kernel=lambda: stats.gn1_stats(xs),
+        plain=lambda: stats.gn1_stats_plain(xs),
+        library=None, stats=2, flop=3 * xs.numel(),
+        bytes=nbytes(xs) + 8 * 1024))
+
+    # the backward kernels at the train path's shapes
+    B, T = KERNEL_BATCH, TRAIN_NET
+    for C, s in ((64, 1), (128, 2), (256, 4), (512, 8), (512, 16)):
+        H = T // s
+        h, att, w, b, kw, flop = akgm_operands(B, H, H, C)
+        go = rnd(B, H, H, C)
+        cases.append(dict(
+            name='akgm_tail_bwd',
+            label='B=%d C=%d %dx%d fold+attw' % (B, C, H, H),
+            kernel=lambda h=h, att=att, w=w, b=b, go=go, kw=kw:
+                akgm.akgm_block_tail_backward_kernel(
+                    h, att, w, b, go, G, kw['norm_scale'], kw['norm_shift'],
+                    kw['attw']),
+            plain=lambda h=h, att=att, w=w, b=b, go=go, kw=kw:
+                akgm.akgm_block_tail_backward_plain(h, att, w, b, go, G,
+                                                    **kw),
+            library=None, stats=0, flop=3 * flop,
+            bytes=nbytes(h, go, att, w, b, *kw.values(), h, att, w, b,
+                         kw['attw'])))
+    bw = dict(backward=True)
+    conv_case('B=%d downs_0 6->64 %dx%d' % (B, T, T), B, T, T, 6, 64, **bw)
+    conv_case('B=%d conv1 192->64 %dx%d fold+swish' % (B, T, T), B, T, T,
+              192, 64, fold=True, act='swish', **bw)
+    conv_case('B=%d conv1 384->128 %dx%d fold+swish' % (B, T // 2, T // 2),
+              B, T // 2, T // 2, 384, 128, fold=True, act='swish', **bw)
+    conv_case('B=%d conv1 1024->512 %dx%d fold+swish' % (B, T // 8, T // 8),
+              B, T // 8, T // 8, 1024, 512, fold=True, act='swish', **bw)
+    conv_case('B=%d upsample 128->4x128 packed %dx%d' % (B, T // 2, T // 2),
+              B, T // 2, T // 2, 128, 512, **bw)
+    conv_case('B=%d final 64->3 %dx%d' % (B, T, T), B, T, T, 64, 3, **bw)
     return cases
 
 
 def flat(out):
-    if isinstance(out, tuple):
+    if isinstance(out, (tuple, list)):
         return [t for o in out for t in flat(o)]
     return [out]
 
@@ -171,53 +293,61 @@ def flat(out):
 def phase_kernels(dev, seed, results):
     import torch
     gen = torch.Generator(dev).manual_seed(seed)
-    for name, label, kernel, plain in kernel_cases(gen, dev):
-        got, want = flat(kernel()), flat(plain())
+    for case in kernel_cases(gen, dev):
+        name, label = case['name'], case['label']
+        got, want = flat(case['kernel']()), flat(case['plain']())
         torch.cuda.synchronize()
-        # tolerances, float32 on both sides: a tensor output within 1e-4 of
-        # max(1, its largest magnitude); (B, C) sums and sums of squares of
-        # up to 3.6 M values, added in another order (atomics), within 1e-5
-        # of the largest sum of squares
-        n_out = len(got) - (0 if name == 'conv1x1' else 2)
+        # tolerances, float32 on both sides: a tensor output (the gradients
+        # of K5 and K6 among them, whose weight, bias and attention parts
+        # are sums over up to 0.66 M pixels added with atomics) within 1e-4
+        # of max(1, its largest magnitude); (B, C) sums and sums of squares
+        # of up to 3.6 M values, added in another order (atomics), within
+        # 1e-5 of the largest sum of squares
+        n_out = len(got) - case['stats']
+        if len(got) != len(want):
+            fail('%s %s: %d results, plain gives %d'
+                 % (name, label, len(got), len(want)))
         stat_scale = want[-1].abs().max().item()
-        errs = []
+        errs, rel = [], 0.0
         for i, (g, w) in enumerate(zip(got, want)):
+            if g.shape != w.shape:
+                fail('%s %s: result %d has shape %s, plain %s'
+                     % (name, label, i, tuple(g.shape), tuple(w.shape)))
             errs.append((g - w).abs().max().item())
-            tol = (1e-4 * max(1.0, w.abs().max().item()) if i < n_out
-                   else 1e-5 * stat_scale)
+            big = w.abs().max().item()
+            tol = 1e-4 * max(1.0, big) if i < n_out else 1e-5 * stat_scale
             if not errs[-1] <= tol:
                 fail('%s %s: result %d max abs err %.3e > tol %.3e'
                      % (name, label, i, errs[-1], tol))
-        err = errs[0]   # the output tensor's (gn1_stats: the sums')
-        ms = timed(kernel, 5)
-        plain_ms = timed(plain, 5)
-        r = results.setdefault(name, {'max_abs_err': 0.0, 'ms': 0.0,
-                                      'plain_ms': 0.0})
+            rel = max(rel, errs[-1] / max(big, 1e-30))
+        del got, want
+        err = errs[0]   # the first output's (gn1_stats: the sums')
+        ms = timed(case['kernel'], 5)
+        plain_ms = timed(case['plain'], 5)
+        lib_ms = timed(case['library'], 5) if case['library'] else None
+        t_bytes = 1e3 * case['bytes'] / HBM_BYTES_PER_S
+        t_flop = 1e3 * case['flop'] / FP32_FLOP_PER_S
+        r = results.setdefault(name, {
+            'max_abs_err': 0.0, 'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0,
+            'bytes_ms': 0.0, 'flop_ms': 0.0, 'library_ms': None})
         r['max_abs_err'] = max(r['max_abs_err'], err)
         r['ms'] += ms
         r['plain_ms'] += plain_ms
-        say('kernels', '%-9s %-44s max_abs_err %.3e  kernel %.3f ms  '
-            'plain %.3f ms' % (name, label, err, ms, plain_ms))
-        del got, want
+        r['bound_ms'] += max(t_bytes, t_flop)
+        r['bytes_ms'] += t_bytes
+        r['flop_ms'] += t_flop
+        if lib_ms is not None:
+            r['library_ms'] = (r['library_ms'] or 0.0) + lib_ms
+        say('kernels', '%-13s %-44s max_abs_err %.3e (largest rel %.1e)  '
+            'kernel %.3f ms  plain %.3f ms  library %s  bound %.3f ms (%s)'
+            % (name, label, err, rel, ms, plain_ms,
+               'none' if lib_ms is None else '%.3f ms' % lib_ms,
+               max(t_bytes, t_flop),
+               'bytes' if t_bytes > t_flop else 'operations'))
         torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------- phases 3-5
-def psnr_uint8(a, b):
-    """The validation PSNR of images in [-1, 1] after their uint8
-    conversion (the formula of ucdir_tpu/metrics/core.py, which this script
-    does not import: it runs without the JAX package)."""
-    import numpy as np
-
-    def u8(x):
-        return np.round((np.clip(x, -1, 1) + 1) / 2 * 255.0)
-
-    mse = np.mean((u8(a) - u8(b)) ** 2)
-    if mse == 0:
-        return float('inf')
-    return 20 * math.log10(255.0 / math.sqrt(mse))
-
-
 def sid_model():
     from ucdir_tpu_torch.configs import SID_MODEL, SID_VAL_SCHEDULE
     model = copy.deepcopy(SID_MODEL)
@@ -277,6 +407,7 @@ def phase_slice(dev, seed):
 def phase_main(dev, seed):
     import numpy as np
     import torch
+    from ucdir_tpu_torch.metrics import core as Metrics
     from ucdir_tpu_torch.ops import _build
     from ucdir_tpu_torch.trainer import Trainer
 
@@ -303,10 +434,12 @@ def phase_main(dev, seed):
     if sr.shape != (11, 96, 96, 3) or not np.isfinite(sr).all():
         fail('main: snapshots have shape %s or non-finite values'
              % (sr.shape,))
-    psnr = psnr_uint8(sr[-1], hr)
+    psnr = Metrics.calculate_psnr(Metrics.tensor2img(sr[-1]),
+                                  Metrics.tensor2img(hr))
     if not math.isfinite(psnr):
         fail('main: PSNR %r' % psnr)
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k, n in launches.items()
+               if n == 0 and OWNER[k] == 'main']
     if missing:
         fail('main: kernels never launched on the main path: %s' % missing)
     say('main', 'Trainer.test 50 steps, full width, 96x96: %.2f s, PSNR %.4f '
@@ -351,12 +484,215 @@ def phase_sid(dev, seed):
     if sr.shape != frame.shape or not torch.isfinite(sr).all():
         fail('sid: output has shape %s or non-finite values'
              % (tuple(sr.shape),))
-    say('sid', 'frame %dx%d (network %dx%d), %d steps: %.3f s per frame; '
+    say('sid', 'frame %dx%d (network %dx%d), %d steps: %.3f s for the frame; '
         'predictor + guide maps %.1f ms, %.1f ms per DY3h step, peak %.3f '
         'GiB, launches %s'
         % (SID_FRAME + NET_FRAME + (steps, t_frame, 1e3 * t_pre,
                                     1e3 * (t_frame - t_pre) / steps, peak,
                                     json.dumps(launches))))
+
+
+# ------------------------------------------------------------- phases 6-7
+def phase_train_slice(dev, seed):
+    """Two AdamW steps of the full-width model on a 64 x 64 batch of 2 with
+    dropout off and injected draws, on the card (kernels K1..K6) and on the
+    host (their plain versions)."""
+    import numpy as np
+    import torch
+    from ucdir_tpu_torch.configs import SID_MODEL
+    from ucdir_tpu_torch.schedule import make_schedule
+    from ucdir_tpu_torch.train import (create_train_state, make_optimizer,
+                                       train_step)
+
+    rng = np.random.default_rng(seed + 3)
+    hr = rng.uniform(-0.8, 0.8, (2, 64, 64, 3)).astype(np.float32)
+    batch = {'HR': hr, 'SR': (0.2 * hr + rng.normal(0, 0.05, hr.shape))
+             .astype(np.float32)}
+    draws = [{'gammas': rng.uniform(0.3, 0.95, (2, 1)).astype(np.float32),
+              'noise': rng.standard_normal(hr.shape).astype(np.float32)}
+             for _ in range(2)]
+    host = build_model(seed)      # eval(): dropout off, autograd on
+    card = copy.deepcopy(host).to(dev)
+    run = {}
+    for name, model, d in (('cuda', card, dev), ('cpu', host, 'cpu')):
+        state = create_train_state(
+            model, make_optimizer(model.parameters(), {'type': 'adamw',
+                                                       'lr': 1e-4}))
+        sched = make_schedule(SID_MODEL['beta_schedule']['train'], d)
+        on = lambda tree: {k: torch.from_numpy(v).to(d)
+                           for k, v in tree.items()}
+        t = time.perf_counter()
+        losses, grads = [], None
+        for step_draws in draws:
+            losses.append(train_step(state, sched, on(batch),
+                                     draws=on(step_draws)).item())
+            if grads is None:
+                grads = {k: p.grad.detach().cpu().clone()
+                         for k, p in model.named_parameters()}
+        run[name] = (losses, grads,
+                     {k: v.detach().cpu() for k, v in
+                      model.state_dict().items()}, time.perf_counter() - t)
+    (l_c, g_c, p_c, s_c), (l_h, g_h, p_h, s_h) = run['cuda'], run['cpu']
+    # float32 on both sides, sums in other orders (atomics, cuDNN, oneDNN)
+    # through ~70 layers forward and back. Limits from readings on an H100
+    # (PERF.md): the first loss within 1e-5 rel and the second, taken on
+    # weights that AdamW's sign-like first step has moved, within 1e-4 rel
+    # (readings: equal to 8 digits); a gradient within 1e-3 of that
+    # parameter's largest gradient plus 1e-6 (the L1 loss's gradient is a
+    # sign, which flips where the prediction error rounds across 0); a
+    # parameter after 2 steps of lr 1e-4 within 4.04e-4, the most that
+    # AdamW's sign-like first steps can differ (2 * lr each way).
+    for i, (a, b) in enumerate(zip(l_c, l_h)):
+        tol = 1e-5 if i == 0 else 1e-4
+        if not (math.isfinite(a) and abs(a - b) <= tol * abs(b)):
+            fail('train_slice: step %d loss %.8g on the card, %.8g on the '
+                 'host' % (i, a, b))
+    g_err = p_err = p_mean = 0.0
+    for k, want in g_h.items():
+        if g_c[k] is None or not torch.isfinite(g_c[k]).all():
+            fail('train_slice: gradient of %s missing or non-finite' % k)
+        scale = want.abs().max().item()
+        err = (g_c[k] - want).abs().max().item()
+        if not err <= 1e-3 * scale + 1e-6:
+            fail('train_slice: gradient of %s: max abs err %.3e, largest '
+                 'gradient %.3e' % (k, err, scale))
+        g_err = max(g_err, err / max(scale, 1e-30))
+    n = 0
+    for k, want in p_h.items():
+        diff = (p_c[k] - want).abs()
+        if not diff.max().item() <= 4.04e-4:
+            fail('train_slice: parameter %s differs by %.3e after 2 steps'
+                 % (k, diff.max().item()))
+        p_err = max(p_err, diff.max().item())
+        p_mean += diff.sum().item()
+        n += diff.numel()
+    say('train_slice', 'full width, 64x64, batch 2, 2 AdamW steps: losses '
+        'card %s host %s; largest gradient err %.3e of its parameter\'s '
+        'largest gradient (tol 1e-3); parameters after: max diff %.3e (tol '
+        '4.04e-4), mean diff %.3e; card %.2f s, host %.2f s'
+        % (json.dumps(l_c), json.dumps(l_h), g_err, p_err, p_mean / n, s_c,
+           s_h))
+
+
+def phase_train(dev, seed):
+    """The train half of the Trainer at full width and the SID train shape:
+    optimize_parameters on one seeded batch, save_network, reload, test."""
+    import numpy as np
+    import torch
+    from ucdir_tpu_torch.configs import SID_MODEL
+    from ucdir_tpu_torch.ops import _build
+    from ucdir_tpu_torch.train import step_loss
+    from ucdir_tpu_torch.trainer import Trainer
+
+    steps, crop = TRAIN_STEPS, TRAIN_CROP
+    rng = np.random.default_rng(seed + 4)
+    yy, xx = np.mgrid[0:crop, 0:crop] / (crop - 1.0)
+    hr = np.stack([[np.sin((3 + i) * xx + c) * np.cos((2 + i) * yy - c)
+                    for c in range(3)] for i in range(TRAIN_BATCH)])
+    hr = np.ascontiguousarray(hr.transpose(0, 2, 3, 1)).astype(np.float32)
+    lq = np.clip(0.1 * hr + rng.normal(0, 0.1, hr.shape), -1,
+                 1).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        opt = {'phase': 'train', 'model': copy.deepcopy(SID_MODEL),
+               'path': {'resume_state': None,
+                        'checkpoint': os.path.join(tmp, 'checkpoint')},
+               'train': {'optimizer': {'type': 'adamw', 'lr': 1e-4},
+                         'ema_scheduler': {'use': True,
+                                           'step_start_ema': 5000,
+                                           'update_ema_every': 1,
+                                           'ema_decay': 0.9999}}}
+        trainer = Trainer(opt, device=dev, seed=seed)
+        if not trainer.model.training:
+            fail('train: the model is not in train mode (dropout off)')
+        batch = TRAIN_BATCH
+        while True:   # halved while a step does not fit
+            trainer.feed_data({'HR': hr[:batch], 'SR': lq[:batch]})
+            torch.cuda.reset_peak_memory_stats(dev)
+            _build.reset_launches()
+            try:
+                trainer.optimize_parameters()   # also the warm-up step
+                break
+            except torch.cuda.OutOfMemoryError:
+                if batch == 1:
+                    raise
+                trainer.state.optimizer.zero_grad(set_to_none=True)
+                trainer.iter = trainer.state.step = 0
+                batch //= 2
+                torch.cuda.empty_cache()
+        losses = [trainer.get_current_log()['l_pix']]
+        per_step = dict(_build.LAUNCHES)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(steps - 1):
+            trainer.optimize_parameters()
+            losses.append(trainer.get_current_log()['l_pix'])
+        torch.cuda.synchronize()
+        secs = (time.perf_counter() - t) / (steps - 1)
+        launches = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        if not all(math.isfinite(l) for l in losses):
+            fail('train: non-finite loss in %s' % losses)
+        # every step draws its own noise level, noise and dropout mask, so
+        # the steps' losses are not comparable one to one: the loss must
+        # fall on the first step's own draws, taken again with the weights
+        # after the last step
+        with torch.no_grad():
+            again = step_loss(trainer.model, trainer.schedules['train'],
+                              {k: trainer.to_device(trainer.data[k])
+                               for k in ('HR', 'SR')},
+                              trainer.step_generator(0)).item()
+        if not again < losses[0]:
+            fail('train: the loss on the first step\'s draws did not fall: '
+                 '%.6f before, %.6f after %d steps' % (losses[0], again,
+                                                       steps))
+        missing = [k for k, n in launches.items() if n == 0]
+        if missing:
+            fail('train: kernels never launched on the train path: %s'
+                 % missing)
+        say('train', 'Trainer.optimize_parameters, full width, crop %d '
+            '(network %dx%d), batch %d, AdamW 1e-4, dropout 0.1, no '
+            'activation checkpointing: %.3f s per step (mean of %d after the '
+            'first), losses %s, the first step\'s draws again after the last '
+            'step %.6f, peak %.3f GiB, launches per step %s, in %d '
+            'steps %s' % (crop, TRAIN_NET, TRAIN_NET, batch, secs, steps - 1,
+                          json.dumps([round(l, 6) for l in losses]), again,
+                          peak,
+                          json.dumps(per_step), steps, json.dumps(launches)))
+
+        prefix = trainer.save_network(1, steps)
+        live = {k: v.detach().clone()
+                for k, v in trainer.model.state_dict().items()}
+        ema = {k: v.clone() for k, v in trainer.state.ema_params.items()}
+        del trainer
+        torch.cuda.empty_cache()
+        val_model = sid_model()
+        resumed = Trainer(dict(opt, path=dict(opt['path'],
+                                              resume_state=prefix)),
+                          device=dev, seed=seed)
+        if resumed.iter != steps or any(
+                not torch.equal(v, live[k])
+                for k, v in resumed.model.state_dict().items()):
+            fail('train: the resumed trainer differs from the one saved')
+        del resumed
+        val = Trainer({'phase': 'val', 'model': val_model,
+                       'path': {'resume_state': prefix},
+                       'train': opt['train']}, device=dev, seed=seed)
+        if any(not torch.equal(v, ema[k])
+               for k, v in val.model.state_dict().items()):
+            fail('train: the validation trainer did not load the EMA weights')
+        val.feed_data({'SR': lq[:1, :96, :96], 'HR': hr[:1, :96, :96]})
+        t = time.perf_counter()
+        val.test(continous=False)
+        torch.cuda.synchronize()
+        sr = val.get_current_visuals()['SR']
+        if sr.shape != (1, 96, 96, 3) or not np.isfinite(sr).all():
+            fail('train: test after the reload gave shape %s or non-finite '
+                 'values' % (sr.shape,))
+        say('train', 'save_network -> %s_{gen,gen_ema,opt}.pth, resumed at '
+            'step %d bit for bit, EMA weights reloaded, Trainer.test 96x96, '
+            '50 steps: %.2f s' % (os.path.basename(prefix), steps,
+                                  time.perf_counter() - t))
+    return launches
 
 
 def main(argv=None):
@@ -388,16 +724,23 @@ def main(argv=None):
     phase_build()
     phase_kernels(dev, args.seed, results)
     phase_slice(dev, args.seed)
-    launches = phase_main(dev, args.seed)
+    counts = {'main': phase_main(dev, args.seed)}
     phase_sid(dev, args.seed)
+    phase_train_slice(dev, args.seed)
+    counts['train'] = phase_train(dev, args.seed)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = results[name]
-        kernels.append({'name': name, 'route': 'cuda', 'source': source,
-                        'replaces': replaces, 'launches': launches[name],
-                        'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
-                        'plain_ms': r['plain_ms']})
+        kernels.append({
+            'name': name, 'route': 'cuda', 'source': source,
+            'replaces': replaces, 'launches': counts[OWNER[name]][name],
+            'launches_by_path': {k: v[name] for k, v in counts.items()},
+            'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
+            'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
+            'bound_by': ('bytes' if r['bytes_ms'] > r['flop_ms']
+                         else 'operations'),
+            'library_ms': r['library_ms']})
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -9,7 +9,9 @@ not have.)
 
 Tolerance: float32 on both sides, 1e-4 of max(1, |reference|) for tensors
 and 1e-5 of the largest sum of squares for the (B, C) statistics, which
-the kernels add with atomics in any order.
+the kernels add with atomics in any order. The backward kernels K5 and K6
+also add their weight, bias and attention gradients with atomics: every
+output of theirs within 1e-4 of max(1, largest |reference| of that output).
 """
 import pytest
 import torch
@@ -114,6 +116,93 @@ def test_gn1_stats(dev, shape):
     gen = torch.Generator(dev).manual_seed(4)
     x = rnd(gen, *shape, off=0.3)
     check(stats.gn1_stats(x), stats.gn1_stats_plain(x), 2)
+
+
+@pytest.mark.parametrize('B,H,W,C', [(2, 13, 21, 64), (1, 9, 130, 128),
+                                     (2, 18, 18, 512), (1, 40, 50, 256)])
+@pytest.mark.parametrize('fold_attw', [False, True])
+def test_akgm_tail_backward(dev, B, H, W, C, fold_attw):
+    gen, G = torch.Generator(dev).manual_seed(5), 8
+    h, go = rnd(gen, B, H, W, C, scale=0.5), rnd(gen, B, H, W, C)
+    att = rnd(gen, B, H, W, G, scale=0.5)
+    w = rnd(gen, 9 * C // G, C * G, scale=(9 * C / G) ** -0.5)
+    b = rnd(gen, C * G, scale=0.1)
+    kw = {}
+    if fold_attw:
+        kw.update(norm_scale=rnd(gen, B, C, scale=0.2, off=1.0),
+                  norm_shift=rnd(gen, B, C, scale=0.2),
+                  attw=rnd(gen, B, G, scale=0.3, off=1.0))
+    n = _build.LAUNCHES['akgm_tail_bwd']
+    got = akgm.akgm_block_tail_backward(h, att, w, b, go, G, **kw)
+    assert _build.LAUNCHES['akgm_tail_bwd'] == n + 1
+    want = akgm.akgm_block_tail_backward_plain(h, att, w, b, go, G, **kw)
+    # got: (dh, datt, dw, dbias, dres, dns, dnt, dattw); want: K5's tuple
+    check((got[1], got[2], got[3]), (want[1], want[2], want[3]), 0)
+    if fold_attw:
+        a = kw['norm_scale'][:, None, None, :]
+        check((got[0], got[7]), (want[0] * a, want[4]), 0)
+    else:
+        check(got[0], want[0], 0)
+        assert got[5] is None and got[6] is None and got[7] is None
+
+
+@pytest.mark.parametrize('B,H,W,cin,cout', [
+    (2, 11, 17, 6, 64), (1, 20, 33, 192, 64), (1, 9, 15, 70, 3),
+    (2, 18, 18, 1024, 512), (1, 6, 10, 128, 512), (1, 64, 80, 64, 64)])
+@pytest.mark.parametrize('fold', [False, True])
+@pytest.mark.parametrize('act', [None, 'swish'])
+def test_conv3x3_backward(dev, B, H, W, cin, cout, fold, act):
+    gen = torch.Generator(dev).manual_seed(6)
+    x, go = rnd(gen, B, H, W, cin, scale=0.5), rnd(gen, B, H, W, cout)
+    w = rnd(gen, 9 * cin, cout, scale=(9 * cin) ** -0.5)
+    b = rnd(gen, cout, scale=0.1)
+    kw = dict(act=act)
+    if fold:
+        kw.update(norm_scale=rnd(gen, B, cin, scale=0.2, off=1.0),
+                  norm_shift=rnd(gen, B, cin, scale=0.2))
+    n = _build.LAUNCHES['conv3x3_bwd']
+    got = conv.conv3x3_backward(x, w, b, go, **kw)
+    assert _build.LAUNCHES['conv3x3_bwd'] == n + 1
+    dxh, dw, db = conv.conv3x3_backward_plain(x, w, b, go, **kw)
+    if fold:
+        dxh = dxh * kw['norm_scale'][:, None, None, :]
+    check(got[:3], (dxh, dw, db), 0)
+
+
+def test_functions_backward_through_the_kernels(dev):
+    """loss.backward() through conv3x3, conv1x1, gn1_stats and
+    akgm_block_tail on the card against the plain versions' autograd."""
+    gen, G, C = torch.Generator(dev).manual_seed(7), 8, 64
+    x = rnd(gen, 2, 12, 10, 24, scale=0.5)
+    w3 = rnd(gen, 9 * 24, C, scale=0.07)
+    w1 = rnd(gen, 24, C, scale=0.2)
+    wg = rnd(gen, 9 * C // G, C * G, scale=0.1)
+    b3, b1, bg = (rnd(gen, n, scale=0.1) for n in (C, C, C * G))
+    att = rnd(gen, 2, 12, 10, G, scale=0.5)
+    leaves = [t.requires_grad_() for t in (x, w3, w1, wg, b3, b1, bg, att)]
+
+    def net(c3, c1, st, tail):
+        s, q = st(x)
+        a = 1.0 / (1.0 + q.mean(1, keepdim=True)) + 0 * s
+        h, (hs, hq) = c3(x, w3, b3, act='swish', norm_scale=a,
+                         norm_shift=0.1 * s, emit_stats=True)
+        out, (os_, oq) = tail(h, att, wg, bg, c1(x, w1, b1), G,
+                              norm_scale=1 + 1e-3 * hs, norm_shift=1e-3 * hq,
+                              emit_stats=True)
+        return (out * out).mean() + os_.mean() + 1e-2 * oq.mean()
+
+    n5, n6 = (_build.LAUNCHES[k] for k in ('akgm_tail_bwd', 'conv3x3_bwd'))
+    got = torch.autograd.grad(net(conv.conv3x3, conv.conv1x1,
+                                  stats.gn1_stats, akgm.akgm_block_tail),
+                              leaves)
+    assert _build.LAUNCHES['akgm_tail_bwd'] == n5 + 1
+    assert _build.LAUNCHES['conv3x3_bwd'] == n6 + 1
+    want = torch.autograd.grad(net(conv.conv3x3_plain, conv.conv1x1_plain,
+                                   stats.gn1_stats_plain,
+                                   akgm.akgm_block_tail_plain), leaves)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= 1e-4 * max(
+            1.0, w.abs().max().item())
 
 
 def test_wrappers_raise_on_bad_operands(dev):

@@ -179,4 +179,5 @@ def test_check_refuses_host_and_half_tensors():
     with pytest.raises(ValueError, match='CUDA'):
         _build.check('x', torch.zeros(2, 3))
     assert _build.LAUNCHES.keys() == {'akgm_tail', 'conv3x3', 'conv1x1',
-                                      'gn1_stats'}
+                                      'gn1_stats', 'akgm_tail_bwd',
+                                      'conv3x3_bwd'}

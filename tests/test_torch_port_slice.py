@@ -154,7 +154,7 @@ def test_cli_val_on_cpu(tmp_path):
 def test_cli_refuses_what_is_not_ported():
     from ucdir_tpu_torch import sr
     for extra in (['--compute_dtype', 'bf16'], ['--sampler', 'ddim'],
-                  ['-p', 'train'], ['--val_patch'], ['--val_batch', '2']):
+                  ['--val_patch'], ['--val_batch', '2'], ['--search_params']):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             sr.main(['-p', 'val', '--device', 'cpu'] + extra)
 
@@ -167,7 +167,7 @@ def test_port_imports_no_jax():
         '                               "ucdir_tpu_torch."):\n'
         '    importlib.import_module(m.name)\n'
         'bad = [k for k in sys.modules if k.split(".")[0] in\n'
-        '       ("jax", "jaxlib", "flax", "optax", "orbax")]\n'
+        '       ("ucdir_tpu", "jax", "jaxlib", "flax", "optax", "orbax")]\n'
         'assert not bad, bad\n')
     proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)

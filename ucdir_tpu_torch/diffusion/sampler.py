@@ -2,6 +2,8 @@
 `ucdir_tpu/diffusion/sampler.py` (reference: model/diffusion.py:160-211,
 473-478).
 
+`sample_continuous_gamma` draws the training-time noise level.
+
 Noise is injectable: `noise(shape)` is called once for the initial draw and
 then once per step, t = T-1 down to 0 (the t = 0 draw is multiplied by 0, as
 in the JAX scan). The default draws from a `torch.Generator`.
@@ -26,6 +28,26 @@ def generator_noise(generator: torch.Generator) -> Noise:
         return torch.randn(shape, generator=generator,
                            device=generator.device, dtype=torch.float32)
     return draw
+
+
+def sample_continuous_gamma(sched: NoiseSchedule, batch: int,
+                            generator: Optional[torch.Generator] = None,
+                            t: Optional[int] = None, u=None):
+    """The training-time noise level (reference diffusion.py:315-331): one t
+    per batch in [1, T], then per-sample gamma uniform between
+    sqrt_alphas_cumprod_prev[t - 1] and [t]. Returns (batch, 1) on the
+    schedule's device. The draws come from `generator`, or are injected: `t`
+    an int, `u` (batch, 1) uniforms in [0, 1)."""
+    dev = sched.betas.device
+    if t is None:
+        t = int(torch.randint(1, sched.num_timesteps + 1, (), device=dev,
+                              generator=generator))
+    if u is None:
+        u = torch.rand(batch, 1, device=dev, dtype=sched.betas.dtype,
+                       generator=generator)
+    lo = sched.sqrt_alphas_cumprod_prev[t - 1]
+    hi = sched.sqrt_alphas_cumprod_prev[t]
+    return lo + torch.as_tensor(u, device=dev) * (hi - lo)
 
 
 def _snapshot_slots(T: int):

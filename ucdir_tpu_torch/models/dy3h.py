@@ -45,6 +45,14 @@ class ResnetBlocWithAttn(nn.Module):
         return x, xs
 
 
+def dropout_mask(x, p: float, generator=None):
+    """Inverted-dropout mask for x: 0 with probability p, else 1 / (1 - p),
+    drawn from an explicit generator."""
+    keep = torch.rand(x.shape, device=x.device, dtype=x.dtype,
+                      generator=generator) >= p
+    return keep.to(x.dtype) / (1. - p)
+
+
 def _cat_stats(a, b):
     if a is None or b is None:
         return None
@@ -138,9 +146,12 @@ class DY3h(nn.Module):
                 out.append((f'ups.{i}', layer, s))
         return out
 
-    def naiveforward(self, x, noise_level, guide, guide_maps=None):
+    def naiveforward(self, x, noise_level, guide, guide_maps=None,
+                     dropout_generator=None):
         """x (B, H, W, in_channel) with H, W multiples of 32; guide_maps:
-        optional {block name: maps} from compute_guide_maps."""
+        optional {block name: maps} from compute_guide_maps. In train() mode
+        the head's dropout draws its mask from `dropout_generator` (a
+        torch.Generator on x's device; None: the global generator)."""
         gm = guide_maps or {}
         t = self.noise_level_mlp(noise_level)
 
@@ -168,16 +179,19 @@ class DY3h(nn.Module):
         # head: GroupNorm -> swish -> dropout -> conv3x3 (K2)
         norm, _, drop, conv = self.final_conv
         a, t_ = norm1_affine(x, norm.weight, norm.bias, xs)
-        x = drop(swish(x * a[:, None, None, :] + t_[:, None, None, :]))
+        x = swish(x * a[:, None, None, :] + t_[:, None, None, :])
+        if self.training and drop.p > 0:
+            x = x * dropout_mask(x, drop.p, dropout_generator)
         return conv(x.contiguous())
 
-    def forward(self, x, noise_level, guide, guide_maps=None):
+    def forward(self, x, noise_level, guide, guide_maps=None,
+                dropout_generator=None):
         """Pad-to-/32 wrapper (ucdir.py:295-307). guide_maps, if given, come
         from the /32-padded guide."""
         x, pads = pad_to_multiple(x, 32)
         guide, _ = pad_to_multiple(guide, 32)
-        return crop_pad(self.naiveforward(x, noise_level, guide, guide_maps),
-                        pads)
+        return crop_pad(self.naiveforward(x, noise_level, guide, guide_maps,
+                                          dropout_generator), pads)
 
 
 def compute_guide_maps(module: DY3h, guide):

@@ -3,8 +3,10 @@
 
 The convolution modules keep the reference's parameter names and OIHW
 layout (`weight`, `bias`), so a reference state dict loads unchanged; each
-repacks its weight once into the kernel layout and caches the copy until the
-parameter changes (`load_state_dict`, `.to()`, any in-place update).
+repacks its weight into the kernel layout: under autograd as a differentiable
+view or copy, so the parameter gets its gradient, and without it once, cached
+until the parameter changes (`load_state_dict`, `.to()`, any in-place
+update).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from torch import nn
 
 from ucdir_tpu_torch.ops.conv import (conv1x1, conv3x3, pack_up_kernel,
                                       upconv2x)
+
 
 def simple_gate(x, dim=-1):
     x1, x2 = torch.chunk(x, 2, dim=dim)
@@ -67,8 +70,13 @@ def crop_pad(y, pads):
 
 
 def cached(module: nn.Module, name: str, fn, *params):
-    """fn() computed once and kept on `module` until one of `params` changes
-    (its storage or its version counter)."""
+    """The kernel-layout copy `fn()` of `params`. Where autograd is on and a
+    parameter requires grad, it is computed anew with autograd on, so the
+    gradient flows back to the parameter; otherwise (validation) it is
+    computed once and kept on `module` until one of `params` changes (its
+    storage or its version counter)."""
+    if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+        return fn().contiguous()
     key = tuple((p.data_ptr(), p._version) for p in params)
     store = module.__dict__.setdefault('_kernel_layout', {})
     hit = store.get(name)

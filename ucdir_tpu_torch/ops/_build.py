@@ -1,7 +1,8 @@
 """Builds the CUDA kernels of `csrc/` at first use and binds them with ctypes.
 
-`nvcc -gencode arch=compute_90a,code=sm_90a` compiles every `csrc/*.cu` into
-one shared library with a plain C interface under `ucdir_tpu_torch/_build/`,
+`nvcc -gencode arch=compute_90a,code=sm_90a` compiles every `csrc/*.cu`, one
+compiler process per source and all started together, and links them into one
+shared library with a plain C interface under `ucdir_tpu_torch/_build/`,
 named by a hash of the sources, so an edited kernel is rebuilt and an
 unchanged one is loaded as it is. Nothing is built or loaded at import: the
 CPU tests import every module, and only a CUDA tensor reaches `library()`.
@@ -29,7 +30,8 @@ GENCODE = 'arch=compute_90a,code=sm_90a'
 
 # Launches per kernel since the last reset_launches(), counted where each
 # wrapper launches its kernel and nowhere else.
-LAUNCHES = {'akgm_tail': 0, 'conv3x3': 0, 'conv1x1': 0, 'gn1_stats': 0}
+LAUNCHES = {'akgm_tail': 0, 'conv3x3': 0, 'conv1x1': 0, 'gn1_stats': 0,
+            'akgm_tail_bwd': 0, 'conv3x3_bwd': 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: pointers and the stream as void*, sizes and flags as int.
@@ -38,6 +40,8 @@ _SIGNATURES = {
     'conv3x3': [_P] * 8 + [_I] * 7 + [_P],
     'conv1x1': [_P] * 4 + [_I] * 6 + [_P],
     'gn1_stats': [_P] * 3 + [_I] * 3 + [_P],
+    'akgm_tail_bwd': [_P] * 15 + [_I] * 4 + [_P],
+    'conv3x3_bwd': [_P] * 11 + [_I] * 6 + [_P],
 }
 
 
@@ -78,15 +82,29 @@ def build() -> Path:
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
-    tmp = so.with_name(f'{so.stem}.{os.getpid()}.tmp')
-    cmd = [_nvcc(), '-gencode', GENCODE, '-std=c++17', '-O3', '-shared',
-           '-Xcompiler', '-fPIC', '-Xptxas=-v', '-o', str(tmp),
-           *map(str, cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix('.log').write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError('nvcc failed with exit code %d:\n%s'
-                           % (proc.returncode, proc.stderr))
+    nvcc, tag = _nvcc(), f'{so.stem}.{os.getpid()}'
+    objs = [so.with_name(f'{tag}.{f.stem}.o') for f in cu]
+    procs = [subprocess.Popen(
+        [nvcc, '-gencode', GENCODE, '-std=c++17', '-O3', '-Xcompiler',
+         '-fPIC', '-Xptxas=-v', '-c', '-o', str(o), str(f)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for f, o in zip(cu, objs)]
+    log = [p.communicate()[0] for p in procs]
+    tmp = so.with_name(f'{tag}.tmp')
+    bad = [f.name for f, p in zip(cu, procs) if p.returncode != 0]
+    if not bad:
+        link = subprocess.run([nvcc, '-shared', '-o', str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        log.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            bad = ['the link']
+    for o in objs:
+        o.unlink(missing_ok=True)
+    so.with_suffix('.log').write_text(''.join(log))
+    if bad:
+        raise RuntimeError('nvcc failed on %s:\n%s'
+                           % (', '.join(bad), ''.join(log)[-4000:]))
     os.replace(tmp, so)
     return so
 

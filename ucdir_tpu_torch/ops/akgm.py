@@ -1,5 +1,6 @@
-"""The AKGM block tail: kernel K1 (`csrc/akgm_tail.cu`) and its plain version.
-Counterpart of `ucdir_tpu/ops/akgm.py` and `ucdir_tpu/ops/akgm_pallas.py`.
+"""The AKGM block tail: kernel K1 (`csrc/akgm_tail.cu`), its backward kernel
+K5 (`csrc/akgm_tail_bwd.cu`) and their plain versions. Counterpart of
+`ucdir_tpu/ops/akgm.py` and `ucdir_tpu/ops/akgm_pallas.py`.
 
     hset = grouped_conv3x3(h * a + t) + bias   # (B, H, W, C * G), groups = G
     out  = swish(sum_j hset[..., c * G + j] * att[..., j] * attw[j]) + res
@@ -15,8 +16,8 @@ import torch
 import torch.nn.functional as F
 
 from ucdir_tpu_torch.ops import _build
-from ucdir_tpu_torch.ops.conv import swish
-from ucdir_tpu_torch.ops.stats import gn1_stats_plain
+from ucdir_tpu_torch.ops.conv import dswish, swish
+from ucdir_tpu_torch.ops.stats import fold_stats_grad, gn1_stats_plain
 
 
 def akgm_mix_reference(h, att_sp, w, bias, nset: int):
@@ -44,34 +45,19 @@ def akgm_block_tail_plain(h, att_sp, w, bias, res, nset: int, *,
     return (out, gn1_stats_plain(out)) if emit_stats else out
 
 
-def akgm_block_tail(h, att_sp, w, bias, res, nset: int, *, norm_scale=None,
-                    norm_shift=None, attw=None, emit_stats=False):
-    """`swish(akgm_mix(h * a + t, att * attw)) + res` as one pass.
-
-    h, res (B, H, W, C); att_sp (B, H, W, G); w (9 * C / G, C * G); bias
-    (C * G); norm_scale, norm_shift (B, C) or None; attw (B, G) or None.
-    With emit_stats, returns (out, (sum, sumsq)) of out per (batch, channel).
-    The kernel takes G = 8 and C a multiple of 64 (the SID widths 64..512).
-    """
-    if (norm_scale is None) != (norm_shift is None):
-        raise ValueError('norm_scale and norm_shift come together')
+def _akgm_block_tail_forward(h, att_sp, w, bias, res, nset, norm_scale,
+                             norm_shift, attw, emit_stats):
+    """(out, sum, sumsq), the last two None without emit_stats: K1 on a CUDA
+    tensor, its plain version on a CPU tensor."""
     if _build.on_host(h):
-        return akgm_block_tail_plain(
+        y = akgm_block_tail_plain(
             h, att_sp, w, bias, res, nset, norm_scale=norm_scale,
             norm_shift=norm_shift, attw=attw, emit_stats=emit_stats)
+        return (y[0], *y[1]) if emit_stats else (y, None, None)
     B, H, W, C = h.shape
-    if nset != 8 or C % 64:
-        raise ValueError('akgm_tail kernel: needs nset == 8 and C %% 64 == 0, '
-                         'got nset=%d, C=%d' % (nset, C))
-    dev = h.device
-    _build.check('h', h)
-    _build.check('att_sp', att_sp, (B, H, W, nset), device=dev)
-    _build.check('w', w, (9 * C // nset, C * nset), device=dev)
-    _build.check('bias', bias, (C * nset,), device=dev)
+    dev = _check_operands(h, att_sp, w, bias, nset, norm_scale, norm_shift,
+                          attw)
     _build.check('res', res, (B, H, W, C), device=dev)
-    _build.check('norm_scale', norm_scale, (B, C), device=dev)
-    _build.check('norm_shift', norm_shift, (B, C), device=dev)
-    _build.check('attw', attw, (B, nset), device=dev)
     out = torch.empty_like(h)
     s = q = None
     if emit_stats:
@@ -82,4 +68,141 @@ def akgm_block_tail(h, att_sp, w, bias, res, nset: int, *, norm_scale=None,
                   res.data_ptr(), _build.ptr(norm_scale),
                   _build.ptr(norm_shift), out.data_ptr(), _build.ptr(s),
                   _build.ptr(q), B, H, W, C, _build.stream(h))
-    return (out, (s, q)) if emit_stats else out
+    return out, s, q
+
+
+def _check_operands(h, att_sp, w, bias, nset, norm_scale, norm_shift, attw):
+    B, H, W, C = h.shape
+    if nset != 8 or C % 64:
+        raise ValueError('the AKGM kernels need nset == 8 and C %% 64 == 0, '
+                         'got nset=%d, C=%d' % (nset, C))
+    dev = h.device
+    _build.check('h', h)
+    _build.check('att_sp', att_sp, (B, H, W, nset), device=dev)
+    _build.check('w', w, (9 * C // nset, C * nset), device=dev)
+    _build.check('bias', bias, (C * nset,), device=dev)
+    _build.check('norm_scale', norm_scale, (B, C), device=dev)
+    _build.check('norm_shift', norm_shift, (B, C), device=dev)
+    _build.check('attw', attw, (B, nset), device=dev)
+    return dev
+
+
+def akgm_block_tail_backward_plain(h, att_sp, w, bias, go, nset: int, *,
+                                   norm_scale=None, norm_shift=None,
+                                   attw=None):
+    """The plain version of K5: (dhh, datt_sp, dw, dbias, dattw) of the block
+    tail for the output cotangent `go`, dhh the gradient of the affine's
+    output h * a + t and dattw None without attw. It materializes the
+    (B, H, W, C, G) candidates and their gradient, which K5 never writes."""
+    B, H, W, C = h.shape
+    cg = C // nset
+    if norm_scale is not None:
+        h = h * norm_scale[:, None, None, :] + norm_shift[:, None, None, :]
+    A = att_sp if attw is None else att_sp * attw[:, None, None, :]
+    k = w.reshape(3, 3, cg, C * nset).permute(3, 2, 0, 1)
+    hn = h.permute(0, 3, 1, 2)
+    z = F.conv2d(hn, k, bias, padding=1, groups=nset)      # (B, C * G, H, W)
+    z5 = z.permute(0, 2, 3, 1).reshape(B, H, W, C, nset)
+    o = torch.einsum('bhwcj,bhwj->bhwc', z5, A)
+    do = go * dswish(o)
+    dz = (do[..., None] * A[:, :, :, None, :]).reshape(B, H, W, C * nset)
+    dz = dz.permute(0, 3, 1, 2)
+    dhh = F.conv_transpose2d(dz, k, padding=1, groups=nset)
+    dk = torch.nn.grad.conv2d_weight(hn, k.shape, dz, padding=1, groups=nset)
+    dw = dk.permute(2, 3, 1, 0).reshape(9 * cg, C * nset)
+    q = torch.einsum('bhwc,bhwcj->bhwj', do, z5)
+    datt = q if attw is None else q * attw[:, None, None, :]
+    dattw = None if attw is None else (q * att_sp).sum(dim=(1, 2))
+    return (dhh.permute(0, 2, 3, 1).contiguous(), datt, dw,
+            dz.sum(dim=(0, 2, 3)), dattw)
+
+
+def akgm_block_tail_backward_kernel(h, att_sp, w, bias, go, nset,
+                                     norm_scale, norm_shift, attw):
+    """K5 on CUDA tensors: (dhh, datt_sp, dw, dbias, dattw)."""
+    B, H, W, C = h.shape
+    dev = _check_operands(h, att_sp, w, bias, nset, norm_scale, norm_shift,
+                          attw)
+    _build.check('go', go, (B, H, W, C), device=dev)
+    cg = C // nset
+    # per-group weights of the transposed conv: (G, 9 * C, C / G), taps
+    # flipped, wf[g][tap * C + n][ci] = w[(8 - tap) * C/G + ci][g * C + n]
+    wf = (w.reshape(9, cg, nset, C).flip(0).permute(2, 0, 3, 1).contiguous())
+    do = torch.empty_like(h)             # scratch: go * swish'(o)
+    dhh = torch.empty_like(h)
+    datt = torch.zeros_like(att_sp)
+    dw = torch.zeros_like(w)
+    dbias = torch.zeros_like(bias)
+    dattw = None if attw is None else torch.zeros_like(attw)
+    _build.launch('akgm_tail_bwd', h.data_ptr(), go.data_ptr(),
+                  att_sp.data_ptr(), _build.ptr(attw), w.data_ptr(),
+                  wf.data_ptr(), bias.data_ptr(), _build.ptr(norm_scale),
+                  _build.ptr(norm_shift), do.data_ptr(), dhh.data_ptr(),
+                  datt.data_ptr(), dw.data_ptr(), dbias.data_ptr(),
+                  _build.ptr(dattw), B, H, W, C, _build.stream(h))
+    return dhh, datt, dw, dbias, dattw
+
+
+def akgm_block_tail_backward(h, att_sp, w, bias, go, nset: int, *,
+                             norm_scale=None, norm_shift=None, attw=None):
+    """Every gradient of `akgm_block_tail` for the output cotangent `go`:
+    (dh, datt_sp, dw, dbias, dres, dnorm_scale, dnorm_shift, dattw), None for
+    an absent optional. K5 on CUDA tensors, its plain version on the CPU;
+    the affine's own gradients are plain tensor ops on either."""
+    if _build.on_host(h):
+        dhh, datt, dw, dbias, dattw = akgm_block_tail_backward_plain(
+            h, att_sp, w, bias, go, nset, norm_scale=norm_scale,
+            norm_shift=norm_shift, attw=attw)
+    else:
+        go = go.contiguous()
+        dhh, datt, dw, dbias, dattw = akgm_block_tail_backward_kernel(
+            h, att_sp, w, bias, go, nset, norm_scale, norm_shift, attw)
+    if norm_scale is None:
+        return dhh, datt, dw, dbias, go, None, None, dattw
+    return (dhh * norm_scale[:, None, None, :], datt, dw, dbias, go,
+            (dhh * h).sum(dim=(1, 2)), dhh.sum(dim=(1, 2)), dattw)
+
+
+class _AkgmBlockTail(torch.autograd.Function):
+    """Forward K1. Backward: the statistics' cotangents fold into the
+    output's, then K5."""
+
+    @staticmethod
+    def forward(ctx, h, att_sp, w, bias, res, norm_scale, norm_shift, attw,
+                nset, emit_stats):
+        ctx.set_materialize_grads(False)
+        out, s, q = _akgm_block_tail_forward(
+            h, att_sp, w, bias, res, nset, norm_scale, norm_shift, attw,
+            emit_stats)
+        ctx.save_for_backward(h, att_sp, w, bias, norm_scale, norm_shift,
+                              attw, out if emit_stats else None)
+        ctx.conf = (nset, emit_stats)
+        return (out, s, q) if emit_stats else out
+
+    @staticmethod
+    def backward(ctx, g, ds=None, dq=None):
+        h, att_sp, w, bias, ns, nt, attw, out = ctx.saved_tensors
+        nset, emit_stats = ctx.conf
+        if emit_stats:
+            g = fold_stats_grad(g, out, ds, dq)
+        dh, datt, dw, dbias, dres, dns, dnt, dattw = akgm_block_tail_backward(
+            h, att_sp, w, bias, g, nset, norm_scale=ns, norm_shift=nt,
+            attw=attw)
+        return dh, datt, dw, dbias, dres, dns, dnt, dattw, None, None
+
+
+def akgm_block_tail(h, att_sp, w, bias, res, nset: int, *, norm_scale=None,
+                    norm_shift=None, attw=None, emit_stats=False):
+    """`swish(akgm_mix(h * a + t, att * attw)) + res` as one pass,
+    differentiable in every tensor operand.
+
+    h, res (B, H, W, C); att_sp (B, H, W, G); w (9 * C / G, C * G); bias
+    (C * G); norm_scale, norm_shift (B, C) or None; attw (B, G) or None.
+    With emit_stats, returns (out, (sum, sumsq)) of out per (batch, channel).
+    The kernels take G = 8 and C a multiple of 64 (the SID widths 64..512).
+    """
+    if (norm_scale is None) != (norm_shift is None):
+        raise ValueError('norm_scale and norm_shift come together')
+    y = _AkgmBlockTail.apply(h, att_sp, w, bias, res, norm_scale, norm_shift,
+                             attw, nset, emit_stats)
+    return (y[0], (y[1], y[2])) if emit_stats else y

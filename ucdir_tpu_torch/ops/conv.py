@@ -1,7 +1,10 @@
 """3x3 and 1x1 convolutions on NHWC tensors: kernels K2 (`csrc/conv3x3.cu`)
-and K3 (`csrc/conv1x1.cu`) with their plain versions, and the phase-packed
+and K3 (`csrc/conv1x1.cu`), the 3x3 backward kernel K6
+(`csrc/conv3x3_bwd.cu`), their plain versions, and the phase-packed
 nearest-x2 upsampling conv built on K2. Counterpart of
-`ucdir_tpu/ops/conv_pallas.py`.
+`ucdir_tpu/ops/conv_pallas.py`. Every op is a `torch.autograd.Function`: a
+CUDA tensor goes through the kernels in both directions, a CPU tensor through
+the plain versions.
 
 Weights come in the kernels' layout: a 3x3 kernel as (9 * Cin, Cout) with row
 tap * Cin + ci (the HWIO kernel reshaped), a 1x1 kernel as (Cin, Cout).
@@ -16,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from ucdir_tpu_torch.ops import _build
-from ucdir_tpu_torch.ops.stats import gn1_stats_plain
+from ucdir_tpu_torch.ops.stats import fold_stats_grad, gn1_stats_plain
 
 
 def swish(x):
@@ -45,23 +48,43 @@ def conv3x3_plain(x, w, bias, *, stride=1, act=None, norm_scale=None,
     return (y, gn1_stats_plain(y)) if emit_stats else y
 
 
-def conv3x3(x, w, bias, *, stride=1, act=None, norm_scale=None,
-            norm_shift=None, emit_stats=False):
-    """3x3 convolution of NHWC `x` with SAME padding 1 and stride 1 or 2.
+def dswish(z):
+    """d swish(z) / dz."""
+    sig = torch.sigmoid(z)
+    return sig * (1. + z * (1. - sig))
 
-    norm_scale, norm_shift (B, Cin): an input affine `x * a + t` (a folded
-    GroupNorm(1)); the padding holds the affine's zero. act: None or 'swish'.
-    """
-    if stride not in (1, 2):
-        raise ValueError('stride must be 1 or 2, got %r' % (stride,))
-    if act not in (None, 'swish'):
-        raise ValueError('act must be None or swish, got %r' % (act,))
-    if (norm_scale is None) != (norm_shift is None):
-        raise ValueError('norm_scale and norm_shift come together')
+
+def vjp_of_plain(fn, inputs, cotangents):
+    """The gradients of the plain composition `fn(*inputs)` with respect to
+    every input that is not None, for the cotangents of its (flattened)
+    outputs: the backward of the ops that owe no kernel (the JAX package
+    takes the vjp of its XLA composition there)."""
+    with torch.enable_grad():
+        leaves = [None if t is None else t.detach().requires_grad_(True)
+                  for t in inputs]
+        outs = _flat(fn(*leaves))
+    pairs = [(o, g) for o, g in zip(outs, cotangents) if g is not None]
+    grads = iter(torch.autograd.grad(
+        [o for o, _ in pairs], [t for t in leaves if t is not None],
+        [g for _, g in pairs], allow_unused=True))
+    return tuple(None if t is None else next(grads) for t in leaves)
+
+
+def _flat(out):
+    if isinstance(out, tuple):
+        return [t for o in out for t in _flat(o)]
+    return [out]
+
+
+def _conv3x3_forward(x, w, bias, stride, act, norm_scale, norm_shift,
+                     emit_stats):
+    """(out, sum, sumsq), the last two None without emit_stats: K2 on a CUDA
+    tensor, its plain version on a CPU tensor."""
     if _build.on_host(x):
-        return conv3x3_plain(x, w, bias, stride=stride, act=act,
-                             norm_scale=norm_scale, norm_shift=norm_shift,
-                             emit_stats=emit_stats)
+        y = conv3x3_plain(x, w, bias, stride=stride, act=act,
+                          norm_scale=norm_scale, norm_shift=norm_shift,
+                          emit_stats=emit_stats)
+        return (y[0], *y[1]) if emit_stats else (y, None, None)
     B, H, W, cin = x.shape
     cout = w.shape[1]
     dev = x.device
@@ -81,7 +104,121 @@ def conv3x3(x, w, bias, *, stride=1, act=None, norm_scale=None,
                   out.data_ptr(), _build.ptr(s), _build.ptr(q),
                   B, H, W, cin, cout, stride, int(act == 'swish'),
                   _build.stream(x))
-    return (out, (s, q)) if emit_stats else out
+    return out, s, q
+
+
+def conv3x3_backward_plain(x, w, bias, go, *, act=None, norm_scale=None,
+                           norm_shift=None):
+    """The plain version of K6: (dxh, dw, dbias) of the stride-1 conv3x3,
+    dxh the gradient of the affine's output x * a + t."""
+    cin, cout = x.shape[-1], w.shape[1]
+    if norm_scale is not None:
+        x = x * norm_scale[:, None, None, :] + norm_shift[:, None, None, :]
+    k = w.reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
+    xn, dz = _nchw(x), _nchw(go)
+    if act == 'swish':
+        dz = dz * dswish(F.conv2d(xn, k, bias, padding=1))
+    dxh = _nhwc(F.conv_transpose2d(dz, k, padding=1))
+    dk = torch.nn.grad.conv2d_weight(xn, k.shape, dz, padding=1)
+    dw = dk.permute(2, 3, 1, 0).reshape(9 * cin, cout)
+    return dxh, dw, dz.sum(dim=(0, 2, 3))
+
+
+def conv3x3_backward_kernel(x, w, bias, go, act, norm_scale, norm_shift):
+    """K6 on CUDA tensors: (dxh, dw, dbias)."""
+    B, H, W, cin = x.shape
+    cout = w.shape[1]
+    dev = x.device
+    _build.check('x', x)
+    _build.check('go', go, (B, H, W, cout), device=dev)
+    _build.check('w', w, (9 * cin, cout), device=dev)
+    _build.check('bias', bias, (cout,), device=dev)
+    _build.check('norm_scale', norm_scale, (B, cin), device=dev)
+    _build.check('norm_shift', norm_shift, (B, cin), device=dev)
+    # the transposed convolution's weights: taps flipped, channels swapped
+    wf = (w.reshape(9, cin, cout).flip(0).permute(0, 2, 1)
+          .reshape(9 * cout, cin).contiguous())
+    dz = torch.empty_like(go) if act == 'swish' else None
+    dxh = torch.empty_like(x)
+    dw = torch.zeros_like(w)
+    dbias = torch.zeros_like(bias)
+    _build.launch('conv3x3_bwd', x.data_ptr(), go.data_ptr(), w.data_ptr(),
+                  wf.data_ptr(), bias.data_ptr(), _build.ptr(norm_scale),
+                  _build.ptr(norm_shift), _build.ptr(dz), dxh.data_ptr(),
+                  dw.data_ptr(), dbias.data_ptr(), B, H, W, cin, cout,
+                  int(act == 'swish'), _build.stream(x))
+    return dxh, dw, dbias
+
+
+def conv3x3_backward(x, w, bias, go, *, act=None, norm_scale=None,
+                     norm_shift=None):
+    """Every gradient of the stride-1 `conv3x3` for the output cotangent
+    `go`: (dx, dw, dbias, dnorm_scale, dnorm_shift), the last two None
+    without the affine. K6 on CUDA tensors, its plain version on the CPU;
+    the affine's own gradients are plain tensor ops on either."""
+    if _build.on_host(x):
+        dxh, dw, dbias = conv3x3_backward_plain(
+            x, w, bias, go, act=act, norm_scale=norm_scale,
+            norm_shift=norm_shift)
+    else:
+        dxh, dw, dbias = conv3x3_backward_kernel(
+            x, w, bias, go.contiguous(), act, norm_scale, norm_shift)
+    if norm_scale is None:
+        return dxh, dw, dbias, None, None
+    return (dxh * norm_scale[:, None, None, :], dw, dbias,
+            (dxh * x).sum(dim=(1, 2)), dxh.sum(dim=(1, 2)))
+
+
+class _Conv3x3(torch.autograd.Function):
+    """Forward K2. Backward, stride 1: the statistics' cotangents fold into
+    the output's, then K6. Stride 2 (Downsample) owes no kernel: the autograd
+    of the plain version."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, norm_scale, norm_shift, stride, act,
+                emit_stats):
+        ctx.set_materialize_grads(False)
+        out, s, q = _conv3x3_forward(x, w, bias, stride, act, norm_scale,
+                                     norm_shift, emit_stats)
+        ctx.save_for_backward(x, w, bias, norm_scale, norm_shift,
+                              out if emit_stats and stride == 1 else None)
+        ctx.conf = (stride, act, emit_stats)
+        return (out, s, q) if emit_stats else out
+
+    @staticmethod
+    def backward(ctx, g, ds=None, dq=None):
+        x, w, bias, ns, nt, out = ctx.saved_tensors
+        stride, act, emit_stats = ctx.conf
+        if stride != 1:
+            grads = vjp_of_plain(
+                lambda *a: conv3x3_plain(
+                    a[0], a[1], a[2], stride=stride, act=act,
+                    norm_scale=a[3], norm_shift=a[4], emit_stats=emit_stats),
+                (x, w, bias, ns, nt), (g, ds, dq))
+            return (*grads, None, None, None)
+        if emit_stats:
+            g = fold_stats_grad(g, out, ds, dq)
+        return (*conv3x3_backward(x, w, bias, g, act=act, norm_scale=ns,
+                                  norm_shift=nt), None, None, None)
+
+
+def conv3x3(x, w, bias, *, stride=1, act=None, norm_scale=None,
+            norm_shift=None, emit_stats=False):
+    """3x3 convolution of NHWC `x` with SAME padding 1 and stride 1 or 2,
+    differentiable in x, w, bias and the affine.
+
+    norm_scale, norm_shift (B, Cin): an input affine `x * a + t` (a folded
+    GroupNorm(1)); the padding holds the affine's zero. act: None or 'swish'.
+    """
+    if stride not in (1, 2):
+        raise ValueError('stride must be 1 or 2, got %r' % (stride,))
+    if act not in (None, 'swish'):
+        raise ValueError('act must be None or swish, got %r' % (act,))
+    if (norm_scale is None) != (norm_shift is None):
+        raise ValueError('norm_scale and norm_shift come together')
+    y = _Conv3x3.apply(x, w, bias, norm_scale, norm_shift, stride, act,
+                       emit_stats)
+    return (y[0], (y[1], y[2])) if emit_stats else y
 
 
 def conv1x1_plain(x, w, bias, *, act=None):
@@ -91,11 +228,7 @@ def conv1x1_plain(x, w, bias, *, act=None):
     return swish(y) if act == 'swish' else y
 
 
-def conv1x1(x, w, bias, *, act=None):
-    """1x1 convolution of NHWC `x` with w (Cin, Cout), + bias, optional
-    swish."""
-    if act not in (None, 'swish'):
-        raise ValueError('act must be None or swish, got %r' % (act,))
+def _conv1x1_forward(x, w, bias, act):
     if _build.on_host(x):
         return conv1x1_plain(x, w, bias, act=act)
     B, H, W, cin = x.shape
@@ -109,6 +242,31 @@ def conv1x1(x, w, bias, *, act=None):
                   out.data_ptr(), B, H, W, cin, cout, int(act == 'swish'),
                   _build.stream(x))
     return out
+
+
+class _Conv1x1(torch.autograd.Function):
+    """Forward K3; the backward is the autograd of the plain composition, as
+    in the JAX package (`_c1_bwd`), which owes no kernel here."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, act):
+        ctx.save_for_backward(x, w, bias)
+        ctx.act = act
+        return _conv1x1_forward(x, w, bias, act)
+
+    @staticmethod
+    def backward(ctx, g):
+        act = ctx.act
+        return (*vjp_of_plain(lambda x, w, b: conv1x1_plain(x, w, b, act=act),
+                              ctx.saved_tensors, (g,)), None)
+
+
+def conv1x1(x, w, bias, *, act=None):
+    """1x1 convolution of NHWC `x` with w (Cin, Cout), + bias, optional
+    swish; differentiable in x, w and bias."""
+    if act not in (None, 'swish'):
+        raise ValueError('act must be None or swish, got %r' % (act,))
+    return _Conv1x1.apply(x, w, bias, act)
 
 
 # nearest-x2 + 3x3 SAME conv is one conv at SOURCE resolution with

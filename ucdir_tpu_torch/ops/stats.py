@@ -13,8 +13,7 @@ def gn1_stats_plain(x: torch.Tensor):
     return xf.sum(dim=(1, 2)), (xf * xf).sum(dim=(1, 2))
 
 
-def gn1_stats(x: torch.Tensor):
-    """((B, C) sum, (B, C) sum of squares) in float32, in one read of x."""
+def _gn1_stats_forward(x):
     if _build.on_host(x):
         return gn1_stats_plain(x)
     B, H, W, C = x.shape
@@ -24,3 +23,38 @@ def gn1_stats(x: torch.Tensor):
     _build.launch('gn1_stats', x.data_ptr(), s.data_ptr(), q.data_ptr(),
                   B, H * W, C, _build.stream(x))
     return s, q
+
+
+def fold_stats_grad(g, out, ds, dq):
+    """The cotangent of `out` with those of its emitted statistics folded in:
+    d(sum)/d(out) = 1 and d(sumsq)/d(out) = 2 * out. g, ds, dq may be None
+    (no cotangent)."""
+    if ds is not None:
+        ds = ds[:, None, None, :]
+        g = ds.expand_as(out) if g is None else g + ds
+    if dq is not None:
+        dq = 2. * out * dq[:, None, None, :]
+        g = dq if g is None else g + dq
+    return torch.zeros_like(out) if g is None else g.contiguous()
+
+
+class _GN1Stats(torch.autograd.Function):
+    """Forward K4; the backward is plain tensor ops, as in the JAX package
+    (`_stats_bwd`, which runs outside any kernel)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x)
+        return _gn1_stats_forward(x)
+
+    @staticmethod
+    def backward(ctx, ds, dq):
+        (x,) = ctx.saved_tensors
+        return fold_stats_grad(None, x, ds, dq)
+
+
+def gn1_stats(x: torch.Tensor):
+    """((B, C) sum, (B, C) sum of squares) in float32, in one read of x;
+    differentiable in x."""
+    return _GN1Stats.apply(x)

@@ -1,7 +1,7 @@
-"""The evaluation half of the DDPM model wrapper. Counterpart of
-`ucdir_tpu/trainer.py` (reference: model/model.py:35-268): feed_data, test,
-get_current_visuals and load_network. Training comes with a later slice
-(ROADMAP.md)."""
+"""The DDPM model wrapper. Counterpart of `ucdir_tpu/trainer.py` (reference:
+model/model.py:35-268), with the reference's public surface: feed_data,
+optimize_parameters, test, get_current_log, get_current_visuals,
+set_new_noise_schedule, save_network and load_network."""
 from __future__ import annotations
 
 import logging
@@ -15,6 +15,10 @@ import torch
 from ucdir_tpu_torch.eval import eval_step
 from ucdir_tpu_torch.models.factory import define_G
 from ucdir_tpu_torch.schedule import make_schedule
+from ucdir_tpu_torch.train import (create_train_state, make_optimizer,
+                                   train_step)
+from ucdir_tpu_torch.train.optim import finetune_select
+from ucdir_tpu_torch.utils import checkpoint as ckpt_util
 
 logger = logging.getLogger('base')
 
@@ -32,23 +36,48 @@ def _unsupported(what: str):
 
 
 class Trainer:
-    """Validation with the EMA (or live) weights of a reference checkpoint,
-    or with the random weights the model is built with."""
+    """phase 'train': optimizer steps on fed batches, validation with the
+    live weights, checkpoints as the reference's triple. phase 'val':
+    validation with the EMA (or live) weights of a checkpoint, or with the
+    random weights the model is built with."""
 
     def __init__(self, opt, device, seed: int = 0):
-        if opt['phase'] != 'val':
-            raise _unsupported('training')
         if opt.get('compute_dtype'):
             raise _unsupported('--compute_dtype %s' % opt['compute_dtype'])
         if (opt.get('sampler') or 'ddpm') != 'ddpm':
             raise _unsupported('the %s sampler' % opt['sampler'])
         self.opt = opt
         self.device = torch.device(device)
-        self.model = define_G(opt).to(self.device).eval()
-        self.sched = make_schedule(opt['model']['beta_schedule']['val'],
-                                   self.device)
+        self.seed = seed
+        self.model = define_G(opt).to(self.device)
+        self.schedules = {}
+        self.schedule_phase = None
+        self.set_new_noise_schedule(
+            opt['model']['beta_schedule'][opt['phase']], opt['phase'])
+        # validation noise; the training draws are seeded per step instead
+        # (optimize_parameters), so a resumed run repeats them
         self.generator = torch.Generator(self.device).manual_seed(seed + 1)
+        self.train_generator = torch.Generator(self.device)
+        self.iter = 0
+        self.begin_step = 0
+        self.begin_epoch = 0
+        self.log_dict = OrderedDict()
         self.data: Dict[str, Any] = {}
+        if opt['phase'] == 'train':
+            self.model.train()
+            params = self.model.parameters()
+            ft = opt['model'].get('finetune_norm')
+            if ft:
+                params = finetune_select(
+                    self.model, ft if isinstance(ft, str) else 'transformer')
+                logger.info('finetune_norm: optimizing %d param tensors '
+                            '(zero-initialized), rest frozen', len(params))
+            self.state = create_train_state(
+                self.model, make_optimizer(params, opt['train']['optimizer']),
+                opt['train']['ema_scheduler'], clip_norm=opt.get('clip_norm'))
+        else:
+            self.model.eval()
+            self.state = None
         self.load_network()
         n = sum(p.numel() for p in self.model.parameters())
         logger.info('Network G created, with parameters: {:,d}'.format(n))
@@ -57,13 +86,48 @@ class Trainer:
         self.data = {k: np.asarray(v) if not np.isscalar(v) else v
                      for k, v in data.items()}
 
+    def to_device(self, a):
+        """A host array as a float32 tensor on the trainer's device; to the
+        card through pinned memory, without waiting for the copy."""
+        t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+        if self.device.type == 'cuda':
+            t = t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def optimize_parameters(self):
+        """One optimizer step on the fed batch (reference model.py:104-122)."""
+        batch = {k: self.to_device(self.data[k]) for k in ('HR', 'SR')}
+        loss = train_step(self.state, self.schedules['train'], batch,
+                          generator=self.step_generator(self.iter))
+        self.log_dict['l_pix'] = float(loss)
+        self.iter += 1
+
+    def step_generator(self, step: int):
+        """The generator of step `step`'s draws (noise level, noise, dropout
+        mask), seeded from the trainer's seed and the step alone."""
+        return self.train_generator.manual_seed(self.seed * 1_000_003 + step)
+
+    def get_current_log(self):
+        return self.log_dict
+
+    def set_new_noise_schedule(self, schedule_opt, schedule_phase='train',
+                               force: bool = False):
+        if self.schedule_phase != schedule_phase or force:
+            self.schedule_phase = schedule_phase
+            self.schedules[schedule_phase] = make_schedule(schedule_opt,
+                                                           self.device)
+
     def test(self, continous: bool = False):
-        """Restores self.data['SR'] with noise from this trainer's
-        generator."""
-        sr = torch.as_tensor(np.asarray(self.data['SR'], np.float32),
-                             device=self.device)
-        out = eval_step(self.model, self.sched, sr, continous=continous,
-                        generator=self.generator)
+        """Restores self.data['SR'] under the current schedule with noise from
+        this trainer's generator; in the train phase with the live weights."""
+        sr = self.to_device(self.data['SR'])
+        was_training = self.model.training
+        self.model.eval()
+        try:
+            out = eval_step(self.model, self.schedules[self.schedule_phase],
+                            sr, continous=continous, generator=self.generator)
+        finally:
+            self.model.train(was_training)
         if continous:
             _, initx, snaps = out
             snaps = snaps.cpu().numpy()
@@ -82,11 +146,28 @@ class Trainer:
         out['LR'] = np.asarray(self.data.get('LR', out['INF']))
         return out
 
+    def save_network(self, epoch, iter_step):
+        """Writes I{iter}_E{epoch}_{gen,gen_ema,opt}.pth under
+        opt['path']['checkpoint']."""
+        prefix = ckpt_util.save_state(self.opt['path']['checkpoint'], epoch,
+                                      iter_step, self.state)
+        logger.info('Saved model in [{:s}] ...'.format(prefix))
+        return prefix
+
     def load_network(self):
-        """Loads `<prefix>_gen_ema.pth` (or `_gen.pth` without EMA, or a
-        direct .pth path) from opt['path']['resume_state'] with strict=True."""
+        """From opt['path']['resume_state']. Train phase: the triple at the
+        prefix restores weights, EMA shadow, optimizer, step and epoch. Val
+        phase: `<prefix>_gen_ema.pth` (or `_gen.pth` without EMA, or a direct
+        .pth path), with strict=True."""
         prefix = self.opt['path'].get('resume_state')
         if not prefix:
+            return
+        if self.opt['phase'] == 'train':
+            logger.info('Loading pretrained model for G [{:s}] ...'
+                        .format(prefix))
+            self.iter, self.begin_epoch = ckpt_util.restore_state(
+                prefix, self.state)
+            self.begin_step = self.iter
             return
         use_ema = bool(((self.opt.get('train') or {}).get('ema_scheduler')
                         or {}).get('use', True))

@@ -108,3 +108,11 @@ def from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     if 'predictor' in params:
         _seeindark(params['predictor'], 'predictor.', out)
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+
+
+def from_jax_grads(grads: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """A JAX gradient tree (the params' structure, arrays convertible with
+    np.asarray) -> {state-dict name: numpy array in the port's layout}. Every
+    layout change above is a permutation, so a gradient maps as its parameter
+    does."""
+    return {k: v.numpy() for k, v in from_jax_params(grads).items()}
