@@ -8,8 +8,9 @@ on any failure:
   1. build    nvcc builds csrc/*.cu for sm_90a; prints the build seconds,
               each kernel's registers and spills, the card and its power
               limit.
-  2. kernels  K1..K4 at the SID validation path's shapes (one 1568 x 2272
-              frame) and the backward kernels K5 and K6 at the SID train
+  2. kernels  K1..K4 and K7..K9 at the SID validation path's shapes (one
+              1568 x 2272 frame; K7 also at one 1024 x 1024 tile) and the
+              backward kernels K5 and K6 at the SID train
               path's shapes (288 x 288 and its levels, at batch 8: the plain
               side of K5 materializes the 8x candidate tensor several times,
               which at batch 32 crowds the card's memory) against their plain
@@ -24,9 +25,9 @@ on any failure:
               --seed: time, PSNR (SSIM needs cv2, which this script does not
               assume), peak memory; every kernel's launch count must rise.
   5. sid      one 1424 x 2128 frame (1568 x 2272 in the network) restored
-              through the validation step with the validation schedule's
-              50 steps: seconds for the frame, predictor + guide maps ms,
-              ms per DY3h step, peak memory, launches.
+              through the validation step with 10 DDPM steps: seconds for the
+              frame, predictor + guide maps ms, ms per DY3h step, peak
+              memory, launches.
   6. train_slice  full width, crop 64, batch 2, dropout off, injected gammas
               and noise, 2 AdamW steps on the card and on the host: the loss
               of each step, every gradient of the first step and every
@@ -38,8 +39,26 @@ on any failure:
               peak memory, launches of K1..K6; then save_network, a reload
               of the EMA weights by a validation Trainer and one test on a
               96 x 96 input.
-Then one JSON line of kernel results (launches of K1..K4 from the main phase
-and of K5, K6 from the train phase, with both paths' counts beside them;
+  8. variants the full-width model with `dropout: 0` (folded head, K7) and
+              each AKGM tail ('fused' K1, 'mix' K8, 'packed' K9) restores a
+              256 x 256 input with 2 DDPM steps and injected noise on the
+              card and on the host: card and host agree for every tail,
+              'mix' equals 'fused' on the card, and the launch counts are
+              those of the tail.
+  9. fewstep  the 1424 x 2128 frame through the validation step of the
+              `dropout: 0` model with ddim (5 steps), dpmpp (20) and
+              dpmpp_sde (20): seconds per frame, ms per step, PSNR against a
+              generated target; and ddim, 3 steps, 64 x 64, card against
+              host.
+ 10. hires    one 2848 x 4256 frame (the full-resolution Sony frame; 2976 x
+              4384 after the pad, so it runs tiled: 24 tiles of 1024 x 1024
+              per step) with ddim, 5 steps: seconds per frame and per step,
+              tiles per step, peak memory, K7 launches; and the tiled path
+              ({skip: 128, padding: 16}, 200 x 260 input, 2 DDPM steps) card
+              against host.
+Then one JSON line of kernel results (each kernel's launches from the path
+that owns it: K1..K4 the main phase, K5 and K6 the train phase, K7 the
+fewstep phase, K8 and K9 their variants run; every path's counts beside them;
 errors the largest and times summed over phase 2's shapes), the card's
 `nvidia-smi` name and power limit, and last `{"ok": true, "device": {...}}`.
 
@@ -63,6 +82,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SID_FRAME = (1424, 2128)          # a Sony SID test frame, H x W
 PAD = 64                          # the validation reflect pad
 NET_FRAME = (1568, 2272)          # SID_FRAME + 2 * PAD, to /32 in DY3h
+FULL_FRAME = (2848, 4256)         # a full-resolution Sony SID frame
+TILE = 1024                       # the tiled path's tile, with 64-px halos
+SID_STEPS = 10                    # DDPM steps of the sid phase
+BLOCKS = 27                       # AKGM blocks of the SID denoiser
 TRAIN_CROP = 256                  # the SID train crop
 TRAIN_NET = (TRAIN_CROP // 32 + 1) * 32   # 288: as DY3h pads the crop
 TRAIN_BATCH = 32                  # the SID train batch
@@ -85,11 +108,18 @@ KERNELS = {
                       'ucdir_tpu/ops/akgm_pallas.py:722'),
     'conv3x3_bwd': ('ucdir_tpu_torch/csrc/conv3x3_bwd.cu',
                     'ucdir_tpu/ops/conv_pallas.py:516'),
+    'conv3x3_preact': ('ucdir_tpu_torch/csrc/conv3x3.cu',
+                       'ucdir_tpu/ops/conv_pallas.py:796'),
+    'akgm_mix': ('ucdir_tpu_torch/csrc/akgm_tail.cu',
+                 'ucdir_tpu/ops/akgm_pallas.py:83'),
+    'akgm_packed': ('ucdir_tpu_torch/csrc/akgm_packed.cu',
+                    'ucdir_tpu/ops/akgm_pallas.py:1012'),
 }
 # the path whose run gives a kernel's `launches`
 OWNER = {'akgm_tail': 'main', 'conv3x3': 'main', 'conv1x1': 'main',
          'gn1_stats': 'main', 'akgm_tail_bwd': 'train',
-         'conv3x3_bwd': 'train'}
+         'conv3x3_bwd': 'train', 'conv3x3_preact': 'fewstep',
+         'akgm_mix': 'variants_mix', 'akgm_packed': 'variants_packed'}
 
 
 def say(phase, msg):
@@ -152,7 +182,7 @@ def kernel_cases(gen, dev):
     H0, W0 = NET_FRAME
     G = 8
 
-    def rnd(*shape, scale=1.0, off=0.0):
+    def rnd(*shape, scale=1.0, off=0.0, gen=gen):
         return torch.randn(shape, generator=gen, device=dev) * scale + off
 
     def nbytes(*tensors):
@@ -188,6 +218,24 @@ def kernel_cases(gen, dev):
                                            emit_stats=True, **kw),
             library=None, stats=2, flop=flop,
             bytes=nbytes(h, att, w, b, res, h, *kw.values()) + 8 * C))
+        cases.append(dict(
+            name='akgm_mix', label='C=%d %dx%d' % (C, H, W),
+            kernel=lambda h=h, att=att, w=w, b=b:
+                akgm.akgm_mix(h, att, w, b, G),
+            plain=lambda h=h, att=att, w=w, b=b:
+                akgm.akgm_mix_reference(h, att, w, b, G),
+            library=None, stats=0, flop=flop, bytes=nbytes(h, att, w, b, h)))
+        wp = akgm.pack_grouped_weight(w, G).contiguous()
+        # the dense 9C -> C product, then the attention-weighted bias
+        cases.append(dict(
+            name='akgm_packed', label='C=%d %dx%d fold+attw' % (C, H, W),
+            kernel=lambda h=h, att=att, wp=wp, b=b, res=res, kw=kw:
+                akgm.akgm_block_tail_packed(h, att, wp, b, res, G, **kw),
+            plain=lambda h=h, att=att, wp=wp, b=b, res=res, kw=kw:
+                akgm.akgm_block_tail_packed_plain(h, att, wp, b, res, G,
+                                                  **kw),
+            library=None, stats=0, flop=H * W * C * (2 * 9 * C + 2 * G),
+            bytes=nbytes(h, att, wp, b, res, h, *kw.values())))
 
     def conv_case(label, B, H, W, cin, cout, stride=1, fold=False, act=None,
                   backward=False):
@@ -233,6 +281,32 @@ def kernel_cases(gen, dev):
               64, 64, stride=2)
     conv_case('upsample 128->4x128 packed %dx%d stats' % (H0 // 2, W0 // 2),
               1, H0 // 2, W0 // 2, 128, 512)
+
+    # K7's operands come from a generator of their own, so the cases after
+    # them draw what they drew before K7 was added
+    gen7 = torch.Generator(dev).manual_seed(gen.initial_seed() + 7)
+
+    def preact_case(H, W, cin=64, cout=3):
+        x = rnd(1, H, W, cin, scale=0.5, gen=gen7)
+        w = rnd(9 * cin, cout, scale=(9 * cin) ** -0.5, gen=gen7)
+        b = rnd(cout, scale=0.1, gen=gen7)
+        k = w.reshape(3, 3, cin, cout).permute(3, 2, 0, 1).contiguous()
+        a = rnd(1, cin, scale=0.2, off=1.0, gen=gen7)
+        t = rnd(1, cin, scale=0.2, gen=gen7)
+        xa = conv.swish(x * a[:, None, None, :] + t[:, None, None, :])
+        # library: the convolution alone, on an input activated beforehand:
+        # it leaves the affine and the swish out
+        cases.append(dict(
+            name='conv3x3_preact',
+            label='head %d->%d %dx%d fold' % (cin, cout, H, W),
+            kernel=lambda: conv.conv3x3_preact(x, w, b, a, t),
+            plain=lambda: conv.conv3x3_preact_plain(x, w, b, a, t),
+            library=lambda: F.conv2d(nchw(xa), k, b, padding=1),
+            stats=0, flop=2 * 9 * cin * cout * H * W,
+            bytes=nbytes(x, w, b, a, t) + 4 * cout * H * W))
+
+    preact_case(H0, W0)
+    preact_case(TILE, TILE)
 
     x = rnd(1, H0, W0, 192, scale=0.5)
     w1, b1 = rnd(192, 64, scale=192 ** -0.5), rnd(64, scale=0.1)
@@ -348,18 +422,58 @@ def phase_kernels(dev, seed, results):
 
 
 # ------------------------------------------------------------- phases 3-5
-def sid_model():
+def sid_model(**unet):
+    """The SID model options; `unet` overrides (dropout=0.0 folds the head,
+    tail= chooses the AKGM tail)."""
     from ucdir_tpu_torch.configs import SID_MODEL, SID_VAL_SCHEDULE
     model = copy.deepcopy(SID_MODEL)
     model['beta_schedule']['val'] = dict(SID_VAL_SCHEDULE)
+    model['unet'].update(unet)
     return model
 
 
-def build_model(seed):
+def build_model(seed, **unet):
     import torch
     from ucdir_tpu_torch.models.factory import define_G
     torch.manual_seed(seed)
-    return define_G({'model': sid_model()}).eval()
+    return define_G({'model': sid_model(**unet)}).eval()
+
+
+def injected(draws, d):
+    """noise= for eval_step: the numpy draws in order, on device d."""
+    import torch
+    it = iter(draws)
+    return lambda shape: torch.from_numpy(next(it)).to(d)
+
+
+def agree(phase, what, got, want, tol=1e-5):
+    """Fails unless two results of one function, float32 on both sides with
+    sums in other orders (atomics, cuDNN, oneDNN) through ~70 layers and a
+    few steps, agree within `tol` abs on outputs in about [-2, 2]. Sound
+    readings on an H100 are up to 6.6e-7 for DDPM steps, so 1e-5 leaves a
+    margin of 15x; DDIM reads 5.4e-6 (its first step turns eps into x0 with
+    a factor of 1 / sqrt(abar_49), some hundreds, before the clip)."""
+    import torch
+    got, want = got.cpu(), want.cpu()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        fail('%s: %s has shape %s or non-finite values'
+             % (phase, what, tuple(got.shape)))
+    err = (got - want).abs().max().item()
+    if not err <= tol:
+        fail('%s: %s max abs err %.3e > %.0e' % (phase, what, err, tol))
+    return err
+
+
+def pattern(h, w, seed):
+    """A smooth (1, h, w, 3) target in [-1, 1] and its degraded version."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    yy, xx = yy / (h - 1.0), xx / (w - 1.0)
+    hr = np.stack([np.sin(3 * xx + c) * np.cos(2 * yy - c) for c in range(3)],
+                  axis=-1).astype(np.float32)
+    lq = np.clip(0.1 * hr + rng.normal(0, 0.1, hr.shape), -1, 1)
+    return hr[None], lq[None].astype(np.float32)
 
 
 def phase_slice(dev, seed):
@@ -378,26 +492,16 @@ def phase_slice(dev, seed):
     card = copy.deepcopy(host).to(dev)
     outs = {}
     for name, model, d in (('cuda', card, dev), ('cpu', host, 'cpu')):
-        it = iter(draws)
         t = time.perf_counter()
         outs[name] = eval_step(
             model, make_schedule(sched_opt, d), torch.from_numpy(x).to(d),
-            noise=lambda s, d=d: torch.from_numpy(next(it)).to(d))
+            noise=injected(draws, d))
         if name == 'cuda':
             torch.cuda.synchronize()
         outs[name + '_s'] = time.perf_counter() - t
     for i, what in enumerate(('sr', 'initx')):
-        got, want = outs['cuda'][i].cpu(), outs['cpu'][i]
-        if got.shape != want.shape or not torch.isfinite(got).all():
-            fail('slice: %s has shape %s or non-finite values'
-                 % (what, tuple(got.shape)))
-        err = (got - want).abs().max().item()
-        # fp32 on both sides; sums in other orders (atomics, cuDNN) through
-        # ~70 layers and 2 steps, outputs in about [-2, 2]. Sound readings
-        # on an H100 are up to 6.0e-7, so 1e-5 leaves a margin of 16x.
-        if not err <= 1e-5:
-            fail('slice: %s card vs host max abs err %.3e > 1e-5'
-                 % (what, err))
+        err = agree('slice', what + ' card vs host', outs['cuda'][i],
+                    outs['cpu'][i])
         say('slice', '%s card vs host max abs err %.3e (tol 1e-5)'
             % (what, err))
     say('slice', 'full width, 96x96 input, 2 steps: card %.2f s, host %.2f s'
@@ -415,12 +519,8 @@ def phase_main(dev, seed):
            'path': {'resume_state': None},
            'train': {'ema_scheduler': {'use': True}}}
     trainer = Trainer(opt, device=dev, seed=seed)
-    rng = np.random.default_rng(seed + 2)
-    yy, xx = np.mgrid[0:96, 0:96] / 95.0
-    hr = np.stack([np.sin(3 * xx + c) * np.cos(2 * yy - c) for c in range(3)],
-                  axis=-1).astype(np.float32)
-    lq = np.clip(0.1 * hr + rng.normal(0, 0.1, hr.shape), -1, 1)
-    trainer.feed_data({'SR': lq[None].astype(np.float32), 'HR': hr[None]})
+    hr, lq = pattern(96, 96, seed + 2)
+    trainer.feed_data({'SR': lq, 'HR': hr})
     torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.synchronize()
     _build.reset_launches()
@@ -435,7 +535,7 @@ def phase_main(dev, seed):
         fail('main: snapshots have shape %s or non-finite values'
              % (sr.shape,))
     psnr = Metrics.calculate_psnr(Metrics.tensor2img(sr[-1]),
-                                  Metrics.tensor2img(hr))
+                                  Metrics.tensor2img(hr[0]))
     if not math.isfinite(psnr):
         fail('main: PSNR %r' % psnr)
     missing = [k for k, n in launches.items()
@@ -458,7 +558,7 @@ def phase_sid(dev, seed):
     from ucdir_tpu_torch.schedule import make_schedule
 
     model = build_model(seed).to(dev)
-    sched = make_schedule(SID_VAL_SCHEDULE, dev)
+    sched = make_schedule(dict(SID_VAL_SCHEDULE, n_timestep=SID_STEPS), dev)
     steps = sched.num_timesteps
     gen = torch.Generator(dev).manual_seed(seed)
     frame = torch.rand((1,) + SID_FRAME + (3,), generator=gen,
@@ -645,7 +745,8 @@ def phase_train(dev, seed):
             fail('train: the loss on the first step\'s draws did not fall: '
                  '%.6f before, %.6f after %d steps' % (losses[0], again,
                                                        steps))
-        missing = [k for k, n in launches.items() if n == 0]
+        missing = [k for k, n in launches.items()
+                   if n == 0 and OWNER[k] in ('main', 'train')]
         if missing:
             fail('train: kernels never launched on the train path: %s'
                  % missing)
@@ -695,6 +796,195 @@ def phase_train(dev, seed):
     return launches
 
 
+# ------------------------------------------------------------ phases 8-10
+def phase_variants(dev, seed, counts):
+    """The `dropout: 0` model under each AKGM tail, card against host."""
+    import numpy as np
+    import torch
+    from ucdir_tpu_torch.configs import SID_VAL_SCHEDULE
+    from ucdir_tpu_torch.eval import eval_step
+    from ucdir_tpu_torch.ops import _build
+    from ucdir_tpu_torch.schedule import make_schedule
+
+    steps, size = 2, 256
+    rng = np.random.default_rng(seed + 5)
+    x = rng.uniform(-1, 1, (1, size, size, 3)).astype(np.float32)
+    shape = (1, size + 2 * PAD, size + 2 * PAD, 3)
+    draws = [rng.standard_normal(shape).astype(np.float32)
+             for _ in range(steps + 1)]
+    sched_opt = dict(SID_VAL_SCHEDULE, n_timestep=steps)
+    weights = build_model(seed, dropout=0.0).state_dict()
+    on_card = {}
+    for tail in ('fused', 'mix', 'packed'):
+        host = build_model(seed, dropout=0.0, tail=tail)
+        host.load_state_dict(weights, strict=True)   # one set for all tails
+        card = copy.deepcopy(host).to(dev)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t = time.perf_counter()
+        got = eval_step(card, make_schedule(sched_opt, dev),
+                        torch.from_numpy(x).to(dev),
+                        noise=injected(draws, dev))[0]
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t
+        n = counts['variants_' + tail] = dict(_build.LAUNCHES)
+        t = time.perf_counter()
+        want = eval_step(host, make_schedule(sched_opt, 'cpu'),
+                         torch.from_numpy(x), noise=injected(draws, 'cpu'))[0]
+        t_host = time.perf_counter() - t
+        err = agree('variants', "tail '%s' card vs host" % tail, got, want)
+        per_step = {'fused': ('akgm_tail', 'akgm_mix', 'akgm_packed'),
+                    'mix': ('akgm_mix', 'akgm_tail', 'akgm_packed'),
+                    'packed': ('akgm_packed', 'akgm_tail', 'akgm_mix')}[tail]
+        expect = {'conv3x3_preact': steps, per_step[0]: BLOCKS * steps,
+                  per_step[1]: 0, per_step[2]: 0}
+        wrong = {k: n[k] for k, v in expect.items() if n[k] != v}
+        if wrong:
+            fail("variants: tail '%s' launched %s, expected %s"
+                 % (tail, wrong, expect))
+        on_card[tail] = got
+        say('variants', "tail '%s', dropout 0, full width, %dx%d, %d DDPM "
+            'steps: card vs host max abs err %.3e (tol 1e-5); card %.2f s, '
+            'host %.2f s; launches %s'
+            % (tail, size, size, steps, err, t_card, t_host, json.dumps(n)))
+    err = agree('variants', "tail 'mix' vs tail 'fused' on the card",
+                on_card['mix'], on_card['fused'])
+    far = (on_card['packed'] - on_card['fused']).abs().max().item()
+    say('variants', "'mix' vs 'fused' on the card: max abs err %.3e (tol "
+        "1e-5, the same function); 'packed' vs 'fused': %.3e (another "
+        'network)' % (err, far))
+
+
+def phase_fewstep(dev, seed, counts):
+    """The few-step samplers on one SID frame, `dropout: 0` model."""
+    import numpy as np
+    import torch
+    from ucdir_tpu_torch.configs import SID_VAL_SCHEDULE
+    from ucdir_tpu_torch.eval import eval_step
+    from ucdir_tpu_torch.metrics import core as Metrics
+    from ucdir_tpu_torch.ops import _build
+    from ucdir_tpu_torch.schedule import make_schedule
+
+    host = build_model(seed, dropout=0.0)
+    model = copy.deepcopy(host).to(dev)
+    sched = make_schedule(SID_VAL_SCHEDULE, dev)
+    hr, lq = pattern(*SID_FRAME, seed + 6)
+    frame = torch.from_numpy(lq).to(dev)
+    gen = torch.Generator(dev).manual_seed(seed)
+    total = {}
+    for sampler, steps in (('ddim', 5), ('dpmpp', 20), ('dpmpp_sde', 20)):
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t = time.perf_counter()
+        sr, _ = eval_step(model, sched, frame, pad=PAD, generator=gen,
+                          sampler=sampler, sampling_timesteps=steps)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        n = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        if sr.shape != frame.shape or not torch.isfinite(sr).all():
+            fail('fewstep: %s output has shape %s or non-finite values'
+                 % (sampler, tuple(sr.shape)))
+        if n['conv3x3_preact'] != steps or n['akgm_tail'] != BLOCKS * steps:
+            fail('fewstep: %s, %d steps, launched %s' % (sampler, steps, n))
+        psnr = Metrics.calculate_psnr(Metrics.tensor2img(sr[0].cpu().numpy()),
+                                      Metrics.tensor2img(hr[0]))
+        if not math.isfinite(psnr):
+            fail('fewstep: %s PSNR %r' % (sampler, psnr))
+        for k, v in n.items():
+            total[k] = total.get(k, 0) + v
+        say('fewstep', '%s, %d steps, frame %dx%d: %.3f s per frame, %.1f ms '
+            'per step (the predictor and the guide maps included), PSNR '
+            '%.4f dB (random weights), peak %.3f GiB, launches %s'
+            % ((sampler, steps) + SID_FRAME
+               + (secs, 1e3 * secs / steps, psnr, peak, json.dumps(n))))
+        del sr
+    counts['fewstep'] = total
+
+    rng = np.random.default_rng(seed + 7)
+    x = rng.uniform(-1, 1, (1, 64, 64, 3)).astype(np.float32)
+    shape = (1, 64 + 2 * PAD, 64 + 2 * PAD, 3)
+    draws = [rng.standard_normal(shape).astype(np.float32) for _ in range(4)]
+    kw = dict(sampler='ddim', sampling_timesteps=3)
+    got = eval_step(model, sched, torch.from_numpy(x).to(dev),
+                    noise=injected(draws, dev), **kw)[0]
+    want = eval_step(host, make_schedule(SID_VAL_SCHEDULE, 'cpu'),
+                     torch.from_numpy(x), noise=injected(draws, 'cpu'),
+                     **kw)[0]
+    err = agree('fewstep', 'ddim card vs host', got, want)
+    say('fewstep', 'ddim, 3 steps, full width, 64x64: card vs host max abs '
+        'err %.3e (tol 1e-5)' % err)
+
+
+def phase_hires(dev, seed, counts):
+    """One full-resolution frame through the tiled path, and the tiled path
+    card against host at a small size."""
+    import numpy as np
+    import torch
+    from ucdir_tpu_torch.configs import SID_VAL_SCHEDULE
+    from ucdir_tpu_torch.eval import eval_step
+    from ucdir_tpu_torch.ops import _build
+    from ucdir_tpu_torch.parallel.tiled import (_grid_pad,
+                                                compute_tile_starts)
+    from ucdir_tpu_torch.schedule import make_schedule
+
+    host = build_model(seed, dropout=0.0)
+    model = copy.deepcopy(host).to(dev)
+    sched = make_schedule(SID_VAL_SCHEDULE, dev)
+    steps = 5
+    gen = torch.Generator(dev).manual_seed(seed)
+    frame = torch.rand((1,) + FULL_FRAME + (3,), generator=gen,
+                       device=dev) * 2 - 1
+    h, w = FULL_FRAME[0] + 2 * PAD, FULL_FRAME[1] + 2 * PAD
+    pd = _grid_pad(h, w, TILE, PAD)
+    tiles = len(compute_tile_starts(h + 2 * pd, w + 2 * pd, TILE, PAD))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t = time.perf_counter()
+    sr, _ = eval_step(model, sched, frame, pad=PAD, generator=gen,
+                      sampler='ddim', sampling_timesteps=steps)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    n = counts['hires'] = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    if sr.shape != frame.shape or not torch.isfinite(sr).all():
+        fail('hires: output has shape %s or non-finite values'
+             % (tuple(sr.shape),))
+    if n['conv3x3_preact'] != tiles * steps:
+        fail('hires: %d tiles, %d steps, but %d launches of the head kernel'
+             % (tiles, steps, n['conv3x3_preact']))
+    say('hires', 'frame %dx%d (%dx%d padded), ddim %d steps, tiled: %.3f s '
+        'per frame, %.3f s per step (the predictor and the guide maps of '
+        'every tile included), %d tiles of %dx%d per step, peak %.3f GiB, '
+        'launches %s'
+        % (FULL_FRAME + (h, w, steps, secs, secs / steps, tiles, TILE, TILE,
+                         peak, json.dumps(n))))
+    del sr, frame
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(seed + 8)
+    x = rng.uniform(-1, 1, (1, 200, 260, 3)).astype(np.float32)
+    shape = (1, 200 + 2 * PAD, 260 + 2 * PAD, 3)
+    draws = [rng.standard_normal(shape).astype(np.float32) for _ in range(3)]
+    sched_opt = dict(SID_VAL_SCHEDULE, n_timestep=2)
+    tile = {'skip': 128, 'padding': 16}
+    _build.reset_launches()
+    got = eval_step(model, make_schedule(sched_opt, dev),
+                    torch.from_numpy(x).to(dev), noise=injected(draws, dev),
+                    tile=tile)[0]
+    n = dict(_build.LAUNCHES)
+    want = eval_step(host, make_schedule(sched_opt, 'cpu'),
+                     torch.from_numpy(x), noise=injected(draws, 'cpu'),
+                     tile=tile)[0]
+    err = agree('hires', 'tiled card vs host', got, want)
+    say('hires', 'tiled {skip: 128, padding: 16}, full width, 200x260, 2 '
+        'DDPM steps: card vs host max abs err %.3e (tol 1e-5), %d tiles per '
+        'step' % (err, n['conv3x3_preact'] // 2))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -728,6 +1018,13 @@ def main(argv=None):
     phase_sid(dev, args.seed)
     phase_train_slice(dev, args.seed)
     counts['train'] = phase_train(dev, args.seed)
+    phase_variants(dev, args.seed, counts)
+    phase_fewstep(dev, args.seed, counts)
+    phase_hires(dev, args.seed, counts)
+    unlaunched = [k for k in KERNELS if counts[OWNER[k]][k] == 0]
+    if unlaunched:
+        fail('kernels never launched on the path that owns them: %s'
+             % unlaunched)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

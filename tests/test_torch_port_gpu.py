@@ -12,6 +12,9 @@ and 1e-5 of the largest sum of squares for the (B, C) statistics, which
 the kernels add with atomics in any order. The backward kernels K5 and K6
 also add their weight, bias and attention gradients with atomics: every
 output of theirs within 1e-4 of max(1, largest |reference| of that output).
+K7, K8 and K9 (the pre-activated conv, the mix alone, the packed tail) are
+held to the same 1e-4 at small and ragged shapes and at the shapes of the
+validation path: one 1568 x 2272 frame and its levels, one 1024 x 1024 tile.
 """
 import pytest
 import torch
@@ -167,6 +170,110 @@ def test_conv3x3_backward(dev, B, H, W, cin, cout, fold, act):
     if fold:
         dxh = dxh * kw['norm_scale'][:, None, None, :]
     check(got[:3], (dxh, dw, db), 0)
+
+
+FRAME = (1568, 2272)
+
+
+@pytest.mark.parametrize('B,H,W,cin,cout', [
+    (1, 18, 18, 64, 3), (2, 11, 17, 64, 3), (1, 9, 15, 70, 24),
+    (1, 6, 10, 128, 100), (1, 1024, 1024, 64, 3), (1,) + FRAME + (64, 3)])
+def test_conv3x3_preact(dev, B, H, W, cin, cout):
+    gen = torch.Generator(dev).manual_seed(8)
+    x = rnd(gen, B, H, W, cin, scale=0.5)
+    w = rnd(gen, 9 * cin, cout, scale=(9 * cin) ** -0.5)
+    b = rnd(gen, cout, scale=0.1)
+    # shifts down to about -6: values where swish is near 0 and below
+    a, t = rnd(gen, B, cin, off=1.0), rnd(gen, B, cin, scale=2.0)
+    n = dict(_build.LAUNCHES)
+    got = conv.conv3x3_preact(x, w, b, a, t)
+    assert _build.LAUNCHES['conv3x3_preact'] == n['conv3x3_preact'] + 1
+    assert _build.LAUNCHES['conv3x3'] == n['conv3x3']
+    check(got, conv.conv3x3_preact_plain(x, w, b, a, t), 0)
+
+
+def test_conv3x3_preact_survives_huge_negative_inputs(dev):
+    """expf overflows for -(x * a + t) above 88: swish must give 0, not NaN,
+    and the output is then the bias alone."""
+    gen = torch.Generator(dev).manual_seed(9)
+    x = rnd(gen, 1, 9, 13, 64)
+    w, b = rnd(gen, 9 * 64, 3, scale=0.05), rnd(gen, 3)
+    a = torch.ones(1, 64, device=dev)
+    t = torch.full((1, 64), -500., device=dev)
+    got = conv.conv3x3_preact(x, w, b, a, t)
+    assert torch.isfinite(got).all()
+    assert (got - b).abs().max().item() <= 1e-6
+
+
+def akgm_operands(gen, B, H, W, C, G=8):
+    return (rnd(gen, B, H, W, C, scale=0.5), rnd(gen, B, H, W, G, scale=0.5),
+            rnd(gen, 9 * C // G, C * G, scale=(9 * C / G) ** -0.5),
+            rnd(gen, C * G, scale=0.1))
+
+
+AKGM_SHAPES = [(2, 13, 21, 64), (1, 18, 18, 512), (1, 9, 130, 128),
+               (1, 5, 7, 256), (1,) + FRAME + (64,),
+               (1, FRAME[0] // 2, FRAME[1] // 2, 128),
+               (1, FRAME[0] // 4, FRAME[1] // 4, 256),
+               (1, FRAME[0] // 8, FRAME[1] // 8, 512)]
+
+
+@pytest.mark.parametrize('B,H,W,C', AKGM_SHAPES)
+def test_akgm_mix(dev, B, H, W, C):
+    gen, G = torch.Generator(dev).manual_seed(10), 8
+    h, att, w, b = akgm_operands(gen, B, H, W, C)
+    n = dict(_build.LAUNCHES)
+    got = akgm.akgm_mix(h, att, w, b, G)
+    assert _build.LAUNCHES['akgm_mix'] == n['akgm_mix'] + 1
+    assert _build.LAUNCHES['akgm_tail'] == n['akgm_tail']
+    check(got, akgm.akgm_mix_reference(h, att, w, b, G), 0)
+
+
+@pytest.mark.parametrize('B,H,W,C', AKGM_SHAPES)
+@pytest.mark.parametrize('fold_attw', [False, True])
+def test_akgm_packed(dev, B, H, W, C, fold_attw):
+    gen, G = torch.Generator(dev).manual_seed(11), 8
+    h, att, w, b = akgm_operands(gen, B, H, W, C)
+    res = rnd(gen, B, H, W, C, scale=0.5)
+    wp = akgm.pack_grouped_weight(w, G).contiguous()
+    kw = {}
+    if fold_attw:
+        kw.update(norm_scale=rnd(gen, B, C, scale=0.2, off=1.0),
+                  norm_shift=rnd(gen, B, C, scale=0.2),
+                  attw=rnd(gen, B, G, scale=0.3, off=1.0))
+    n = dict(_build.LAUNCHES)
+    got = akgm.akgm_block_tail_packed(h, att, wp, b, res, G, **kw)
+    assert _build.LAUNCHES['akgm_packed'] == n['akgm_packed'] + 1
+    assert _build.LAUNCHES['akgm_tail'] == n['akgm_tail']
+    check(got, akgm.akgm_block_tail_packed_plain(h, att, wp, b, res, G, **kw),
+          0)
+
+
+def test_new_functions_backward_on_the_card(dev):
+    """loss.backward() through conv3x3_preact, akgm_mix and
+    akgm_block_tail_packed on the card (forward kernels, plain backward)
+    against the plain versions' autograd."""
+    gen, G, C = torch.Generator(dev).manual_seed(12), 8, 64
+    h, att, w, b = akgm_operands(gen, 2, 12, 10, C)
+    res = rnd(gen, 2, 12, 10, C, scale=0.5)
+    a, t = rnd(gen, 2, C, scale=0.2, off=1.0), rnd(gen, 2, C, scale=0.2)
+    w3, b3 = rnd(gen, 9 * C, 3, scale=0.05), rnd(gen, 3, scale=0.1)
+    leaves = [v.requires_grad_() for v in (h, att, w, b, res, a, t, w3, b3)]
+
+    def net(mix, packed, preact):
+        y = mix(h, att, w, b, G)
+        z = packed(y, att, akgm.pack_grouped_weight(w, G).contiguous(), b,
+                   res, G, norm_scale=a, norm_shift=t)
+        return (preact(z, w3, b3, a, t) ** 2).mean()
+
+    got = torch.autograd.grad(net(akgm.akgm_mix, akgm.akgm_block_tail_packed,
+                                  conv.conv3x3_preact), leaves)
+    want = torch.autograd.grad(net(akgm.akgm_mix_reference,
+                                   akgm.akgm_block_tail_packed_plain,
+                                   conv.conv3x3_preact_plain), leaves)
+    for g, v in zip(got, want):
+        assert (g - v).abs().max().item() <= 1e-4 * max(
+            1.0, v.abs().max().item())
 
 
 def test_functions_backward_through_the_kernels(dev):

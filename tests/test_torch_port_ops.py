@@ -180,4 +180,5 @@ def test_check_refuses_host_and_half_tensors():
         _build.check('x', torch.zeros(2, 3))
     assert _build.LAUNCHES.keys() == {'akgm_tail', 'conv3x3', 'conv1x1',
                                       'gn1_stats', 'akgm_tail_bwd',
-                                      'conv3x3_bwd'}
+                                      'conv3x3_bwd', 'conv3x3_preact',
+                                      'akgm_mix', 'akgm_packed'}

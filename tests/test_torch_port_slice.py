@@ -86,10 +86,23 @@ def test_slice_matches_jax_eval_step(rng):
                                atol=1e-4, rtol=0)
 
 
-def test_untiled_limit_refuses_larger_inputs():
+def test_untiled_limit_refuses_larger_inputs(monkeypatch):
+    """Above the untiled limit the whole-image path refuses the input: it
+    goes to the tiled denoiser (1024-px tiles, 64-px halos) instead."""
+    from ucdir_tpu_torch.parallel import tiled
+
+    class Tiled(Exception):
+        pass
+
+    def fake(denoiser, x_cond, guide, **kw):
+        assert tuple(x_cond.shape) == (1, 2128, 2228, 3)
+        assert kw == dict(skip=1024, padding=64, tile_chunk=1)
+        raise Tiled
+
+    monkeypatch.setattr(tiled, 'tiled_denoise_fn', fake)
     model = define_G({'model': tiny_model_opt()})
     x = torch.zeros(1, 2000, 2100, 3)    # 2128 x 2228 padded > 4.3 M px
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    with pytest.raises(Tiled):
         eval_step(model, make_schedule(SID_VAL_SCHEDULE), x,
                   generator=torch.Generator())
 
@@ -153,10 +166,15 @@ def test_cli_val_on_cpu(tmp_path):
 
 def test_cli_refuses_what_is_not_ported():
     from ucdir_tpu_torch import sr
-    for extra in (['--compute_dtype', 'bf16'], ['--sampler', 'ddim'],
-                  ['--val_patch'], ['--val_batch', '2'], ['--search_params']):
+    for extra in (['--compute_dtype', 'bf16'], ['--val_batch', '2']):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             sr.main(['-p', 'val', '--device', 'cpu'] + extra)
+    # what the port carries by now is refused no longer
+    args = sr._parser().parse_args(
+        ['--sampler', 'dpmpp_sde', '--sampling_timesteps', '4', '--val_patch',
+         '--patch_skip', '64', '--patch_padding', '8', '--search_params',
+         '--search_steps', '2,3', '--search_ends', '0.2'])
+    sr._refuse(args)
 
 
 def test_port_imports_no_jax():

@@ -15,6 +15,14 @@
 // registers and the (B, H, W, C * G) candidate tensor never exists.
 // Bound: fp32 FMA issue (see igemm.cuh); at C = 64 the reduction is only
 // 9 * 8 = 72 deep, so staging and the epilogue weigh more there.
+//
+// K8: the mix alone,
+//   out[c] = sum_j (gconv3x3(h) + bias)[c * G + j] * att[j],
+// the same per-group product with a plain epilogue: the register sum over a
+// channel's candidates, then the store. No fold, no attw, no swish, no
+// residual, no statistics. Replaces the TPU kernel B10
+// (ucdir_tpu/ops/akgm_pallas.py _akgm_forward, which densified the grouped
+// weights 8x and summed the candidates with a selection matmul).
 #include "igemm.cuh"
 
 namespace {
@@ -22,14 +30,15 @@ namespace {
 constexpr int G = 8;  // candidates per channel; equals TN by construction
 static_assert(G == ucdir::TN, "one thread holds one channel's candidates");
 
+// TAIL: K1's epilogue (attw, swish, residual, statistics); else K8's.
+template <bool TAIL>
 __global__ void __launch_bounds__(ucdir::NT)
-    akgm_tail_kernel(const float* __restrict__ h, const float* __restrict__ att,
-                     const float* __restrict__ attw,
-                     const float* __restrict__ w, const float* __restrict__ bias,
-                     const float* __restrict__ res, const float* __restrict__ a,
-                     const float* __restrict__ t, float* __restrict__ out,
-                     float* __restrict__ ssum, float* __restrict__ ssq,
-                     ucdir::Geom g) {
+    akgm_kernel(const float* __restrict__ h, const float* __restrict__ att,
+                const float* __restrict__ attw, const float* __restrict__ w,
+                const float* __restrict__ bias, const float* __restrict__ res,
+                const float* __restrict__ a, const float* __restrict__ t,
+                float* __restrict__ out, float* __restrict__ ssum,
+                float* __restrict__ ssq, ucdir::Geom g) {
   __shared__ __align__(16) ucdir::Smem sm;
   float acc[ucdir::TM][ucdir::TN];
   const int C = g.C;
@@ -49,7 +58,7 @@ __global__ void __launch_bounds__(ucdir::NT)
 #pragma unroll
   for (int j = 0; j < G; ++j) {
     bj[j] = bias[c * G + j];
-    awj[j] = attw ? attw[b * G + j] : 1.f;
+    awj[j] = (TAIL && attw) ? attw[b * G + j] : 1.f;
   }
   float s = 0.f, q = 0.f;
 #pragma unroll
@@ -61,12 +70,16 @@ __global__ void __launch_bounds__(ucdir::NT)
     float mix = 0.f;
 #pragma unroll
     for (int j = 0; j < G; ++j) mix += (acc[i][j] + bj[j]) * (ap[j] * awj[j]);
+    if (!TAIL) {
+      out[pix * C + c] = mix;
+      continue;
+    }
     const float v = ucdir::swishf(mix) + res[pix * C + c];
     out[pix * C + c] = v;
     s += v;
     q += v * v;
   }
-  if (ssum == nullptr) return;
+  if (!TAIL || ssum == nullptr) return;
   atomicAdd(&sm.red[tn], s);
   atomicAdd(&sm.red[ucdir::BN + tn], q);
   __syncthreads();
@@ -74,6 +87,24 @@ __global__ void __launch_bounds__(ucdir::NT)
     atomicAdd(&ssum[(int64_t)b * C + n0 / G + tid], sm.red[tid]);
     atomicAdd(&ssq[(int64_t)b * C + n0 / G + tid], sm.red[ucdir::BN + tid]);
   }
+}
+
+ucdir::Geom akgm_geom(int H, int W, int C) {
+  ucdir::Geom g;
+  g.H = H;
+  g.W = W;
+  g.C = C;
+  g.Ho = H;
+  g.Wo = W;
+  g.ks = 3;
+  g.stride = 1;
+  g.cin = C / G;
+  g.K = 9 * (C / G);
+  return g;
+}
+
+dim3 akgm_grid(int B, int H, int W, int C) {
+  return dim3((H * W + ucdir::BM - 1) / ucdir::BM, (C * G) / ucdir::BN, B);
 }
 
 }  // namespace
@@ -89,19 +120,21 @@ extern "C" int ucdir_akgm_tail(const float* h, const float* att,
                                const float* a, const float* t, float* out,
                                float* ssum, float* ssq, int B, int H, int W,
                                int C, void* stream) {
-  ucdir::Geom g;
-  g.H = H;
-  g.W = W;
-  g.C = C;
-  g.Ho = H;
-  g.Wo = W;
-  g.ks = 3;
-  g.stride = 1;
-  g.cin = C / G;
-  g.K = 9 * (C / G);
-  const int P = H * W;
-  dim3 grid((P + ucdir::BM - 1) / ucdir::BM, (C * G) / ucdir::BN, B);
-  akgm_tail_kernel<<<grid, ucdir::NT, 0, (cudaStream_t)stream>>>(
-      h, att, attw, w, bias, res, a, t, out, ssum, ssq, g);
+  akgm_kernel<true>
+      <<<akgm_grid(B, H, W, C), ucdir::NT, 0, (cudaStream_t)stream>>>(
+          h, att, attw, w, bias, res, a, t, out, ssum, ssq,
+          akgm_geom(H, W, C));
+  return (int)cudaGetLastError();
+}
+
+// K8: out (B, H, W, C) = the mix of h's candidates under att; operands as
+// above.
+extern "C" int ucdir_akgm_mix(const float* h, const float* att, const float* w,
+                              const float* bias, float* out, int B, int H,
+                              int W, int C, void* stream) {
+  akgm_kernel<false>
+      <<<akgm_grid(B, H, W, C), ucdir::NT, 0, (cudaStream_t)stream>>>(
+          h, att, nullptr, w, bias, nullptr, nullptr, nullptr, out, nullptr,
+          nullptr, akgm_geom(H, W, C));
   return (int)cudaGetLastError();
 }

@@ -92,10 +92,28 @@ struct AffineLoader {
   }
 };
 
-__device__ __forceinline__ AffineLoader affine_loader(
+// The same values through swish: swish(x * a + t), for a convolution of the
+// activated tensor. The padding stays 0, since swish(0) = 0.
+struct PreactLoader : AffineLoader {
+  __device__ __forceinline__ float at(const Col& s, int iy, int ix) const {
+    return swishf(AffineLoader::at(s, iy, ix));
+  }
+};
+
+// Scales A per (block row, k column) as it is staged; the default scales
+// nothing.
+struct NoRowScale {
+  template <class Col>
+  __device__ __forceinline__ float apply(float v, const Col&, int) const {
+    return v;
+  }
+};
+
+template <class Loader = AffineLoader>
+__device__ __forceinline__ Loader affine_loader(
     const float* __restrict__ x, const float* __restrict__ a,
     const float* __restrict__ t, const Geom& g, int b, int cin0) {
-  AffineLoader al;
+  Loader al;
   al.xb = x + (int64_t)b * g.H * g.W * g.C;
   al.ab = a ? a + (int64_t)b * g.C : nullptr;
   al.tb = t ? t + (int64_t)b * g.C : nullptr;
@@ -141,14 +159,15 @@ __device__ __forceinline__ void mma_stage(float (&acc)[TM][TN],
 // acc[i][j] = sum_k A[m0 + tm * TM + i][k] * Wt[k][n0 + tn * TN + j], where
 // tm = threadIdx.x / (BN / TN) and tn = threadIdx.x % (BN / TN).
 // Column k = tap * g.cin + ci of A is al.at(al.col(ci), iy, ix) at the tap's
-// input pixel, 0 outside the image. w is (K, ldw) row-major and ncols its
-// live width.
-template <class ALoader>
+// input pixel, 0 outside the image, then rs.apply(value, column, block row).
+// w is (K, ldw) row-major and ncols its live width.
+template <class ALoader, class RowScale = NoRowScale>
 __device__ __forceinline__ void igemm_core(float (&acc)[TM][TN], Smem& sm,
                                            const ALoader& al,
                                            const float* __restrict__ w,
                                            int ldw, int ncols, const Geom& g,
-                                           int m0, int n0) {
+                                           int m0, int n0,
+                                           const RowScale& rs = RowScale()) {
   const int tid = threadIdx.x;
   const int P = g.Ho * g.Wo;
   const int off = g.ks == 3 ? 1 : 0;
@@ -187,7 +206,7 @@ __device__ __forceinline__ void igemm_core(float (&acc)[TM][TN], Smem& sm,
       const int ix = sm.ix0[m] + tx;
       float v = 0.f;
       if (kv && iy >= 0 && iy < g.H && ix >= 0 && ix < g.W)
-        v = al.at(cs, iy, ix);
+        v = rs.apply(al.at(cs, iy, ix), cs, m);
       sm.As[a_k][m] = v;
     }
     for (int kk = b_k; kk < BK; kk += NT / BN) {

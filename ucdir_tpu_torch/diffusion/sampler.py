@@ -1,12 +1,18 @@
-"""The ancestral DDPM sampler as a Python loop. Counterpart of
-`ucdir_tpu/diffusion/sampler.py` (reference: model/diffusion.py:160-211,
+"""The samplers as Python loops. Counterpart of
+`ucdir_tpu/diffusion/sampler.py` (reference: model/diffusion.py:160-294,
 473-478).
 
-`sample_continuous_gamma` draws the training-time noise level.
+  * `p_sample_loop`: the ancestral DDPM reverse loop.
+  * `ddim_sample`: DDIM(eta) over `sampling_timesteps` steps.
+  * `super_resolution`: predictor, guided reverse loop (whole image or
+    tiled), + initx; dispatches on `sampler` (the DPM-Solver++ forms live in
+    `diffusion/dpm_solver.py`).
+  * `sample_continuous_gamma`: the training-time noise level.
 
 Noise is injectable: `noise(shape)` is called once for the initial draw and
-then once per step, t = T-1 down to 0 (the t = 0 draw is multiplied by 0, as
-in the JAX scan). The default draws from a `torch.Generator`.
+then once per step (DDPM: t = T-1 down to 0, the t = 0 draw multiplied by 0,
+as in the JAX scan; DDIM: every step, the last one's unused). The default
+draws from a `torch.Generator`.
 """
 from __future__ import annotations
 
@@ -97,28 +103,106 @@ def p_sample_loop(denoise: Callable, x_cond: torch.Tensor,
     return img
 
 
+def ddim_sample(denoise: Callable, x_cond: torch.Tensor,
+                sched: NoiseSchedule, noise: Noise,
+                sampling_timesteps: int = 5, eta: float = 1.0,
+                clip_x_start: bool = True, continous: bool = False):
+    """DDIM(eta) reverse loop (reference diffusion.py:247-294) over the pairs
+    of `linspace(-1, T - 1, sampling_timesteps + 1)` truncated to integers,
+    from T - 1 down; the step to t_next = -1 returns the clipped x0. Returns
+    the final image, or (final, snapshots) when continous: the initial noise,
+    then every step's image."""
+    shape = tuple(x_cond.shape)
+    T = sched.num_timesteps
+    times = np.linspace(-1, T - 1, sampling_timesteps + 1).astype(np.int64)
+    times = list(reversed(times.tolist()))
+    img = noise(shape)
+    snaps = [img]
+    for t, t_next in zip(times[:-1], times[1:]):
+        noise_level = sched.sqrt_alphas_cumprod_prev[t + 1].expand(
+            shape[0], 1)
+        eps = denoise(img, noise_level)
+        x0 = (sched.sqrt_recip_alphas_cumprod[t] * img
+              - sched.sqrt_recipm1_alphas_cumprod[t] * eps)
+        if clip_x_start:
+            x0 = x0.clamp(-1., 1.)
+        z = noise(shape)
+        if t_next < 0:
+            img = x0
+        else:
+            alpha = sched.alphas_cumprod[t]
+            alpha_next = sched.alphas_cumprod[t_next]
+            sigma = eta * torch.sqrt((1 - alpha / alpha_next)
+                                     * (1 - alpha_next) / (1 - alpha))
+            c = torch.sqrt((1 - alpha_next - sigma ** 2).clamp(min=0.))
+            img = x0 * torch.sqrt(alpha_next) + c * eps + sigma * z
+        if continous:
+            snaps.append(img)
+    if continous:
+        return img, torch.stack(snaps, dim=0)
+    return img
+
+
+# Largest input (after the validation pad) restored as one image when no tile
+# options are given; larger ones take the tiled path. 1424 x 2128 SID frames
+# pad to 1552 x 2256, about 3.5 M px.
+UNTILED_MAX_PX = 4_300_000
+
+
 @torch.no_grad()
 def super_resolution(model, sched: NoiseSchedule, x_in: torch.Tensor,
                      noise: Optional[Noise] = None,
                      generator: Optional[torch.Generator] = None,
-                     continous: bool = False):
+                     continous: bool = False, sampler: str = 'ddpm',
+                     sampling_timesteps: int = 5, eta: float = 1.0,
+                     tile_opts: Optional[dict] = None):
     """Restoration for ResiGaussianGuideDY: initx = predictor(x_in); the
     reverse loop conditioned on x_in with initx guiding AKGM (its guide maps
     computed once); result + initx. Returns (sr, initx) or (sr, initx,
-    snapshots). Give `noise` or a `generator` for the draws."""
+    snapshots). Give `noise` or a `generator` for the draws.
+
+    sampler: 'ddpm' | 'ddim' | 'dpmpp' | 'dpmpp_sde'; the last three take
+    `sampling_timesteps` steps, ddim also `eta`. tile_opts: {skip, padding,
+    tile_chunk} runs every denoiser call tiled (parallel/tiled.py); None
+    tiles, with the defaults, only inputs above UNTILED_MAX_PX."""
     if noise is None:
         if generator is None:
             raise ValueError('super_resolution needs noise= or generator=')
         noise = generator_noise(generator)
     initx = model.predict_init(x_in)
     guide = {'initx': initx, 'degraded': x_in}[model.guide_in_sample]
-    gmaps = compute_guide_maps(model.denoise_fn, pad_to_multiple(guide, 32)[0])
 
-    def denoise(img, noise_level):
-        return model.denoise(torch.cat([x_in, img], dim=-1), noise_level,
-                             guide, guide_maps=gmaps)
+    h, w = x_in.shape[1], x_in.shape[2]
+    if tile_opts is None and h * w > UNTILED_MAX_PX:
+        tile_opts = {}
+    if tile_opts is not None:
+        from ucdir_tpu_torch.parallel.tiled import tiled_denoise_fn
+        denoise = tiled_denoise_fn(
+            model.denoise_fn, x_in, guide, skip=tile_opts.get('skip', 1024),
+            padding=tile_opts.get('padding', 64),
+            tile_chunk=tile_opts.get('tile_chunk', 1))
+    else:
+        gmaps = compute_guide_maps(model.denoise_fn,
+                                   pad_to_multiple(guide, 32)[0])
 
-    out = p_sample_loop(denoise, x_in, sched, noise, continous=continous)
+        def denoise(img, noise_level):
+            return model.denoise(torch.cat([x_in, img], dim=-1), noise_level,
+                                 guide, guide_maps=gmaps)
+
+    if sampler == 'ddpm':
+        out = p_sample_loop(denoise, x_in, sched, noise, continous=continous)
+    elif sampler == 'ddim':
+        out = ddim_sample(denoise, x_in, sched, noise,
+                          sampling_timesteps=sampling_timesteps, eta=eta,
+                          continous=continous)
+    elif sampler in ('dpmpp', 'dpmpp_sde'):
+        from ucdir_tpu_torch.diffusion.dpm_solver import dpm_solver_pp_sample
+        out = dpm_solver_pp_sample(denoise, x_in, sched, noise,
+                                   steps=sampling_timesteps,
+                                   continous=continous,
+                                   sde=(sampler == 'dpmpp_sde'))
+    else:
+        raise NotImplementedError(sampler)
     if continous:
         img, snaps = out
         return img + initx, initx, snaps + initx[None]

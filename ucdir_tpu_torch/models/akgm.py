@@ -6,6 +6,11 @@
   g    = conv2(resize(guide))                       (B, H, W, nset) maps
   out  = swish(mix(spdyconv(norm2(h)), g * attw)) + res_conv(x)   K1 (+K3)
 
+`tail` selects how the last line runs: 'fused' (K1, one pass), 'mix' (the
+affine and g * attw as tensor ops, the mix alone as K8, swish and the
+residual as tensor ops) or 'packed' (K9, the group-packed form, which pairs
+candidates and input groups differently and so computes another network).
+
 Both GroupNorm(1) layers fold into the following kernel as a per-(batch,
 channel) affine x * a + t; their statistics come chained from the producer of
 x and h (`in_stats`, conv1's emitted sums) or, where the chain is void, from
@@ -18,8 +23,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ucdir_tpu_torch.models.layers import Conv1, Conv3, SimpleGate, cached
-from ucdir_tpu_torch.ops.akgm import akgm_block_tail
+from ucdir_tpu_torch.ops.akgm import (akgm_block_tail,
+                                      akgm_block_tail_packed, akgm_mix,
+                                      pack_grouped_weight)
+from ucdir_tpu_torch.ops.conv import swish
 from ucdir_tpu_torch.ops.stats import gn1_stats
+
+TAILS = ('fused', 'mix', 'packed')
 
 
 def totals(stats):
@@ -56,13 +66,16 @@ def guide_maps(block: 'ResnetBlockDY3h', guide, size):
 
 class ResnetBlockDY3h(nn.Module):
     def __init__(self, dim: int, dim_out: int, nl_emb_dim: int,
-                 norm_groups: int = 1, nset: int = 8):
+                 norm_groups: int = 1, nset: int = 8, tail: str = 'fused'):
         super().__init__()
         if norm_groups != 1:
             raise NotImplementedError(
                 'ResnetBlockDY3h: only norm_groups=1 (the shipped configs) is '
                 'ported; see ROADMAP.md')
+        if tail not in TAILS:
+            raise ValueError('tail must be one of %s, got %r' % (TAILS, tail))
         self.dim, self.dim_out, self.nset = dim, dim_out, nset
+        self.tail = tail
         self.noise_func = nn.Sequential(nn.Linear(nl_emb_dim, nset), nn.SiLU(),
                                         nn.Linear(nset, nset))
         self.norm1 = nn.GroupNorm(1, dim)
@@ -81,6 +94,11 @@ class ResnetBlockDY3h(nn.Module):
         return cached(self, 'spdy', lambda: w.permute(2, 3, 1, 0).reshape(
             -1, w.shape[0]), w)
 
+    def packed_weight(self):
+        """The grouped kernel as the packed tail's dense (9 * C, C)."""
+        return cached(self, 'packed', lambda: pack_grouped_weight(
+            self.spdy_weight(), self.nset), self.spdyconv.weight)
+
     def forward(self, x, time_emb, guide, g_maps=None, in_stats=None):
         """x (B, H, W, dim) NHWC; in_stats: chained ((B,) sum, (B,) sumsq) of
         x or None. Returns (out, ((B,) sum, (B,) sumsq) of out)."""
@@ -93,9 +111,22 @@ class ResnetBlockDY3h(nn.Module):
         if g_maps is None:
             g_maps = guide_maps(self, guide, x.shape[1:3])
         res = self.res_conv(x)
-        out, out_stats = akgm_block_tail(
-            h, g_maps, self.spdy_weight(), self.spdyconv.bias, res, self.nset,
-            norm_scale=a2, norm_shift=t2, attw=attw.contiguous(),
-            emit_stats=True)
-        return out, totals(out_stats)
+        attw = attw.contiguous()
+        if self.tail == 'fused':
+            out, out_stats = akgm_block_tail(
+                h, g_maps, self.spdy_weight(), self.spdyconv.bias, res,
+                self.nset, norm_scale=a2, norm_shift=t2, attw=attw,
+                emit_stats=True)
+            return out, totals(out_stats)
+        if self.tail == 'mix':
+            hh = h * a2[:, None, None, :] + t2[:, None, None, :]
+            y = akgm_mix(hh, g_maps * attw[:, None, None, :],
+                         self.spdy_weight(), self.spdyconv.bias, self.nset)
+            out = swish(y) + res
+        else:
+            out = akgm_block_tail_packed(
+                h, g_maps, self.packed_weight(), self.spdyconv.bias, res,
+                self.nset, norm_scale=a2, norm_shift=t2, attw=attw)
+        # neither kernel emits statistics: one pass of K4 over the output
+        return out, totals(gn1_stats(out))
 

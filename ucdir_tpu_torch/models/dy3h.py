@@ -26,15 +26,16 @@ from ucdir_tpu_torch.models.attention import SelfAttention
 from ucdir_tpu_torch.models.layers import (Conv3, Downsample,
                                            PositionalEncoding, Upsample,
                                            crop_pad, pad_to_multiple)
-from ucdir_tpu_torch.ops.conv import swish
+from ucdir_tpu_torch.ops.conv import conv3x3_preact, swish
 
 
 class ResnetBlocWithAttn(nn.Module):
     def __init__(self, dim: int, dim_out: int, nl_emb_dim: int,
-                 norm_groups: int = 1, with_attn: bool = False):
+                 norm_groups: int = 1, with_attn: bool = False,
+                 tail: str = 'fused'):
         super().__init__()
         self.res_block = ResnetBlockDY3h(dim, dim_out, nl_emb_dim,
-                                         norm_groups=norm_groups)
+                                         norm_groups=norm_groups, tail=tail)
         self.attn = (SelfAttention(dim_out, norm_groups=norm_groups)
                      if with_attn else None)
 
@@ -64,7 +65,11 @@ class DY3h(nn.Module):
                  inner_channel: int = 32, norm_groups: int = 1,
                  channel_mults: Sequence[int] = (1, 2, 4, 8, 8),
                  attn_res: Sequence[int] = (8,), res_blocks: int = 3,
-                 dropout: float = 0.0, image_size: int = 128):
+                 dropout: float = 0.0, image_size: int = 128,
+                 tail: str = 'fused'):
+        """tail: how every AKGM block runs its tail, 'fused' | 'mix' |
+        'packed' (models/akgm.py). dropout == 0 folds the head into one
+        pre-activated conv (K7)."""
         super().__init__()
         self.inner_channel = inner_channel
         self.channel_mults = tuple(channel_mults)
@@ -80,7 +85,7 @@ class DY3h(nn.Module):
 
         def block(dim, dim_out, with_attn):
             return ResnetBlocWithAttn(dim, dim_out, nlc, norm_groups,
-                                      with_attn)
+                                      with_attn, tail)
 
         self.downs = nn.ModuleList([Conv3(in_channel, inner_channel)] + [
             block(d, do, a) if kind == 'block' else Downsample(do)
@@ -176,9 +181,14 @@ class DY3h(nn.Module):
                 x, xs = layer(torch.cat([x, skip], dim=-1), t, guide,
                               gm.get(f'ups.{i}'), _cat_stats(xs, ss))
 
-        # head: GroupNorm -> swish -> dropout -> conv3x3 (K2)
+        # head: GroupNorm -> swish -> dropout -> conv3x3. Without dropout it
+        # is one pre-activated conv (K7): neither the normalized nor the
+        # activated tensor is written. Dropout in between forces K2 on the
+        # activated tensor.
         norm, _, drop, conv = self.final_conv
         a, t_ = norm1_affine(x, norm.weight, norm.bias, xs)
+        if drop.p == 0:
+            return conv3x3_preact(x, conv.kernel_weight(), conv.bias, a, t_)
         x = swish(x * a[:, None, None, :] + t_[:, None, None, :])
         if self.training and drop.p > 0:
             x = x * dropout_mask(x, drop.p, dropout_generator)

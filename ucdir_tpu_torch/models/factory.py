@@ -2,14 +2,28 @@
 `ucdir_tpu/models/factory.py` (reference: model/networks.py:88-95)."""
 from __future__ import annotations
 
+import os
 from typing import Any, Dict
 
 from ucdir_tpu_torch.models.dy3h import DY3h
 
 
+def tail_from_env() -> str:
+    """The AKGM tail the environment asks for, by the JAX package's own two
+    switches: UCDIR_TPU_NO_FUSED_TAIL=1 -> 'mix' (it wins where both are
+    set, as there), UCDIR_TPU_AKGM_PACKED=1 -> 'packed', else 'fused'."""
+    if os.environ.get('UCDIR_TPU_NO_FUSED_TAIL') == '1':
+        return 'mix'
+    if os.environ.get('UCDIR_TPU_AKGM_PACKED') == '1':
+        return 'packed'
+    return 'fused'
+
+
 def define_G(opt: Dict[str, Any]):
     """The diffusion module of a parsed config (opt['model']): DY3h inside
-    ResiGaussianGuideDY, the pair this port carries."""
+    ResiGaussianGuideDY, the pair this port carries. The AKGM tail is the
+    config's `unet.tail` or, without one, `tail_from_env()`, read once
+    here."""
     from ucdir_tpu_torch.diffusion.base import ResiGaussianGuideDY
 
     model_opt = opt['model']
@@ -29,6 +43,7 @@ def define_G(opt: Dict[str, Any]):
                                       or (1, 2, 4, 8, 8))
     unet_cfg['attn_res'] = tuple(unet_cfg.get('attn_res') or (8,))
     unet_cfg.setdefault('image_size', model_opt['diffusion']['image_size'])
+    unet_cfg.setdefault('tail', tail_from_env())
     diff_cfg = dict(model_opt['diffusion'])
     return ResiGaussianGuideDY(
         denoise_fn=DY3h(**unet_cfg),

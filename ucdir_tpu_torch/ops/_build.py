@@ -31,7 +31,8 @@ GENCODE = 'arch=compute_90a,code=sm_90a'
 # Launches per kernel since the last reset_launches(), counted where each
 # wrapper launches its kernel and nowhere else.
 LAUNCHES = {'akgm_tail': 0, 'conv3x3': 0, 'conv1x1': 0, 'gn1_stats': 0,
-            'akgm_tail_bwd': 0, 'conv3x3_bwd': 0}
+            'akgm_tail_bwd': 0, 'conv3x3_bwd': 0, 'conv3x3_preact': 0,
+            'akgm_mix': 0, 'akgm_packed': 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: pointers and the stream as void*, sizes and flags as int.
@@ -42,6 +43,9 @@ _SIGNATURES = {
     'gn1_stats': [_P] * 3 + [_I] * 3 + [_P],
     'akgm_tail_bwd': [_P] * 15 + [_I] * 4 + [_P],
     'conv3x3_bwd': [_P] * 11 + [_I] * 6 + [_P],
+    'conv3x3_preact': [_P] * 6 + [_I] * 5 + [_P],
+    'akgm_mix': [_P] * 5 + [_I] * 4 + [_P],
+    'akgm_packed': [_P] * 9 + [_I] * 4 + [_P],
 }
 
 

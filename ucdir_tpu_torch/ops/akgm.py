@@ -1,6 +1,7 @@
 """The AKGM block tail: kernel K1 (`csrc/akgm_tail.cu`), its backward kernel
-K5 (`csrc/akgm_tail_bwd.cu`) and their plain versions. Counterpart of
-`ucdir_tpu/ops/akgm.py` and `ucdir_tpu/ops/akgm_pallas.py`.
+K5 (`csrc/akgm_tail_bwd.cu`), the mix alone K8 (`csrc/akgm_tail.cu`), the
+group-packed tail K9 (`csrc/akgm_packed.cu`) and their plain versions.
+Counterpart of `ucdir_tpu/ops/akgm.py` and `ucdir_tpu/ops/akgm_pallas.py`.
 
     hset = grouped_conv3x3(h * a + t) + bias   # (B, H, W, C * G), groups = G
     out  = swish(sum_j hset[..., c * G + j] * att[..., j] * attw[j]) + res
@@ -16,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ucdir_tpu_torch.ops import _build
-from ucdir_tpu_torch.ops.conv import dswish, swish
+from ucdir_tpu_torch.ops.conv import dswish, swish, vjp_of_plain
 from ucdir_tpu_torch.ops.stats import fold_stats_grad, gn1_stats_plain
 
 
@@ -71,7 +72,10 @@ def _akgm_block_tail_forward(h, att_sp, w, bias, res, nset, norm_scale,
     return out, s, q
 
 
-def _check_operands(h, att_sp, w, bias, nset, norm_scale, norm_shift, attw):
+def _check_operands(h, att_sp, w, bias, nset, norm_scale, norm_shift, attw,
+                    packed=False):
+    """Raises on what the AKGM kernels do not take; w is the grouped kernel
+    (9 * C / G, C * G), or with `packed` the dense (9 * C, C)."""
     B, H, W, C = h.shape
     if nset != 8 or C % 64:
         raise ValueError('the AKGM kernels need nset == 8 and C %% 64 == 0, '
@@ -79,7 +83,8 @@ def _check_operands(h, att_sp, w, bias, nset, norm_scale, norm_shift, attw):
     dev = h.device
     _build.check('h', h)
     _build.check('att_sp', att_sp, (B, H, W, nset), device=dev)
-    _build.check('w', w, (9 * C // nset, C * nset), device=dev)
+    _build.check('w', w, (9 * C, C) if packed else (9 * C // nset, C * nset),
+                 device=dev)
     _build.check('bias', bias, (C * nset,), device=dev)
     _build.check('norm_scale', norm_scale, (B, C), device=dev)
     _build.check('norm_shift', norm_shift, (B, C), device=dev)
@@ -206,3 +211,126 @@ def akgm_block_tail(h, att_sp, w, bias, res, nset: int, *, norm_scale=None,
     y = _AkgmBlockTail.apply(h, att_sp, w, bias, res, norm_scale, norm_shift,
                              attw, nset, emit_stats)
     return (y[0], (y[1], y[2])) if emit_stats else y
+
+
+class _AkgmMix(torch.autograd.Function):
+    """Forward K8; the backward is the autograd of `akgm_mix_reference`, as
+    in the JAX package (`akgm_mix_pallas`), which owes no kernel here."""
+
+    @staticmethod
+    def forward(ctx, h, att_sp, w, bias, nset):
+        ctx.save_for_backward(h, att_sp, w, bias)
+        ctx.nset = nset
+        if _build.on_host(h):
+            return akgm_mix_reference(h, att_sp, w, bias, nset)
+        B, H, W, C = h.shape
+        _check_operands(h, att_sp, w, bias, nset, None, None, None)
+        out = torch.empty_like(h)
+        _build.launch('akgm_mix', h.data_ptr(), att_sp.data_ptr(),
+                      w.data_ptr(), bias.data_ptr(), out.data_ptr(), B, H, W,
+                      C, _build.stream(h))
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        nset = ctx.nset
+        return (*vjp_of_plain(
+            lambda h, a, w, b: akgm_mix_reference(h, a, w, b, nset),
+            ctx.saved_tensors, (g,)), None)
+
+
+def akgm_mix(h, att_sp, w, bias, nset: int):
+    """`sum_j (grouped_conv3x3(h) + bias)[..., c * G + j] * att_sp[..., j]`:
+    the candidates mixed per pixel, without ever writing them. No fold, no
+    mixing weights, no activation, no residual; differentiable in every
+    operand. Operands as `akgm_block_tail`'s."""
+    return _AkgmMix.apply(h, att_sp, w, bias, nset)
+
+
+def pack_grouped_weight(w, nset: int):
+    """The grouped kernel (9 * C / G, C * G) as the packed tail's dense
+    (9 * C, C) matrix: row tap * C + j * (C / G) + cg, column i, value
+    w[tap * (C / G) + cg, i * G + j] (`_pack_grouped_kernel` of
+    ucdir_tpu/ops/akgm_pallas.py)."""
+    cg = w.shape[0] // 9
+    C = cg * nset
+    return w.reshape(9, cg, C, nset).permute(0, 3, 1, 2).reshape(9 * C, C)
+
+
+def akgm_block_tail_packed_plain(h, att_sp, w_packed, bias, res, nset: int, *,
+                                 norm_scale=None, norm_shift=None, attw=None):
+    """The plain version of K9: with A = att_sp * attw and hh = h * a + t,
+
+        out[p, i] = swish(sum_j A[p, j] * (conv3x3(hh[group j], k_j)[p, i]
+                                           + bias[i * G + j])) + res[p, i]
+
+    k_j (3, 3, C / G, C) being rows tap * C + j * (C / G) + cg of w_packed.
+    The output pixel's attention scales input group j against candidate j of
+    every output channel."""
+    B, H, W, C = h.shape
+    cg = C // nset
+    if norm_scale is not None:
+        h = h * norm_scale[:, None, None, :] + norm_shift[:, None, None, :]
+    A = att_sp if attw is None else att_sp * attw[:, None, None, :]
+    # one grouped conv: group j's input against its (C / G) -> C kernel
+    k = w_packed.reshape(3, 3, nset, cg, C).permute(2, 4, 3, 0, 1)
+    y = F.conv2d(h.permute(0, 3, 1, 2), k.reshape(nset * C, cg, 3, 3), None,
+                 padding=1, groups=nset)
+    y = y.permute(0, 2, 3, 1).reshape(B, H, W, nset, C)
+    y = torch.einsum('bhwjc,bhwj->bhwc', y, A) + A @ bias.reshape(C, nset).t()
+    return swish(y) + res
+
+
+class _AkgmBlockTailPacked(torch.autograd.Function):
+    """Forward K9; the backward is the autograd of the plain version (the
+    JAX package gives this form no gradient of its own)."""
+
+    @staticmethod
+    def forward(ctx, h, att_sp, w_packed, bias, res, norm_scale, norm_shift,
+                attw, nset):
+        ctx.save_for_backward(h, att_sp, w_packed, bias, res, norm_scale,
+                              norm_shift, attw)
+        ctx.nset = nset
+        if _build.on_host(h):
+            return akgm_block_tail_packed_plain(
+                h, att_sp, w_packed, bias, res, nset, norm_scale=norm_scale,
+                norm_shift=norm_shift, attw=attw)
+        B, H, W, C = h.shape
+        dev = _check_operands(h, att_sp, w_packed, bias, nset, norm_scale,
+                              norm_shift, attw, packed=True)
+        _build.check('res', res, (B, H, W, C), device=dev)
+        out = torch.empty_like(h)
+        _build.launch('akgm_packed', h.data_ptr(), att_sp.data_ptr(),
+                      _build.ptr(attw), w_packed.data_ptr(), bias.data_ptr(),
+                      res.data_ptr(), _build.ptr(norm_scale),
+                      _build.ptr(norm_shift), out.data_ptr(), B, H, W, C,
+                      _build.stream(h))
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        nset = ctx.nset
+        return (*vjp_of_plain(
+            lambda h, a, w, b, r, ns, nt, aw: akgm_block_tail_packed_plain(
+                h, a, w, b, r, nset, norm_scale=ns, norm_shift=nt, attw=aw),
+            ctx.saved_tensors, (g,)), None)
+
+
+def akgm_block_tail_packed(h, att_sp, w_packed, bias, res, nset: int, *,
+                           norm_scale=None, norm_shift=None, attw=None):
+    """The group-packed block tail: the attention scales the input channels
+    by their group and one dense (9 * C) -> C product follows, then the
+    attention-weighted bias, swish and the residual. w_packed (9 * C, C) from
+    `pack_grouped_weight`; the other operands as `akgm_block_tail`'s. No
+    statistics.
+
+    This form computes a DIFFERENT pairing than the reference network: here
+    candidate j of every output channel reads input group j, while the
+    reference (`akgm_block_tail`) lets all G candidates of output channel i
+    read the one input group i // (C / G) (ucdir_tpu/ops/DISPATCH.md, the
+    packing study). It does not reproduce the trained model's outputs and is
+    kept so that the study's question stays answerable on both packages."""
+    if (norm_scale is None) != (norm_shift is None):
+        raise ValueError('norm_scale and norm_shift come together')
+    return _AkgmBlockTailPacked.apply(h, att_sp, w_packed, bias, res,
+                                      norm_scale, norm_shift, attw, nset)

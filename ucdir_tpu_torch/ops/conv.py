@@ -1,7 +1,8 @@
 """3x3 and 1x1 convolutions on NHWC tensors: kernels K2 (`csrc/conv3x3.cu`)
 and K3 (`csrc/conv1x1.cu`), the 3x3 backward kernel K6
-(`csrc/conv3x3_bwd.cu`), their plain versions, and the phase-packed
-nearest-x2 upsampling conv built on K2. Counterpart of
+(`csrc/conv3x3_bwd.cu`), the pre-activated 3x3 conv K7 (`csrc/conv3x3.cu`),
+their plain versions, and the phase-packed nearest-x2 upsampling conv built
+on K2. Counterpart of
 `ucdir_tpu/ops/conv_pallas.py`. Every op is a `torch.autograd.Function`: a
 CUDA tensor goes through the kernels in both directions, a CPU tensor through
 the plain versions.
@@ -219,6 +220,52 @@ def conv3x3(x, w, bias, *, stride=1, act=None, norm_scale=None,
     y = _Conv3x3.apply(x, w, bias, norm_scale, norm_shift, stride, act,
                        emit_stats)
     return (y[0], (y[1], y[2])) if emit_stats else y
+
+
+def conv3x3_preact_plain(x, w, bias, norm_scale, norm_shift):
+    """The plain version of K7 (`_c3p_ref` of ucdir_tpu/ops/conv_pallas.py):
+    `conv3x3(swish(x * a + t)) + bias`, SAME padding 1 of the activated
+    tensor."""
+    xh = x * norm_scale[:, None, None, :] + norm_shift[:, None, None, :]
+    return conv3x3_plain(swish(xh), w, bias)
+
+
+class _Conv3x3Preact(torch.autograd.Function):
+    """Forward K7; the backward is the autograd of the plain composition, as
+    in the JAX package (`_c3p_bwd`), which owes no kernel here."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, norm_scale, norm_shift):
+        ctx.save_for_backward(x, w, bias, norm_scale, norm_shift)
+        if _build.on_host(x):
+            return conv3x3_preact_plain(x, w, bias, norm_scale, norm_shift)
+        B, H, W, cin = x.shape
+        cout = w.shape[1]
+        dev = x.device
+        _build.check('x', x)
+        _build.check('w', w, (9 * cin, cout), device=dev)
+        _build.check('bias', bias, (cout,), device=dev)
+        _build.check('norm_scale', norm_scale, (B, cin), device=dev)
+        _build.check('norm_shift', norm_shift, (B, cin), device=dev)
+        out = torch.empty(B, H, W, cout, device=dev, dtype=torch.float32)
+        _build.launch('conv3x3_preact', x.data_ptr(), w.data_ptr(),
+                      bias.data_ptr(), norm_scale.data_ptr(),
+                      norm_shift.data_ptr(), out.data_ptr(), B, H, W, cin,
+                      cout, _build.stream(x))
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return vjp_of_plain(conv3x3_preact_plain, ctx.saved_tensors, (g,))
+
+
+def conv3x3_preact(x, w, bias, norm_scale, norm_shift):
+    """`conv3x3(swish(x * a + t)) + bias` on NHWC `x`: a GroupNorm(1) ->
+    swish -> conv head as one pass, the norm as the affine norm_scale,
+    norm_shift (B, Cin). The padding is the activated tensor's 0. No
+    statistics and no activation after the conv; differentiable in every
+    operand."""
+    return _Conv3x3Preact.apply(x, w, bias, norm_scale, norm_shift)
 
 
 def conv1x1_plain(x, w, bias, *, act=None):

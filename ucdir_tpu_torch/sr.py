@@ -4,19 +4,28 @@ and result files of the repo's `sr.py`:
     python -m ucdir_tpu_torch.sr -p train -c ucdir_tpu/configs/sid.yaml \\
         [--seed N] [--device cuda] [-debug]
     python -m ucdir_tpu_torch.sr -p val -c ucdir_tpu/configs/sid.yaml \\
-        [--checkpoint <prefix>] [--seed N] [--device cuda]
+        [--checkpoint <prefix>] [--seed N] [--device cuda] \\
+        [--sampler ddpm|ddim|dpmpp|dpmpp_sde] [--sampling_timesteps N] \\
+        [--val_patch [--patch_skip 1024] [--patch_padding 64]] \\
+        [--search_params [--search_steps 25,50,100] \\
+                         [--search_ends 0.2,0.4,0.6]]
 
 Training saves the reference's checkpoint triple
 `I{iter}_E{epoch}_{gen,gen_ema,opt}.pth` and resumes from the prefix in the
 config's `path.resume_state`; `-p val --checkpoint <prefix>` validates a
 triple's EMA weights. Without a checkpoint the model starts from the random
-weights of --seed. One process, one card, fp32.
+weights of --seed. One process, one card, fp32. Validation inputs above
+4.3 M px after the 64-px pad are restored tiled (1024-px tiles, 64-px halos)
+inside every denoising step; `--val_patch` instead runs a whole reverse
+process per tile, and `--search_params` sweeps the validation schedule.
 """
 from __future__ import annotations
 
 import argparse
 import logging
 import os
+
+import numpy as np
 
 
 def _parser():
@@ -31,11 +40,24 @@ def _parser():
                         '<prefix>_gen_ema.pth) or a .pth path')
     p.add_argument('--sampler', type=str, default='ddpm',
                    choices=['ddpm', 'ddim', 'dpmpp', 'dpmpp_sde'])
+    p.add_argument('--sampling_timesteps', type=int, default=None,
+                   help='steps for ddim, dpmpp_sde (default 5) and dpmpp '
+                        '(default 20)')
     p.add_argument('--compute_dtype', type=str, default=None,
                    choices=['bf16'])
     p.add_argument('--val_batch', type=int, default=1)
-    p.add_argument('--val_patch', action='store_true')
-    p.add_argument('--search_params', action='store_true')
+    p.add_argument('--val_patch', action='store_true',
+                   help='a whole reverse process per tile, then reassemble')
+    p.add_argument('--patch_skip', type=int, default=1024,
+                   help='val_patch tile size')
+    p.add_argument('--patch_padding', type=int, default=64,
+                   help='val_patch tile halo')
+    p.add_argument('--search_params', action='store_true',
+                   help='grid search over the validation schedule')
+    p.add_argument('--search_steps', type=str, default='25,50,100',
+                   help='search_params n_timestep grid (comma list)')
+    p.add_argument('--search_ends', type=str, default='0.2,0.4,0.6',
+                   help='search_params linear_end grid (comma list)')
     p.add_argument('--seed', type=int, default=0,
                    help='seed of the random weights, of the training draws '
                         'and of the sampling noise')
@@ -47,15 +69,82 @@ def _parser():
 
 def _refuse(args):
     """NotImplementedError for every option the port does not carry yet."""
-    todo = [(args.sampler != 'ddpm', 'the %s sampler' % args.sampler),
-            (args.compute_dtype is not None, '--compute_dtype'),
-            (args.val_batch > 1, '--val_batch > 1'),
-            (args.val_patch, '--val_patch'),
-            (args.search_params, '--search_params')]
+    todo = [(args.compute_dtype is not None, '--compute_dtype'),
+            (args.val_batch > 1, '--val_batch > 1')]
     for hit, what in todo:
         if hit:
             raise NotImplementedError('%s is not ported yet; see ROADMAP.md'
                                       % what)
+
+
+def val_patch(opt, val_loader, val_set, diffusion, Metrics, logger,
+              skip: int = 1024, padding: int = 64):
+    """Outer-loop tiled sampling: each tile runs its own full reverse process
+    (the reference's alternative loop `val_patch`, sr.py:17-57), unlike the
+    tiling inside every step of ucdir_tpu_torch.parallel.tiled."""
+    from ucdir_tpu_torch.parallel.tiled import _grid_pad, compute_tile_starts
+    result_path = opt['path']['results']
+    os.makedirs(result_path, exist_ok=True)
+    avg_psnr, idx = 0.0, 0
+    for val_data in val_loader:
+        idx += 1
+        sr = np.asarray(val_data['SR'])
+        pd = _grid_pad(sr.shape[1], sr.shape[2], skip, padding)
+        sr_pad = np.pad(sr, ((0, 0), (pd, pd), (pd, pd), (0, 0)), 'reflect')
+        H, W = sr_pad.shape[1:3]
+        out = np.zeros_like(sr_pad[..., :3])
+        for hs, ws in compute_tile_starts(H, W, skip, padding):
+            tile = sr_pad[:, hs:hs + skip, ws:ws + skip]
+            diffusion.feed_data({'SR': tile, 'HR': tile})
+            diffusion.test(continous=False)
+            out[:, hs + padding:hs + skip - padding,
+                ws + padding:ws + skip - padding] = \
+                diffusion.SR[:, padding:-padding, padding:-padding]
+        out = out[:, pd:-pd, pd:-pd]
+        sr_img = Metrics.tensor2img(out)
+        hr_img = Metrics.tensor2img(np.asarray(val_data['HR']))
+        fname = ''.join(os.path.basename(
+            val_set.sr_path[int(val_data['Index'][0])]).split('.')[:-1])
+        base = '{}/{}_{}'.format(result_path, fname, opt['name'])
+        Metrics.save_jpg(sr_img, base + '_sr.png')
+        Metrics.save_jpg(hr_img, base + '_hr.png')
+        avg_psnr += Metrics.calculate_psnr(sr_img, hr_img)
+    avg_psnr /= max(idx, 1)
+    logger.info('# val_patch # PSNR: {:.4e}'.format(avg_psnr))
+    return avg_psnr
+
+
+def search_params(opt, val_loader, diffusion, Metrics, logger,
+                  n_timesteps=(25, 50, 100), linear_ends=(0.2, 0.4, 0.6)):
+    """Grid search over the validation schedule's length and linear_end on
+    the first 3 images, with every cell's images saved (the reference's
+    alternative loop `search_params`, sr.py:60-126). Returns {(steps,
+    linear_end): mean PSNR}."""
+    result_path = opt['path']['results']
+    os.makedirs(result_path, exist_ok=True)
+    found = {}
+    for nt in n_timesteps:
+        for le in linear_ends:
+            sched_opt = dict(opt['model']['beta_schedule']['val'],
+                             n_timestep=nt, linear_end=le)
+            diffusion.set_new_noise_schedule(sched_opt, 'val', force=True)
+            psnr, idx = 0.0, 0
+            for val_data in val_loader:
+                idx += 1
+                diffusion.feed_data(val_data)
+                diffusion.test(continous=False)
+                visuals = diffusion.get_current_visuals()
+                sr_img = Metrics.tensor2img(visuals['SR'])
+                hr_img = Metrics.tensor2img(visuals['HR'])
+                psnr += Metrics.calculate_psnr(sr_img, hr_img)
+                Metrics.save_jpg(sr_img, '{}/s{}_e{}_{}_sr.png'.format(
+                    result_path, nt, le, idx))
+                if idx >= 3:
+                    break
+            found[(nt, le)] = psnr / max(idx, 1)
+            logger.info('# search steps=%d linear_end=%.2f PSNR: %.4f'
+                        % (nt, le, found[(nt, le)]))
+    return found
 
 
 def _train(opt, diffusion, train_loader, val_loader, Metrics, logger):
@@ -188,6 +277,7 @@ def main(argv=None):
                        checkpoint=args.checkpoint, debug=args.debug,
                        num_processes=1)
     opt['sampler'] = args.sampler
+    opt['sampling_timesteps'] = args.sampling_timesteps
     opt['compute_dtype'] = args.compute_dtype
     setup_logger('base', opt['path']['log'], 'train', level=logging.INFO,
                  screen=True)
@@ -211,6 +301,16 @@ def main(argv=None):
     if args.phase == 'train':
         return _train(opt, diffusion, train_loader, val_loader, Metrics,
                       logger)
+    if args.search_params:
+        logger.info('Begin Model Evaluation. len ' + str(len(val_loader)))
+        return search_params(
+            opt, val_loader, diffusion, Metrics, logger,
+            n_timesteps=tuple(int(s) for s in args.search_steps.split(',')),
+            linear_ends=tuple(float(s) for s in args.search_ends.split(',')))
+    if args.val_patch:
+        logger.info('Begin Model Evaluation. len ' + str(len(val_loader)))
+        return val_patch(opt, val_loader, val_set, diffusion, Metrics, logger,
+                         skip=args.patch_skip, padding=args.patch_padding)
     return _validate(opt, diffusion, val_loader, val_set, Metrics, logger)
 
 

@@ -44,8 +44,6 @@ class Trainer:
     def __init__(self, opt, device, seed: int = 0):
         if opt.get('compute_dtype'):
             raise _unsupported('--compute_dtype %s' % opt['compute_dtype'])
-        if (opt.get('sampler') or 'ddpm') != 'ddpm':
-            raise _unsupported('the %s sampler' % opt['sampler'])
         self.opt = opt
         self.device = torch.device(device)
         self.seed = seed
@@ -119,13 +117,20 @@ class Trainer:
 
     def test(self, continous: bool = False):
         """Restores self.data['SR'] under the current schedule with noise from
-        this trainer's generator; in the train phase with the live weights."""
+        this trainer's generator; in the train phase with the live weights.
+        opt['sampler'], opt['sampling_timesteps'] (default 20 for dpmpp,
+        else 5) and opt['tile'] choose the sampler and the tiled path."""
         sr = self.to_device(self.data['SR'])
+        sampler = self.opt.get('sampler') or 'ddpm'
+        steps = int(self.opt.get('sampling_timesteps')
+                    or (20 if sampler == 'dpmpp' else 5))
         was_training = self.model.training
         self.model.eval()
         try:
             out = eval_step(self.model, self.schedules[self.schedule_phase],
-                            sr, continous=continous, generator=self.generator)
+                            sr, continous=continous, generator=self.generator,
+                            sampler=sampler, sampling_timesteps=steps,
+                            tile=self.opt.get('tile'))
         finally:
             self.model.train(was_training)
         if continous:
