@@ -17,7 +17,12 @@ on any failure:
               PyTorch versions on the card (TF32 off): max abs error, kernel,
               plain and library-call milliseconds (CUDA events), and the
               bound: the larger of counted bytes over 3.35 TB/s and counted
-              FLOP over 67 TFLOP/s (fp32 outside the tensor cores).
+              FLOP over the peak of the kernel's product: 67 TFLOP/s (fp32
+              outside the tensor cores) for the FFMA kernels, 165 TFLOP/s
+              (495 TF32 / 3) for K2, K3 and K7, whose product runs 3xTF32 on
+              the tensor cores. K2 and K3 also at the shapes that pick their
+              other tiles: the 64 -> 3 `final` conv (8-wide tile) and the
+              1024 -> 512 convs of the /8 level (128-wide tile).
   3. slice    the full-width SID model (random weights from --seed) restores
               a 96 x 96 input with 2 steps and injected noise on the card and
               on the host (plain versions); the outputs must agree.
@@ -49,7 +54,8 @@ on any failure:
               `dropout: 0` model with ddim (5 steps), dpmpp (20) and
               dpmpp_sde (20): seconds per frame, ms per step, PSNR against a
               generated target; and ddim, 3 steps, 64 x 64, card against
-              host.
+              host on the shipped 50-step schedule (limit 1e-5 times the
+              first step's gain of 349) and on a 3-step one (limit 1e-5).
  10. hires    one 2848 x 4256 frame (the full-resolution Sony frame; 2976 x
               4384 after the pad, so it runs tiled: 24 tiles of 1024 x 1024
               per step) with ddim, 5 steps: seconds per frame and per step,
@@ -93,6 +99,9 @@ TRAIN_STEPS = 8
 KERNEL_BATCH = 8                  # batch of K5's and K6's phase-2 cases
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
+TC3_FLOP_PER_S = 495e12 / 3       # 3xTF32: three TF32 instructions a product
+# kernels whose product runs 3xTF32 on the tensor cores
+TENSOR_CORE = ('conv3x3', 'conv1x1', 'conv3x3_preact')
 
 # kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
@@ -148,8 +157,10 @@ def phase_build():
     log = so.with_suffix('.log')
     if log.is_file():
         for line in log.read_text().splitlines():
-            if 'Used' in line or 'spill' in line:
-                say('build', 'ptxas: ' + line.strip())
+            if 'Compiling entry function' in line:
+                say('build', 'ptxas: ' + line.split("'")[1])
+            elif 'Used' in line or 'spill' in line:
+                say('build', 'ptxas:     ' + line.strip())
 
 
 # ---------------------------------------------------------------- phase 2
@@ -238,13 +249,13 @@ def kernel_cases(gen, dev):
             bytes=nbytes(h, att, wp, b, res, h, *kw.values())))
 
     def conv_case(label, B, H, W, cin, cout, stride=1, fold=False, act=None,
-                  backward=False):
-        x = rnd(B, H, W, cin, scale=0.5)
-        w = rnd(9 * cin, cout, scale=(9 * cin) ** -0.5)
-        b = rnd(cout, scale=0.1)
+                  backward=False, gen=gen):
+        x = rnd(B, H, W, cin, scale=0.5, gen=gen)
+        w = rnd(9 * cin, cout, scale=(9 * cin) ** -0.5, gen=gen)
+        b = rnd(cout, scale=0.1, gen=gen)
         k = w.reshape(3, 3, cin, cout).permute(3, 2, 0, 1).contiguous()
-        a = rnd(B, cin, scale=0.2, off=1.0) if fold else None
-        t = rnd(B, cin, scale=0.2) if fold else None
+        a = rnd(B, cin, scale=0.2, off=1.0, gen=gen) if fold else None
+        t = rnd(B, cin, scale=0.2, gen=gen) if fold else None
         Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
         flop = 2 * 9 * cin * cout * B * Ho * Wo
         n_out = B * Ho * Wo * cout
@@ -308,15 +319,28 @@ def kernel_cases(gen, dev):
     preact_case(H0, W0)
     preact_case(TILE, TILE)
 
-    x = rnd(1, H0, W0, 192, scale=0.5)
-    w1, b1 = rnd(192, 64, scale=192 ** -0.5), rnd(64, scale=0.1)
-    cases.append(dict(
-        name='conv1x1', label='res_conv 192->64 %dx%d' % (H0, W0),
-        kernel=lambda: conv.conv1x1(x, w1, b1),
-        plain=lambda: conv.conv1x1_plain(x, w1, b1),
-        library=lambda: torch.addmm(b1, x.reshape(-1, 192), w1),
-        stats=0, flop=2 * 192 * 64 * H0 * W0,
-        bytes=nbytes(x, w1, b1) + 4 * 64 * H0 * W0))
+    def conv1x1_case(H, W, cin, cout, gen=gen):
+        x = rnd(1, H, W, cin, scale=0.5, gen=gen)
+        w1 = rnd(cin, cout, scale=cin ** -0.5, gen=gen)
+        b1 = rnd(cout, scale=0.1, gen=gen)
+        cases.append(dict(
+            name='conv1x1', label='res_conv %d->%d %dx%d' % (cin, cout, H, W),
+            kernel=lambda: conv.conv1x1(x, w1, b1),
+            plain=lambda: conv.conv1x1_plain(x, w1, b1),
+            library=lambda: torch.addmm(b1, x.reshape(-1, cin), w1),
+            stats=0, flop=2 * cin * cout * H * W,
+            bytes=nbytes(x, w1, b1) + 4 * cout * H * W))
+
+    conv1x1_case(H0, W0, 192, 64)
+    # the shapes that pick K2's and K3's other tiles, from a generator of
+    # their own like K7's
+    gen_tc = torch.Generator(dev).manual_seed(gen.initial_seed() + 4)
+    conv_case('final 64->3 %dx%d stats' % (H0, W0), 1, H0, W0, 64, 3,
+              gen=gen_tc)
+    conv_case('conv1 1024->512 %dx%d fold+swish+stats' % (H0 // 8, W0 // 8),
+              1, H0 // 8, W0 // 8, 1024, 512, fold=True, act='swish',
+              gen=gen_tc)
+    conv1x1_case(H0 // 8, W0 // 8, 1024, 512, gen=gen_tc)
     xs = rnd(1, H0 // 8, W0 // 8, 1024)
     cases.append(dict(
         name='gn1_stats', label='C=1024 %dx%d' % (H0 // 8, W0 // 8),
@@ -364,11 +388,15 @@ def flat(out):
     return [out]
 
 
-def phase_kernels(dev, seed, results):
+def phase_kernels(dev, seed, results, names=None):
+    """Every case of kernel_cases (those of the kernels in `names`, when
+    given) against its plain version, timed; sums per kernel in `results`."""
     import torch
     gen = torch.Generator(dev).manual_seed(seed)
     for case in kernel_cases(gen, dev):
         name, label = case['name'], case['label']
+        if names is not None and name not in names:
+            continue
         got, want = flat(case['kernel']()), flat(case['plain']())
         torch.cuda.synchronize()
         # tolerances, float32 on both sides: a tensor output (the gradients
@@ -400,7 +428,9 @@ def phase_kernels(dev, seed, results):
         plain_ms = timed(case['plain'], 5)
         lib_ms = timed(case['library'], 5) if case['library'] else None
         t_bytes = 1e3 * case['bytes'] / HBM_BYTES_PER_S
-        t_flop = 1e3 * case['flop'] / FP32_FLOP_PER_S
+        tensor_core = name in TENSOR_CORE
+        t_flop = 1e3 * case['flop'] / (TC3_FLOP_PER_S if tensor_core
+                                       else FP32_FLOP_PER_S)
         r = results.setdefault(name, {
             'max_abs_err': 0.0, 'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0,
             'bytes_ms': 0.0, 'flop_ms': 0.0, 'library_ms': None})
@@ -417,7 +447,9 @@ def phase_kernels(dev, seed, results):
             % (name, label, err, rel, ms, plain_ms,
                'none' if lib_ms is None else '%.3f ms' % lib_ms,
                max(t_bytes, t_flop),
-               'bytes' if t_bytes > t_flop else 'operations'))
+               'bytes' if t_bytes > t_flop else
+               'operations at 165 TFLOP/s, 3xTF32' if tensor_core else
+               'operations at 67 TFLOP/s, fp32 FMA'))
         torch.cuda.empty_cache()
 
 
@@ -450,9 +482,9 @@ def agree(phase, what, got, want, tol=1e-5):
     """Fails unless two results of one function, float32 on both sides with
     sums in other orders (atomics, cuDNN, oneDNN) through ~70 layers and a
     few steps, agree within `tol` abs on outputs in about [-2, 2]. Sound
-    readings on an H100 are up to 6.6e-7 for DDPM steps, so 1e-5 leaves a
-    margin of 15x; DDIM reads 5.4e-6 (its first step turns eps into x0 with
-    a factor of 1 / sqrt(abar_49), some hundreds, before the clip)."""
+    readings on an H100 are up to 1.3e-6 for DDPM steps, so 1e-5 leaves a
+    margin of 7x. DDIM on the shipped schedule passes its own `tol` (see
+    phase_fewstep)."""
     import torch
     got, want = got.cpu(), want.cpu()
     if got.shape != want.shape or not torch.isfinite(got).all():
@@ -460,7 +492,7 @@ def agree(phase, what, got, want, tol=1e-5):
              % (phase, what, tuple(got.shape)))
     err = (got - want).abs().max().item()
     if not err <= tol:
-        fail('%s: %s max abs err %.3e > %.0e' % (phase, what, err, tol))
+        fail('%s: %s max abs err %.3e > %.2e' % (phase, what, err, tol))
     return err
 
 
@@ -907,14 +939,30 @@ def phase_fewstep(dev, seed, counts):
     shape = (1, 64 + 2 * PAD, 64 + 2 * PAD, 3)
     draws = [rng.standard_normal(shape).astype(np.float32) for _ in range(4)]
     kw = dict(sampler='ddim', sampling_timesteps=3)
-    got = eval_step(model, sched, torch.from_numpy(x).to(dev),
-                    noise=injected(draws, dev), **kw)[0]
-    want = eval_step(host, make_schedule(SID_VAL_SCHEDULE, 'cpu'),
-                     torch.from_numpy(x), noise=injected(draws, 'cpu'),
-                     **kw)[0]
-    err = agree('fewstep', 'ddim card vs host', got, want)
-    say('fewstep', 'ddim, 3 steps, full width, 64x64: card vs host max abs '
-        'err %.3e (tol 1e-5)' % err)
+    # Two schedules. On the shipped one (50 steps) DDIM's first step turns
+    # the network's eps into x0 with a factor of 1 / sqrt(abar_49) = 349
+    # before the clip, so card and host, which agree on eps as everywhere
+    # else, are held to 1e-5 times that gain on the output. (The output
+    # itself reads 4e-6 to 1.2e-4 over seeds 0 to 3 and differs by up to 2x
+    # between two runs of one seed, with the FFMA kernels as with the
+    # tensor-core ones: float32 atomics add the statistics in another order
+    # each run, and the gain amplifies the last bit.) On a 3-step schedule
+    # the gain is 1.4 and the plain 1e-5 holds.
+    for steps in (SID_VAL_SCHEDULE['n_timestep'], 3):
+        opt = dict(SID_VAL_SCHEDULE, n_timestep=steps)
+        card_sched = make_schedule(opt, dev)
+        gain = max(1.0, card_sched.sqrt_recip_alphas_cumprod[-1].item())
+        tol = 1e-5 * gain if steps > 3 else 1e-5
+        got = eval_step(model, card_sched, torch.from_numpy(x).to(dev),
+                        noise=injected(draws, dev), **kw)[0]
+        want = eval_step(host, make_schedule(opt, 'cpu'),
+                         torch.from_numpy(x), noise=injected(draws, 'cpu'),
+                         **kw)[0]
+        err = agree('fewstep', 'ddim on %d steps, card vs host' % steps,
+                    got, want, tol=tol)
+        say('fewstep', 'ddim, 3 of %d steps, full width, 64x64: card vs host '
+            'max abs err %.3e (tol %.2e: 1e-5 on eps, first-step gain %.1f)'
+            % (steps, err, tol, gain))
 
 
 def phase_hires(dev, seed, counts):

@@ -15,6 +15,9 @@ output of theirs within 1e-4 of max(1, largest |reference| of that output).
 K7, K8 and K9 (the pre-activated conv, the mix alone, the packed tail) are
 held to the same 1e-4 at small and ragged shapes and at the shapes of the
 validation path: one 1568 x 2272 frame and its levels, one 1024 x 1024 tile.
+K2 and K3 run on tensor-core tiles of 128 pixels by 128, 64 or 8 columns in
+k slices of 16 or 32: their cases include cout 3, 8, 9 and 130, cin 4, 6 and
+70, P one short of and one past a pixel tile, stride 2 on odd sizes and B = 3.
 """
 import pytest
 import torch
@@ -76,7 +79,10 @@ def test_akgm_tail(dev, B, H, W, C, fold):
 
 @pytest.mark.parametrize('B,H,W,cin,cout,stride', [
     (2, 11, 17, 6, 64, 1), (1, 20, 33, 192, 64, 1), (1, 9, 15, 70, 3, 1),
-    (2, 16, 24, 64, 64, 2), (1, 15, 9, 32, 100, 2), (1, 6, 10, 128, 512, 1)])
+    (2, 16, 24, 64, 64, 2), (1, 15, 9, 32, 100, 2), (1, 6, 10, 128, 512, 1),
+    (1, 127, 1, 4, 8, 1), (1, 3, 43, 70, 9, 1), (3, 7, 9, 6, 130, 1),
+    (3, 13, 17, 64, 3, 2), (1, 1, 129, 64, 130, 1), (2, 21, 25, 70, 130, 2),
+    (1, 16, 16, 1024, 512, 1)])
 @pytest.mark.parametrize('fold_act', [False, True])
 def test_conv3x3(dev, B, H, W, cin, cout, stride, fold_act):
     gen = torch.Generator(dev).manual_seed(1)
@@ -103,8 +109,9 @@ def test_upconv2x_is_upsample_then_conv(dev):
                                   emit_stats=True), 2)
 
 
-@pytest.mark.parametrize('B,H,W,cin,cout', [(2, 9, 31, 192, 64),
-                                            (1, 4, 5, 1024, 512)])
+@pytest.mark.parametrize('B,H,W,cin,cout', [
+    (2, 9, 31, 192, 64), (1, 4, 5, 1024, 512), (3, 1, 127, 4, 3),
+    (1, 3, 43, 70, 9), (1, 8, 16, 6, 130), (2, 127, 1, 64, 8)])
 @pytest.mark.parametrize('act', [None, 'swish'])
 def test_conv1x1(dev, B, H, W, cin, cout, act):
     gen = torch.Generator(dev).manual_seed(3)

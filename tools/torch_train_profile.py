@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Where one SID train step of the PyTorch port goes on the card.
+"""Where one SID train step, or one SID validation frame, of the PyTorch
+port goes on the card.
 
     python3 tools/torch_train_profile.py [--batch 32] [--crop 256] [--seed 0]
+    python3 tools/torch_train_profile.py --val [--steps 2] [--seed 0]
 
 Builds the Trainer of `ucdir_tpu_torch` in its train phase at the full SID
 width (random weights from --seed, one seeded batch), takes two warm-up steps,
@@ -9,7 +11,11 @@ times three steps with the host clock around `torch.cuda.synchronize()`, then
 traces one more step with `torch.profiler` and prints: seconds per step, peak
 memory, the device's busy time and idle share inside the traced step, the
 time of each CUDA kernel by name (top 30) and the launches of K1..K6 in that
-step. Needs a CUDA card; prints the card's name and power limit first.
+step. With --val it restores one 1424 x 2128 frame (1568 x 2272 in the
+network) with --steps DDPM steps instead, once to warm up and once traced:
+the same lines for that frame, whose time is one predictor pass plus --steps
+DY3h steps. Needs a CUDA card; prints the card's name
+and power limit first.
 """
 import argparse
 import copy
@@ -27,14 +33,15 @@ def main(argv=None):
     ap.add_argument('--batch', type=int, default=32)
     ap.add_argument('--crop', type=int, default=256)
     ap.add_argument('--seed', type=int, default=0)
+    ap.add_argument('--val', action='store_true',
+                    help='trace a validation frame instead of a train step')
+    ap.add_argument('--steps', type=int, default=2,
+                    help='DDPM steps of the traced validation frame')
     args = ap.parse_args(argv)
 
-    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from ucdir_tpu_torch.configs import SID_MODEL
     from ucdir_tpu_torch.ops import _build
-    from ucdir_tpu_torch.trainer import Trainer
 
     if not torch.cuda.is_available():
         print('torch_train_profile: CUDA is not available', file=sys.stderr)
@@ -45,6 +52,69 @@ def main(argv=None):
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip())
     dev = torch.device('cuda', 0)
+    if args.val:
+        step = val_frame(dev, args.seed, args.steps)
+    else:
+        step = train_step(dev, args)
+    _build.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t
+    print('launches in the traced %s: %s'
+          % ('frame' if args.val else 'step', json.dumps(_build.LAUNCHES)))
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type.name == 'CUDA']   # kernels, not the ops over them
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    print('traced %.1f ms on the host clock; device busy %.1f ms, idle '
+          'share %.2f%%' % (1e3 * traced, busy,
+                            100 * max(0.0, 1 - busy / (1e3 * traced))))
+    for name, ms, count in rows[:30]:
+        print('%10.2f ms %5.1f%% %6d x  %s' % (ms, 100 * ms / busy, count,
+                                               name[:90]))
+    return 0
+
+
+def val_frame(dev, seed, steps):
+    """Warms up and returns a call that restores one SID frame."""
+    import torch
+    from ucdir_tpu_torch.configs import SID_MODEL, SID_VAL_SCHEDULE
+    from ucdir_tpu_torch.eval import eval_step
+    from ucdir_tpu_torch.models.factory import define_G
+    from ucdir_tpu_torch.schedule import make_schedule
+
+    model_opt = copy.deepcopy(SID_MODEL)
+    model_opt['beta_schedule']['val'] = dict(SID_VAL_SCHEDULE)
+    torch.manual_seed(seed)
+    model = define_G({'model': model_opt}).eval().to(dev)
+    sched = make_schedule(dict(SID_VAL_SCHEDULE, n_timestep=steps), dev)
+    gen = torch.Generator(dev).manual_seed(seed)
+    frame = torch.rand((1, 1424, 2128, 3), generator=gen, device=dev) * 2 - 1
+
+    def step():
+        eval_step(model, sched, frame, pad=64, generator=gen)
+
+    step()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    print('frame 1424x2128 (network 1568x2272), %d DDPM steps: %.3f s'
+          % (steps, time.perf_counter() - t))
+    return step
+
+
+def train_step(dev, args):
+    """Warms up, times three steps and returns a call that takes one more."""
+    import numpy as np
+    import torch
+    from ucdir_tpu_torch.configs import SID_MODEL
+    from ucdir_tpu_torch.trainer import Trainer
+
     opt = {'phase': 'train', 'model': copy.deepcopy(SID_MODEL),
            'path': {'resume_state': None, 'checkpoint': None},
            'train': {'optimizer': {'type': 'adamw', 'lr': 1e-4},
@@ -70,26 +140,7 @@ def main(argv=None):
     print('batch %d, crop %d: %.3f s per step (mean of 3), peak %.3f GiB'
           % (args.batch, args.crop, secs, peak))
 
-    _build.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        trainer.optimize_parameters()
-        torch.cuda.synchronize()
-        traced = time.perf_counter() - t
-    print('launches in the traced step: %s' % json.dumps(_build.LAUNCHES))
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type.name == 'CUDA']   # kernels, not the ops over them
-    rows.sort(key=lambda r: -r[1])
-    busy = sum(r[1] for r in rows)
-    print('traced step %.1f ms on the host clock; device busy %.1f ms, idle '
-          'share %.2f%%' % (1e3 * traced, busy,
-                            100 * max(0.0, 1 - busy / (1e3 * traced))))
-    for name, ms, count in rows[:30]:
-        print('%10.2f ms %5.1f%% %6d x  %s' % (ms, 100 * ms / busy, count,
-                                               name[:90]))
-    return 0
+    return trainer.optimize_parameters
 
 
 if __name__ == '__main__':

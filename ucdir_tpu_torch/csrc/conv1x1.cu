@@ -3,50 +3,39 @@
 //
 // Replaces the TPU kernel B6 (ucdir_tpu/ops/conv_pallas.py _conv1x1_forward),
 // the res_conv of every ResnetBlockDY3h whose width changes. The TPU kernel
-// ran one (W, Cin) @ (Cin, Cout) dot per image row; here the implicit GEMM of
-// igemm.cuh runs with a 1x1 window, so each block's 128-pixel by 64-channel
-// tile reuses every staged input value 64 times.
-// Bound: at Cin = 128..1024 and Cout = 64..512 it does 2 * Cin * Cout FLOP per
-// 4 * (Cin + Cout) bytes, 40 or more FLOP per byte, so fp32 FMA issue.
-#include "igemm.cuh"
-
-namespace {
-
-__global__ void __launch_bounds__(ucdir::NT)
-    conv1x1_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                   const float* __restrict__ bias, float* __restrict__ out,
-                   ucdir::Geom g, int cout, int act) {
-  __shared__ __align__(16) ucdir::Smem sm;
-  float acc[ucdir::TM][ucdir::TN];
-  const int b = blockIdx.z;
-  const int m0 = blockIdx.x * ucdir::BM;
-  const int n0 = blockIdx.y * ucdir::BN;
-  ucdir::igemm(acc, sm, x, nullptr, nullptr, w, cout, cout, g, b, 0, m0, n0);
-  ucdir::conv_epilogue(acc, sm, bias, out, nullptr, nullptr, act,
-                       g.Ho * g.Wo, cout, b, m0, n0);
-}
-
-}  // namespace
+// ran one (W, Cin) @ (Cin, Cout) dot per image row; here the tensor-core
+// implicit GEMM of igemm_tc.cuh runs with a 1x1 window, so a block's 128
+// pixels by 64 or 128 channels reuse every staged input value across the
+// tile's columns.
+// Bound: 2 * Cin * Cout FLOP per 4 * (Cin + Cout) bytes. With the product on
+// the tensor cores as 3xTF32 (165 TFLOP/s of counted work) the bytes bound
+// the wide, shallow sites: 192 -> 64 at 1568 x 2272 moves 3.65 GB, 1.09 ms at
+// 3.35 TB/s, above its 0.53 ms of operations; the deep sites (1024 -> 512)
+// stay bound by operations. What the design does about it: every input value
+// is read once, 16 bytes a thread and whole 128-byte lines a warp, and the
+// next slice's loads are in flight while the current one is multiplied.
+#include "igemm_tc.cuh"
 
 // x (B, H, W, cin) NHWC; w (cin, cout); bias (cout); out (B, H, W, cout).
 // Returns the launch's cudaError_t.
 extern "C" int ucdir_conv1x1(const float* x, const float* w, const float* bias,
                              float* out, int B, int H, int W, int cin,
                              int cout, int act, void* stream) {
-  ucdir::Geom g;
-  g.H = H;
-  g.W = W;
-  g.C = cin;
-  g.Ho = H;
-  g.Wo = W;
-  g.ks = 1;
-  g.stride = 1;
-  g.cin = cin;
-  g.K = cin;
-  const int P = H * W;
-  dim3 grid((P + ucdir::BM - 1) / ucdir::BM,
-            (cout + ucdir::BN - 1) / ucdir::BN, B);
-  conv1x1_kernel<<<grid, ucdir::NT, 0, (cudaStream_t)stream>>>(
-      x, w, bias, out, g, cout, act);
-  return (int)cudaGetLastError();
+  ucdir::tc::ConvArgs c = {};
+  c.x = x;
+  c.w = w;
+  c.bias = bias;
+  c.out = out;
+  c.g.H = H;
+  c.g.W = W;
+  c.g.C = cin;
+  c.g.Ho = H;
+  c.g.Wo = W;
+  c.g.ks = 1;
+  c.g.stride = 1;
+  c.g.cin = cin;
+  c.g.K = cin;
+  c.cout = cout;
+  c.act = act;
+  return ucdir::tc::launch_conv<ucdir::tc::Raw>(c, B, (cudaStream_t)stream);
 }

@@ -7,57 +7,54 @@
 // (_downconv_forward, the stride-2 Downsample) and B5 (upconv2x: B2 run on
 // phase-packed (3, 3, Cin, 4 * Cout) weights; the caller depth-to-spaces).
 // The TPU staged a zero ring into VMEM and split even and odd columns outside
-// the kernel for stride 2; here the implicit GEMM (igemm.cuh) reads the
-// strided receptive field directly and masks the border, so neither the
-// padded nor the deinterleaved tensor exists in device memory.
+// the kernel for stride 2; here the implicit GEMM reads the strided receptive
+// field directly and masks the border, so neither the padded nor the
+// deinterleaved tensor exists in device memory.
 // K7 replaces B3 (conv_pallas.py conv3x3_preact_pallas, the GroupNorm ->
 // swish -> conv head as one kernel): the activation is applied as A is
 // staged, so neither the normalized nor the activated tensor is written; the
 // border is masked after it and stays 0 = swish(0).
-// Bound: fp32 FMA issue (see igemm.cuh). The statistics cost two shared-memory
-// atomics per thread and column and two global atomics per block and column.
-// K7 at the head (64 -> 3) fills 3 of the tile's 64 columns and evaluates one
-// expf per staged element, nine per input value: the staging bounds it.
-#include "igemm.cuh"
+//
+// Bound: at the main path's widths (18 * cin * cout FLOP per pixel, 100 or
+// more per byte moved) the operations, and since the product runs on the
+// tensor cores as 3xTF32 (igemm_tc.cuh) their ceiling is tensor-core issue at
+// three instructions per product: counted FLOP / 165 TFLOP/s (495 / 3). What
+// the design does about it: the split is made once per staged value, the
+// staging is two-stage and loads 16 bytes along the channels, the column
+// tile follows cout (128, 64 or 8 wide) and the statistics leave the
+// fragments through warp shuffles. K7 at the head (64 -> 3) takes the 8-wide
+// tile; it still evaluates one expf per staged element, nine per input value,
+// so the staging bounds it.
+#include "igemm_tc.cuh"
 
 namespace {
 
-template <class Loader>
-__global__ void __launch_bounds__(ucdir::NT)
-    conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                   const float* __restrict__ bias, const float* __restrict__ a,
-                   const float* __restrict__ t, float* __restrict__ out,
-                   float* __restrict__ ssum, float* __restrict__ ssq,
-                   ucdir::Geom g, int cout, int act) {
-  __shared__ __align__(16) ucdir::Smem sm;
-  float acc[ucdir::TM][ucdir::TN];
-  const int b = blockIdx.z;
-  const int m0 = blockIdx.x * ucdir::BM;
-  const int n0 = blockIdx.y * ucdir::BN;
-  ucdir::zero_red(sm);
-  ucdir::igemm_core(acc, sm, ucdir::affine_loader<Loader>(x, a, t, g, b, 0), w,
-                    cout, cout, g, m0, n0);
-  ucdir::conv_epilogue(acc, sm, bias, out, ssum, ssq, act, g.Ho * g.Wo, cout,
-                       b, m0, n0);
-}
-
-ucdir::Geom conv_geom(int H, int W, int cin, int stride) {
-  ucdir::Geom g;
-  g.H = H;
-  g.W = W;
-  g.C = cin;
-  g.Ho = (H - 1) / stride + 1;
-  g.Wo = (W - 1) / stride + 1;
-  g.ks = 3;
-  g.stride = stride;
-  g.cin = cin;
-  g.K = 9 * cin;
-  return g;
-}
-
-dim3 conv_grid(const ucdir::Geom& g, int cout, int B) {
-  return dim3((g.Ho * g.Wo + ucdir::BM - 1) / ucdir::BM,
-              (cout + ucdir::BN - 1) / ucdir::BN, B);
+ucdir::tc::ConvArgs conv_args(const float* x, const float* w,
+                              const float* bias, const float* a,
+                              const float* t, float* out, float* ssum,
+                              float* ssq, int H, int W, int cin, int cout,
+                              int stride, int act) {
+  ucdir::tc::ConvArgs c = {};
+  c.x = x;
+  c.w = w;
+  c.bias = bias;
+  c.a = a;
+  c.t = t;
+  c.out = out;
+  c.ssum = ssum;
+  c.ssq = ssq;
+  c.g.H = H;
+  c.g.W = W;
+  c.g.C = cin;
+  c.g.Ho = (H - 1) / stride + 1;
+  c.g.Wo = (W - 1) / stride + 1;
+  c.g.ks = 3;
+  c.g.stride = stride;
+  c.g.cin = cin;
+  c.g.K = 9 * cin;
+  c.cout = cout;
+  c.act = act;
+  return c;
 }
 
 }  // namespace
@@ -70,11 +67,10 @@ extern "C" int ucdir_conv3x3(const float* x, const float* w, const float* bias,
                              float* ssum, float* ssq, int B, int H, int W,
                              int cin, int cout, int stride, int act,
                              void* stream) {
-  const ucdir::Geom g = conv_geom(H, W, cin, stride);
-  conv3x3_kernel<ucdir::AffineLoader>
-      <<<conv_grid(g, cout, B), ucdir::NT, 0, (cudaStream_t)stream>>>(
-          x, w, bias, a, t, out, ssum, ssq, g, cout, act);
-  return (int)cudaGetLastError();
+  return ucdir::tc::launch_conv<ucdir::tc::Affine>(
+      conv_args(x, w, bias, a, t, out, ssum, ssq, H, W, cin, cout, stride,
+                act),
+      B, (cudaStream_t)stream);
 }
 
 // K7: out = conv3x3(swish(x * a + t)) + bias, stride 1, no activation after
@@ -83,9 +79,8 @@ extern "C" int ucdir_conv3x3_preact(const float* x, const float* w,
                                     const float* bias, const float* a,
                                     const float* t, float* out, int B, int H,
                                     int W, int cin, int cout, void* stream) {
-  const ucdir::Geom g = conv_geom(H, W, cin, 1);
-  conv3x3_kernel<ucdir::PreactLoader>
-      <<<conv_grid(g, cout, B), ucdir::NT, 0, (cudaStream_t)stream>>>(
-          x, w, bias, a, t, out, nullptr, nullptr, g, cout, 0);
-  return (int)cudaGetLastError();
+  return ucdir::tc::launch_conv<ucdir::tc::Preact>(
+      conv_args(x, w, bias, a, t, out, nullptr, nullptr, H, W, cin, cout, 1,
+                0),
+      B, (cudaStream_t)stream);
 }

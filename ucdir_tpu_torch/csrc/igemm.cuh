@@ -1,4 +1,5 @@
-// Implicit-GEMM core shared by the convolution kernels (fp32, CUDA cores).
+// Implicit-GEMM core of the AKGM kernels and the backward convolution (fp32,
+// CUDA cores). The forward convolutions K2, K3 and K7 run on igemm_tc.cuh.
 //
 // A convolution is the product A (P x K) * Wt (K x N): row p of A is output
 // pixel p's receptive field, column k = tap * cin + ci of it is input channel
@@ -89,14 +90,6 @@ struct AffineLoader {
   }
   __device__ __forceinline__ float at(const Col& s, int iy, int ix) const {
     return xb[((int64_t)iy * W + ix) * C + s.c] * s.sa + s.st;
-  }
-};
-
-// The same values through swish: swish(x * a + t), for a convolution of the
-// activated tensor. The padding stays 0, since swish(0) = 0.
-struct PreactLoader : AffineLoader {
-  __device__ __forceinline__ float at(const Col& s, int iy, int ix) const {
-    return swishf(AffineLoader::at(s, iy, ix));
   }
 };
 
