@@ -5,8 +5,8 @@
 // the res_conv of every ResnetBlockDY3h whose width changes. The TPU kernel
 // ran one (W, Cin) @ (Cin, Cout) dot per image row; here the tensor-core
 // implicit GEMM of igemm_tc.cuh runs with a 1x1 window, so a block's 128
-// pixels by 64 or 128 channels reuse every staged input value across the
-// tile's columns.
+// pixels by 128 channels, or 256 by 64, reuse every staged input value
+// across the tile's columns.
 // Bound: 2 * Cin * Cout FLOP per 4 * (Cin + Cout) bytes. With the product on
 // the tensor cores as 3xTF32 (165 TFLOP/s of counted work) the bytes bound
 // the wide, shallow sites: 192 -> 64 at 1568 x 2272 moves 3.65 GB, 1.09 ms at

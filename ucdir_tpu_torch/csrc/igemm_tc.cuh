@@ -15,9 +15,10 @@
 //    adds into its accumulator rounding toward zero, which over the 200 and
 //    more k8 steps of a deep product biases the sum by about 1e-5 of it, all
 //    one way (read on the card: the (B, cout) statistics missed their limit).
-//    So the three instructions of a k8 step chain into a fresh fragment that
-//    starts at 0, and the fragment is added to the running fp32 sum with a
-//    rounded-to-nearest FADD on the CUDA cores, four a position and step.
+//    So the instructions of one slice (BK / 8 k8 steps, three each) chain
+//    into a fresh fragment that starts at 0, and the fragment is added to the
+//    running fp32 sum with a rounded-to-nearest FADD on the CUDA cores: the
+//    tensor core's rounding then acts on short partial sums of either sign.
 //    Ceiling: 495 / 3 = 165 TFLOP/s of counted work, against 67 for
 //    fp32 FMA. wgmma with TF32 wants both operands K-major behind
 //    shared-memory descriptors and cannot transform A on its way in; it is
@@ -43,39 +44,48 @@
 //    layout; K is padded to the slice with zeros.
 // 4. The tile is a template parameter (Tile<...> below) chosen by cout at
 //    launch: 128 x 128 where cout >= 128 and 256 x 64 up to there, both with
-//    8 consumer warps of 64 x 32 and 4 producer warps, one block per SM; and
-//    128 x 8 with 8 producer warps for heads of 8 columns or fewer (64 -> 3),
-//    which the staging bounds.
+//    8 consumer warps of 64 x 32 and 4 producer warps, one block per SM
+//    (with 2 or 3 producer warps the staging bounds the kernel); and 128 x 8 with 8 producer warps for heads of 8 columns or
+//    fewer (64 -> 3), which the staging bounds.
 // 5. The epilogue works from the accumulator fragments: bias, swish, 8-byte
 //    stores, and the (B, cout) sum and sum of squares reduced over the eight
 //    row lanes of a warp with shuffles before one shared-memory add per warp
 //    and column and one global atomic per block and column.
 //
-// What bounds it now (read on an H100 by taking parts out): the consumers.
-// Every tile shape, slice depth and occupancy tried lands at 30 to 37 TFLOP/s
-// of counted work; with the producers idle it is 37 to 44, with two of the
-// three MMAs taken out 43 to 50. mma.sync TF32 delivers about 200 of the
-// card's 495 TFLOP/s here, and the fragment loads (128 bytes of shared memory
-// per MMA, because hi and lo are both stored) share the rest. The strides
-// below matter little (a conflicting stride costs 1% to 10%). The next step
-// is wgmma, which reads both operands from shared memory at the full rate.
+// What bounds it now, on an H100 (tools/torch_mma_bench.cu, chip_smoke.py): a
+// loop of independent mma.sync m16n8k8 TF32 reaches about two thirds of the
+// card's 495 TFLOP/s, a third of which (108) is 3xTF32's ceiling on this
+// instruction; the consumers' loop alone reaches 61 TFLOP/s of counted work,
+// its fragment loads, adds and MMAs taking turns within a warp; the kernels
+// reach 31 to 39, the staging side costing as much again through the
+// barrier it shares with the consumers. Neither the tile, the slice depth,
+// the occupancy, the number of chains in flight nor the strides below moved
+// that. The next step is wgmma, which reads both operands from shared memory
+// at the full rate.
 //
 // Shared-memory layouts, free of bank conflicts on every access but the
 // narrow tile's Wt stores:
 //   As[m][k / 2] = {hi(k), hi(k + 1), lo(k), lo(k + 1)} (16 bytes), row stride
 //     2 * BK + 16 words = 16 mod 32, so the 8 lanes of a quarter warp (two
 //     rows g, four pairs t) reading 16 bytes each cover all 32 banks.
-//   Bs[k][n] = {hi, lo} (8 bytes), row stride 2 * BN + 4 words = 4 mod 16, so
-//     the 16 lanes of a half warp (four rows 2t, four columns g) reading 8
-//     bytes each cover all 32 banks.
-//   A thread stages 4 consecutive k of A (or 4 consecutive n of Wt) as two
-//   16-byte stores to neighbouring slots; lanes 4..7 of each quarter warp
-//   issue the two in the other order, so that each store instruction covers
-//   eight distinct slots.
+//   Bs[k / 2][n] = {hi(k), hi(k + 1), lo(k), lo(k + 1)} (16 bytes): the B
+//     operand of the instruction twice over, in consecutive registers after
+//     one load. Row stride BN + 2 slots of 16 bytes = 2 mod 8, so the 8 lanes
+//     of a quarter warp (four rows t, two columns g) cover all 32 banks. A
+//     producer thread holds 4 consecutive n of two rows k, k + 1 and stores
+//     one slot per n; the slot of column n is n ^ ((n >> 3) & 3), so that
+//     the 8 lanes of a quarter warp, 32 columns apart in steps of 4, hit 8
+//     distinct slots, and the reader, whose fragment nf has a fixed n >> 3,
+//     still finds its two columns g side by side.
+//   A thread stages 4 consecutive k of A as two 16-byte stores to
+//   neighbouring slots; lanes 4..7 of each quarter warp issue the two in the
+//   other order, so that each store instruction covers eight distinct
+//   slots.
 // A fragment element is picked so that one load serves both of its k columns:
 // within a k8 group lane t takes columns 2t and 2t + 1 where the instruction
 // names t and t + 4; Wt's rows are picked the same way, and a permutation of
-// k applied to both operands leaves the sum unchanged.
+// k applied to both operands leaves the sum unchanged. A warp loads Wt's
+// fragments once per slice and A's once per k8 step and 16 rows.
 //
 // Values beyond the largest TF32 number saturate to it before the split, so
 // an infinite input gives a huge finite product instead of inf - inf; a NaN
@@ -103,18 +113,19 @@ struct Tile {
   static constexpr int AROWS = NP / KG;    // rows of A staged per pass
   static constexpr int AI = BM / AROWS;    // passes: 4-wide loads per thread
   static constexpr int CG = BN / 4;        // 4-wide column groups of Wt
-  static constexpr int BU = BK * CG;       // 4-wide loads per slice of Wt
+  static constexpr int BU = BK / 2 * CG;   // pairs of 4-wide loads of Wt
   static constexpr int BI = (BU + NP - 1) / NP;
+  static constexpr int KS = BK / 8;        // k8 steps per slice
   static constexpr int SA = 2 * BK + 16;   // words per row of As
-  static constexpr int SB = 2 * BN + 4;    // words per row of Bs
-  static constexpr int A_WORDS = BM * SA, B_WORDS = BK * SB;
+  static constexpr int SB = 4 * (BN + 2);  // words per row (pair of k) of Bs
+  static constexpr int A_WORDS = BM * SA, B_WORDS = BK / 2 * SB;
   static constexpr int RED = 2 * (A_WORDS + B_WORDS);  // sums, sums of squares
   static constexpr int ORG = RED + 2 * BN;             // iy0, ix0
   static constexpr int SMEM_BYTES = 4 * (ORG + 2 * BM);
   static_assert(AI <= 8, "Staged::mask holds 4 bits per pass");
   static_assert(WM % 16 == 0 && WN % 8 == 0 && BK % 16 == 0, "mma shape");
   static_assert(NP % KG == 0 && BM % AROWS == 0, "A staging");
-  static_assert(SA % 32 == 16 && SB % 16 == 4, "bank-conflict-free strides");
+  static_assert(SA % 32 == 16 && SB % 32 == 8, "bank-conflict-free strides");
 };
 
 using Wide = Tile<128, 128, 2, 4, 16, 4>;
@@ -189,6 +200,10 @@ __device__ __forceinline__ void split_tf32(float v, float& hi, float& lo) {
   lo = tf32_rna(v - hi);
 }
 
+// The 16-byte slot of column n in a row of Bs: the two low bits take the
+// column's 8-group (see the layouts above).
+__device__ __forceinline__ int swizzled(int n) { return n ^ ((n >> 3) & 3); }
+
 // Stores q0 at p and q1 at p + 4 words, lanes 4..7 of a quarter warp in the
 // other order (see the layouts above).
 __device__ __forceinline__ void store_pair(float* p, const float4& q0,
@@ -206,7 +221,7 @@ struct Staged {
   float a[T::AI][4];   // raw inputs, 4 consecutive k of one pixel each
   float sa[4], st[4];  // the affine of those k columns
   uint32_t mask;       // bit 4 * i + j: a[i][j] is inside the image and K
-  float b[T::BI][4];   // 4 consecutive columns of one row of Wt each
+  float b[T::BI][2][4];  // 4 consecutive columns of two rows of Wt each
 };
 
 // The A column a thread stages: k = slice * BK + 4 * (tid % KG), as a tap and
@@ -295,18 +310,23 @@ __device__ __forceinline__ void load_slice(Staged<T>& s, KColumn& kc,
 #pragma unroll
   for (int i = 0; i < T::BI; ++i) {
     const int u = tid + i * T::NP;
-    const int k = k0 + u / T::CG;
     const int n = n0 + 4 * (u % T::CG);
-    const float* wr = op.w + (int64_t)k * op.ncols + n;
-    const bool row = (T::BU % T::NP == 0 || u < T::BU) && k < g.K;
-    if (op.vec_w) {
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (row && n < op.ncols) v = __ldg(reinterpret_cast<const float4*>(wr));
-      s.b[i][0] = v.x; s.b[i][1] = v.y; s.b[i][2] = v.z; s.b[i][3] = v.w;
-    } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        s.b[i][j] = (row && n + j < op.ncols) ? wr[j] : 0.f;
+    for (int r = 0; r < 2; ++r) {
+      const int k = k0 + 2 * (u / T::CG) + r;
+      const float* wr = op.w + (int64_t)k * op.ncols + n;
+      const bool row = (T::BU % T::NP == 0 || u < T::BU) && k < g.K;
+      if (op.vec_w) {
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (row && n < op.ncols)
+          v = __ldg(reinterpret_cast<const float4*>(wr));
+        s.b[i][r][0] = v.x; s.b[i][r][1] = v.y;
+        s.b[i][r][2] = v.z; s.b[i][r][3] = v.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          s.b[i][r][j] = (row && n + j < op.ncols) ? wr[j] : 0.f;
+      }
     }
   }
 }
@@ -335,23 +355,37 @@ __device__ __forceinline__ void store_slice(const Staged<T>& s, float* As,
   for (int i = 0; i < T::BI; ++i) {
     const int u = tid + i * T::NP;
     if (T::BU % T::NP != 0 && u >= T::BU) break;
-    float hi[4], lo[4];
+    float* row = Bs + (u / T::CG) * T::SB;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) split_tf32(s.b[i][j], hi[j], lo[j]);
-    store_pair(Bs + (u / T::CG) * T::SB + 8 * (u % T::CG),
-               make_float4(hi[0], lo[0], hi[1], lo[1]),
-               make_float4(hi[2], lo[2], hi[3], lo[3]));
+    for (int j = 0; j < 4; ++j) {
+      float4 q;  // {hi(k), hi(k + 1), lo(k), lo(k + 1)} of column n
+      split_tf32(s.b[i][0][j], q.x, q.z);
+      split_tf32(s.b[i][1][j], q.y, q.w);
+      const int n = 4 * (u % T::CG) + j;
+      *reinterpret_cast<float4*>(row + 4 * swizzled(n)) = q;
+    }
   }
 }
 
-// The fragments of one unit of a warp's work: a k8 step of one 16-row
-// fragment of A against the warp's NF fragments of Wt.
+// The fragments of Wt for one slice of one warp: per k8 step and 8-column
+// fragment {hi(2t), hi(2t + 1), lo(2t), lo(2t + 1)} of column g, which is the
+// instruction's B operand twice over, hi in .x, .y and lo in .z, .w.
 template <class T>
-struct Frags {
-  float4 a[2];         // [row g, row g + 8]: {hi, hi, lo, lo}
-  float2 b[T::NF][2];  // [nf][row 2t, row 2t + 1]: {hi, lo}
-};
+__device__ __forceinline__ void load_b_frags(float4 (&b)[T::KS][T::NF],
+                                             const float* Bw) {
+  const int lane = threadIdx.x & 31;
+  const int col = (threadIdx.x >> 5) % T::WARPS_N * T::WN + (lane >> 2);
+#pragma unroll
+  for (int ks = 0; ks < T::KS; ++ks) {
+#pragma unroll
+    for (int nf = 0; nf < T::NF; ++nf)
+      b[ks][nf] = *reinterpret_cast<const float4*>(
+          Bw + ks * 4 * T::SB + 4 * swizzled(col + 8 * nf));
+  }
+}
 
+// The fragment of A for one k8 step of 16 rows: [row g, row g + 8] of
+// {hi(2t), hi(2t + 1), lo(2t), lo(2t + 1)}.
 template <class T>
 __device__ __forceinline__ void load_a_frag(float4 (&a)[2], const float* Aw,
                                             int ks, int mf) {
@@ -360,38 +394,29 @@ __device__ __forceinline__ void load_a_frag(float4 (&a)[2], const float* Aw,
   a[1] = *reinterpret_cast<const float4*>(p + 8 * T::SA);
 }
 
-template <class T>
-__device__ __forceinline__ void load_b_frag(float2 (&b)[T::NF][2],
-                                            const float* Bw, int ks) {
-#pragma unroll
-  for (int nf = 0; nf < T::NF; ++nf) {
-    const float* p = Bw + ks * 8 * T::SB + nf * 16;
-    b[nf][0] = *reinterpret_cast<const float2*>(p);
-    b[nf][1] = *reinterpret_cast<const float2*>(p + T::SB);
-  }
-}
-
-// d = this unit's products: per fragment of Wt a chain of three MMAs from 0,
-// small terms first; the NF chains are independent. (Twice and four times as
-// many chains in flight, two and four fragments of A to a unit, changed
-// nothing on the card.)
-template <class T>
+// d (+)= one k8 step of a 16-row fragment of A against the warp's NF
+// fragments of Wt: three MMAs per fragment, small terms first, NF independent
+// chains. FIRST: the chains start from 0.
+template <class T, bool FIRST>
 __device__ __forceinline__ void mma_unit(float (&d)[T::NF][4],
                                          const float4 (&a)[2],
-                                         const float2 (&b)[T::NF][2]) {
+                                         const float4 (&b)[T::NF]) {
   const float zero[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-  for (int nf = 0; nf < T::NF; ++nf)
-    mma_tf32(d[nf], zero, a[0].z, a[1].z, a[0].w, a[1].w, b[nf][0].x,
-             b[nf][1].x);
+  for (int nf = 0; nf < T::NF; ++nf) {
+    if constexpr (FIRST) {
+      mma_tf32(d[nf], zero, a[0].z, a[1].z, a[0].w, a[1].w, b[nf].x, b[nf].y);
+    } else {
+      mma_tf32(d[nf], d[nf], a[0].z, a[1].z, a[0].w, a[1].w, b[nf].x,
+               b[nf].y);
+    }
+  }
 #pragma unroll
   for (int nf = 0; nf < T::NF; ++nf)
-    mma_tf32(d[nf], d[nf], a[0].x, a[1].x, a[0].y, a[1].y, b[nf][0].y,
-             b[nf][1].y);
+    mma_tf32(d[nf], d[nf], a[0].x, a[1].x, a[0].y, a[1].y, b[nf].z, b[nf].w);
 #pragma unroll
   for (int nf = 0; nf < T::NF; ++nf)
-    mma_tf32(d[nf], d[nf], a[0].x, a[1].x, a[0].y, a[1].y, b[nf][0].x,
-             b[nf][1].x);
+    mma_tf32(d[nf], d[nf], a[0].x, a[1].x, a[0].y, a[1].y, b[nf].x, b[nf].y);
 }
 
 // The producers' side of the product: stages slice 0, then in iteration i stores
@@ -437,8 +462,7 @@ __device__ __forceinline__ void consume(float (&acc)[T::MF][T::NF][4],
   const int warp = threadIdx.x >> 5;
   const float* As = smem + ((warp / T::WARPS_N) * T::WM + (lane >> 2)) * T::SA +
                     4 * (lane & 3);
-  const float* Bs = smem + 2 * T::A_WORDS + 2 * (lane & 3) * T::SB +
-                    2 * ((warp % T::WARPS_N) * T::WN + (lane >> 2));
+  const float* Bs = smem + 2 * T::A_WORDS + (lane & 3) * T::SB;
 #pragma unroll
   for (int mf = 0; mf < T::MF; ++mf) {
 #pragma unroll
@@ -447,26 +471,31 @@ __device__ __forceinline__ void consume(float (&acc)[T::MF][T::NF][4],
       for (int c = 0; c < 4; ++c) acc[mf][nf][c] = 0.f;
     }
   }
-  Frags<T> f;
-  constexpr int U = T::BK / 8 * T::MF;  // units per slice
+  float4 fa[2];
+  float4 fb[T::KS][T::NF];
+  constexpr int U = T::MF * T::KS;  // units per slice, the k8 steps innermost
   block_sync<T::NT>();
-  for (int i = 0; i < nk; ++i) {
-    const float* Aw = As + (i & 1) * T::A_WORDS;
-    const float* Bw = Bs + (i & 1) * T::B_WORDS;
-    load_b_frag<T>(f.b, Bw, 0);
-    load_a_frag<T>(f.a, Aw, 0, 0);
+  // (counting down and toggling the stage, the loop's bookkeeping fits the
+  // 168 registers a thread of a 384-thread block can have; counting up with
+  // i & 1 two accumulators went to local memory)
+  int stage = 0;
+  for (int i = nk; i > 0; --i, stage ^= 1) {
+    const float* Aw = As + stage * T::A_WORDS;
+    load_b_frags<T>(fb, Bs + stage * T::B_WORDS);
+    load_a_frag<T>(fa, Aw, 0, 0);
+    float d[T::NF][4];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      const int mf = u % T::MF;
-      float d[T::NF][4];
-      mma_unit<T>(d, f.a, f.b);
-      // the next unit's fragments go into the registers that the MMAs just
-      // issued have read, and arrive while the adds below wait for the MMAs
-      if (u + 1 < U) {
-        const int ks1 = (u + 1) / T::MF, mf1 = (u + 1) % T::MF;
-        load_a_frag<T>(f.a, Aw, ks1, mf1);
-        if (mf1 == 0) load_b_frag<T>(f.b, Bw, ks1);
+      const int mf = u / T::KS, ks = u % T::KS;
+      if (ks == 0) {
+        mma_unit<T, true>(d, fa, fb[ks]);
+      } else {
+        mma_unit<T, false>(d, fa, fb[ks]);
       }
+      // the next unit's fragment goes into the registers that the MMAs just
+      // issued have read, and arrives while the adds below wait for the MMAs
+      if (u + 1 < U) load_a_frag<T>(fa, Aw, (u + 1) % T::KS, (u + 1) / T::KS);
+      if (ks + 1 < T::KS) continue;
 #pragma unroll
       for (int nf = 0; nf < T::NF; ++nf) {
 #pragma unroll
