@@ -99,7 +99,7 @@ TRAIN_STEPS = 8
 KERNEL_BATCH = 8                  # batch of K5's and K6's phase-2 cases
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
-TC3_FLOP_PER_S = 495e12 / 3       # 3xTF32: three TF32 instructions a product
+TC3_FLOP_PER_S = 495e12 / 3       # 3xTF32: three TF32 MMAs a product
 # kernels whose product runs 3xTF32 on the tensor cores
 TENSOR_CORE = ('conv3x3', 'conv1x1', 'conv3x3_preact')
 

@@ -1,8 +1,8 @@
 // What the tensor-core convolutions of ucdir_tpu_torch can reach on the card,
 // measured apart from the kernels:
-//   1. a loop of independent mma.sync m16n8k8 TF32 instructions on registers
+//   1. a loop of independent mma.sync m16n8k8 TF32 operations on registers
 //      (16 accumulators a thread, 8 warps a block, 1 or 2 blocks per SM): the
-//      rate of the instruction itself, of which a 3xTF32 product gets a third;
+//      rate of the operation itself, of which a 3xTF32 product gets a third;
 //   2. the consumers' loop of csrc/igemm_tc.cuh (consume<Tile>) alone, on a
 //      shared memory filled once, the producer warps only keeping the
 //      per-slice barrier: what the multiplying side reaches when the staging
@@ -30,7 +30,7 @@ __global__ void __launch_bounds__(256) independent_mma(float* out, int iters,
   for (int it = 0; it < iters; ++it) {
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
-      // volatile: identical instructions must not be merged
+      // volatile: identical asm statements must not be merged
       asm volatile(
           "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
           "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"

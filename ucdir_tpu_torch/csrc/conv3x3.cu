@@ -18,7 +18,7 @@
 // Bound: at the main path's widths (18 * cin * cout FLOP per pixel, 100 or
 // more per byte moved) the operations, and since the product runs on the
 // tensor cores as 3xTF32 (igemm_tc.cuh) their ceiling is tensor-core issue at
-// three instructions per product: counted FLOP / 165 TFLOP/s (495 / 3). What
+// three MMAs per product: counted FLOP / 165 TFLOP/s (495 / 3). What
 // the design does about it: the split is made once per staged value, the
 // staging is two-stage and loads 16 bytes along the channels, the column
 // tile follows cout (128, 64 or 8 wide) and the statistics leave the

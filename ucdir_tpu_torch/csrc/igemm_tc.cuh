@@ -8,14 +8,14 @@
 //
 // 1. The product runs as mma.sync m16n8k8 TF32 with the 3xTF32 split: every
 //    operand v is staged as hi = rna_tf32(v) and lo = rna_tf32(v - hi), and a
-//    tile position costs three instructions, small terms first: lo * hi,
+//    tile position costs three MMAs, small terms first: lo * hi,
 //    hi * lo, hi * hi (lo * lo, 2^-22 of the product, is dropped). The split
 //    is made ONCE per staged value, not per fragment load: a value of A is
 //    read by every warp column, one of Wt by every warp row. The tensor core
 //    adds into its accumulator rounding toward zero, which over the 200 and
 //    more k8 steps of a deep product biases the sum by about 1e-5 of it, all
 //    one way (read on the card: the (B, cout) statistics missed their limit).
-//    So the instructions of one slice (BK / 8 k8 steps, three each) chain
+//    So the MMAs of one slice (BK / 8 k8 steps, three each) chain
 //    into a fresh fragment that starts at 0, and the fragment is added to the
 //    running fp32 sum with a rounded-to-nearest FADD on the CUDA cores: the
 //    tensor core's rounding then acts on short partial sums of either sign.
