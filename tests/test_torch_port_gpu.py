@@ -15,9 +15,9 @@ output of theirs within 1e-4 of max(1, largest |reference| of that output).
 K7, K8 and K9 (the pre-activated conv, the mix alone, the packed tail) are
 held to the same 1e-4 at small and ragged shapes and at the shapes of the
 validation path: one 1568 x 2272 frame and its levels, one 1024 x 1024 tile.
-K2 and K3 run on tensor-core tiles of 128 pixels by 128, 64 or 8 columns in
-k slices of 16 or 32: their cases include cout 3, 8, 9 and 130, cin 4, 6 and
-70, P one short of and one past a pixel tile, stride 2 on odd sizes and B = 3.
+K2 and K3 run on tiles of 128 pixels by 128 or 8 columns, or 256 by 64, in k
+slices of 16: their cases include cout 3, 8, 9 and 130, cin 4, 6 and 70, P
+one short of and one past a pixel tile, stride 2 on odd sizes and B = 3.
 """
 import pytest
 import torch

@@ -1,7 +1,10 @@
-"""The arithmetic of the tensor-core convolutions K2, K3 and K7
-(`ucdir_tpu_torch/csrc/igemm_tc.cuh`), emulated in plain PyTorch on the CPU.
+"""The arithmetic of a 3xTF32 product on the tensor cores, emulated in plain
+PyTorch on the CPU: what a tensor-core form of the convolutions K2, K3 and K7
+computes, and what any later one (wgmma, see ROADMAP.md) has to keep.
 
-The kernels multiply on the tensor cores in TF32 with the 3xTF32 split: every
+K2, K3 and K7 ship with an fp32 FMA product (`ucdir_tpu_torch/csrc/
+igemm_pc.cuh`); the tensor-core form was built and measured in the same
+pipeline (PERF.md). It multiplies in TF32 with the 3xTF32 split: every
 staged value v becomes hi = rna_tf32(v) and lo = rna_tf32(v - hi), and a k8
 step of the product is lo * hi + hi * lo + hi * hi, summed from 0 and added to
 the running float32 sum. Here the same arithmetic runs in float32 tensors
@@ -13,10 +16,11 @@ downs_0 (K = 54), conv1 192 -> 64 (K = 1728) and conv1 1024 -> 512 (K =
 9216).
 
 Tolerances: hi + lo is within 2^-22 of v (2^-23 by the rounding of lo, which
-has at most 12 significant bits of which TF32 keeps 11; one bit of margin); the three-term product's largest error against float64 is
-within 2x the float32 product's (both sum k8 partial sums in the same order);
-the one-term TF32 product misses 1e-5, the limit the port holds end to end,
-which is why the split is there.
+has at most 12 significant bits of which TF32 keeps 11; one bit of margin);
+the three-term product's largest error against float64 is within 2x the
+float32 product's (both sum k8 partial sums in the same order); the one-term
+TF32 product misses 1e-5, the limit the port holds end to end, which is why
+a tensor-core product needs the split.
 """
 import numpy as np
 import pytest
@@ -35,7 +39,7 @@ def tf32_rna(x):
 
 
 def split_tf32(v):
-    """(hi, lo) as the kernels stage them: values beyond the largest TF32
+    """(hi, lo) as such a kernel stages them: values beyond the largest TF32
     number saturate to it first, a NaN stays a NaN."""
     big = v.abs() > TF32_MAX
     v = torch.where(big, torch.copysign(torch.full_like(v, TF32_MAX), v), v)
@@ -45,7 +49,7 @@ def split_tf32(v):
 
 def chunked(k8_step, depth, m, n):
     """sum over the k8 steps of k8_step(slice of k), each added to a float32
-    running sum, as the kernels do."""
+    running sum, as such a kernel does."""
     acc = torch.zeros(m, n, dtype=torch.float32)
     for k in range(0, depth, 8):
         acc += k8_step(slice(k, k + 8))
@@ -67,7 +71,7 @@ def product_3xtf32(a, b):
 def operands(K, seed, m=48, n=24):
     """A's rows at the activations' scale (0.5) and Wt at the weights'
     (K ** -0.5), as chip_smoke.py draws them; K padded to a k8 step with
-    zeros as the kernels pad it."""
+    zeros as the convolutions pad it."""
     rng = np.random.default_rng(seed)
     a = np.zeros((m, -(-K // 8) * 8), np.float32)
     b = np.zeros((a.shape[1], n), np.float32)

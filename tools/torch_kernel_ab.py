@@ -5,7 +5,8 @@
 
 DIR holds another checkout of the repository (for example `git archive` of
 the parent commit, unpacked into a directory that .gitignore lists). The
-cases and the timing are phase 2 of this tree's chip_smoke.py; only the
+cases and the timing are those of phase 2 of this tree's chip_smoke.py
+(`kernel_cases`, `timed`); only the
 package `ucdir_tpu_torch` (and so the kernels' sources) comes from the tree
 under test. The trees run in turns, parent, change, change, parent, each in a
 process of its own that builds its kernels, so that a drift of the card
@@ -24,8 +25,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def worker(kernels, seed):
-    """Phase 2 of chip_smoke.py on the `ucdir_tpu_torch` that sys.path
-    gives; prints 'CASE <json>' per case."""
+    """The cases of chip_smoke.py's phase 2 for `kernels`, on the
+    `ucdir_tpu_torch` that sys.path gives; prints 'CASE <json>' per case."""
     import importlib.util
     import torch
     spec = importlib.util.spec_from_file_location(
@@ -36,18 +37,19 @@ def worker(kernels, seed):
     torch.cuda.set_device(dev)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    lines = []
-    say = chip_smoke.say
-    chip_smoke.say = lambda phase, msg: (lines.append(msg), say(phase, msg))
     chip_smoke.phase_build()
-    del lines[:]
-    chip_smoke.phase_kernels(dev, seed, {}, names=kernels)
-    for msg in lines:
-        head, _, rest = msg.partition(' max_abs_err ')
+    gen = torch.Generator(dev).manual_seed(seed)
+    for case in chip_smoke.kernel_cases(gen, dev):
+        if case['name'] not in kernels:
+            continue
+        got = chip_smoke.flat(case['kernel']())[0]
+        err = (got - chip_smoke.flat(case['plain']())[0]).abs().max().item()
+        del got
         print('CASE ' + json.dumps({
-            'case': ' '.join(head.split()),
-            'ms': float(rest.split('kernel ')[1].split(' ms')[0]),
-            'err': float(rest.split()[0])}), flush=True)
+            'case': '%s %s' % (case['name'], case['label']),
+            'ms': chip_smoke.timed(case['kernel'], 5), 'err': err}),
+            flush=True)
+        torch.cuda.empty_cache()
 
 
 def main(argv=None):

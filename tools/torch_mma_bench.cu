@@ -1,23 +1,29 @@
-// What the tensor-core convolutions of ucdir_tpu_torch can reach on the card,
+// What the forward convolutions of ucdir_tpu_torch can reach on the card,
 // measured apart from the kernels:
 //   1. a loop of independent mma.sync m16n8k8 TF32 operations on registers
 //      (16 accumulators a thread, 8 warps a block, 1 or 2 blocks per SM): the
-//      rate of the operation itself, of which a 3xTF32 product gets a third;
-//   2. the consumers' loop of csrc/igemm_tc.cuh (consume<Tile>) alone, on a
+//      rate of the tensor-core operation itself, of which a 3xTF32 product
+//      would get a third (the form of K2 and K3 that PERF.md reports beside
+//      the fp32 FMA one that ships);
+//   2. the consumers' loop of csrc/igemm_pc.cuh (consume<Tile>) alone, on a
 //      shared memory filled once, the producer warps only keeping the
 //      per-slice barrier: what the multiplying side reaches when the staging
 //      costs nothing, in TFLOP/s of counted work (2 * BM * BN * BK a slice).
 //
+// From the root of the checkout (ucdir_tpu_torch/_build/ is where the
+// package builds its kernels too, and git ignores it):
+//
+//   mkdir -p ucdir_tpu_torch/_build && \
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
-//        -I ucdir_tpu_torch/csrc -o /tmp/torch_mma_bench \
-//        tools/torch_mma_bench.cu && /tmp/torch_mma_bench
+//        -I ucdir_tpu_torch/csrc -o ucdir_tpu_torch/_build/torch_mma_bench \
+//        tools/torch_mma_bench.cu && ucdir_tpu_torch/_build/torch_mma_bench
 //
 // Prints one line per case. Needs an sm_90a card.
 #include <cstdio>
 
-#include "igemm_tc.cuh"
+#include "igemm_pc.cuh"
 
-namespace tc = ucdir::tc;
+namespace pc = ucdir::pc;
 
 __global__ void __launch_bounds__(256) independent_mma(float* out, int iters,
                                                        float seed) {
@@ -25,8 +31,9 @@ __global__ void __launch_bounds__(256) independent_mma(float* out, int iters,
   for (int i = 0; i < 16; ++i) {
     for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
   }
-  const float a0 = tc::tf32_rna(seed + threadIdx.x), a1 = tc::tf32_rna(a0 * 3);
-  const float b0 = tc::tf32_rna(a0 * 5), b1 = tc::tf32_rna(a0 * 7);
+  // small integers: TF32 numbers as they stand
+  const float a0 = seed + threadIdx.x % 8, a1 = a0 + 1.f;
+  const float b0 = a0 + 2.f, b1 = a0 + 3.f;
   for (int it = 0; it < iters; ++it) {
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
@@ -51,20 +58,18 @@ template <class T>
 __global__ void __launch_bounds__(T::NT) consumers_alone(float* out, int nk) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  for (int i = threadIdx.x; i < T::ORG; i += T::NT)  // TF32 values in [1, 2)
+  for (int i = threadIdx.x; i < T::ORG; i += T::NT)  // values in [1, 2)
     smem[i] = __uint_as_float(0x3f800000u + ((i * 2654435761u) & 0x7fe000u));
-  tc::block_sync<T::NT>();
-  if (threadIdx.x >= 32 * T::CW) {
-    for (int i = 0; i < nk + 1; ++i) tc::block_sync<T::NT>();
+  pc::block_sync<T::NT>();
+  if (threadIdx.x >= T::NC) {
+    for (int i = 0; i < nk + 1; ++i) pc::block_sync<T::NT>();
     return;
   }
-  float acc[T::MF][T::NF][4];
-  tc::consume<T>(acc, smem, nk);
+  float acc[T::TM][T::TN];
+  pc::consume<T>(acc, smem, nk);
   float s = 0.f;
-  for (int mf = 0; mf < T::MF; ++mf) {
-    for (int nf = 0; nf < T::NF; ++nf) {
-      for (int c = 0; c < 4; ++c) s += acc[mf][nf][c];
-    }
+  for (int i = 0; i < T::TM; ++i) {
+    for (int j = 0; j < T::TN; ++j) s += acc[i][j];
   }
   if (s == 12345.f) out[0] = s;
 }
@@ -92,9 +97,6 @@ void launch_independent(float* out, int iters) {
 
 template <class T>
 void launch_consumers(float* out, int nk) {
-  cudaFuncSetAttribute(consumers_alone<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       T::SMEM_BYTES);
   consumers_alone<T><<<g_sms, T::NT, T::SMEM_BYTES>>>(out, nk);
 }
 
@@ -129,7 +131,7 @@ int main() {
   printf("independent mma.sync m16n8k8 TF32, 2 blocks per SM: %.3f ms, %.1f "
          "TFLOP/s TF32, a third of it %.1f\n", ms2,
          2 * mmas * 2048 / ms2 / 1e9, 2 * mmas * 2048 / 3 / ms2 / 1e9);
-  report_consumers<tc::Wide>("128 x 128", out);
-  report_consumers<tc::Mid>("256 x 64", out);
+  report_consumers<pc::Wide>("128 x 128", out);
+  report_consumers<pc::Mid>("256 x 64", out);
   return cudaDeviceSynchronize() == cudaSuccess ? 0 : 1;
 }

@@ -16,25 +16,24 @@
 // border is masked after it and stays 0 = swish(0).
 //
 // Bound: at the main path's widths (18 * cin * cout FLOP per pixel, 100 or
-// more per byte moved) the operations, and since the product runs on the
-// tensor cores as 3xTF32 (igemm_tc.cuh) their ceiling is tensor-core issue at
-// three MMAs per product: counted FLOP / 165 TFLOP/s (495 / 3). What
-// the design does about it: the split is made once per staged value, the
-// staging is two-stage and loads 16 bytes along the channels, the column
-// tile follows cout (128, 64 or 8 wide) and the statistics leave the
-// fragments through warp shuffles. K7 at the head (64 -> 3) takes the 8-wide
+// more per byte moved) the fp32 FMA rate: counted FLOP / 67 TFLOP/s. What the
+// design (igemm_pc.cuh) does about it: warps that only multiply, fed by warps
+// that only stage, two slices ahead and 16 bytes along the channels at a
+// time; a column tile that follows cout (128, 64 or 8 wide), so that wide
+// layers stage each input value once per 128 columns; 16-byte stores, and the
+// statistics through warp shuffles. K7 at the head (64 -> 3) takes the 8-wide
 // tile; it still evaluates one expf per staged element, nine per input value,
 // so the staging bounds it.
-#include "igemm_tc.cuh"
+#include "igemm_pc.cuh"
 
 namespace {
 
-ucdir::tc::ConvArgs conv_args(const float* x, const float* w,
+ucdir::pc::ConvArgs conv_args(const float* x, const float* w,
                               const float* bias, const float* a,
                               const float* t, float* out, float* ssum,
                               float* ssq, int H, int W, int cin, int cout,
                               int stride, int act) {
-  ucdir::tc::ConvArgs c = {};
+  ucdir::pc::ConvArgs c = {};
   c.x = x;
   c.w = w;
   c.bias = bias;
@@ -67,7 +66,7 @@ extern "C" int ucdir_conv3x3(const float* x, const float* w, const float* bias,
                              float* ssum, float* ssq, int B, int H, int W,
                              int cin, int cout, int stride, int act,
                              void* stream) {
-  return ucdir::tc::launch_conv<ucdir::tc::Affine>(
+  return ucdir::pc::launch_conv<ucdir::pc::Affine>(
       conv_args(x, w, bias, a, t, out, ssum, ssq, H, W, cin, cout, stride,
                 act),
       B, (cudaStream_t)stream);
@@ -79,7 +78,7 @@ extern "C" int ucdir_conv3x3_preact(const float* x, const float* w,
                                     const float* bias, const float* a,
                                     const float* t, float* out, int B, int H,
                                     int W, int cin, int cout, void* stream) {
-  return ucdir::tc::launch_conv<ucdir::tc::Preact>(
+  return ucdir::pc::launch_conv<ucdir::pc::Preact>(
       conv_args(x, w, bias, a, t, out, nullptr, nullptr, H, W, cin, cout, 1,
                 0),
       B, (cudaStream_t)stream);

@@ -1,5 +1,5 @@
 // Implicit-GEMM core of the AKGM kernels and the backward convolution (fp32,
-// CUDA cores). The forward convolutions K2, K3 and K7 run on igemm_tc.cuh.
+// CUDA cores). The forward convolutions K2, K3 and K7 run on igemm_pc.cuh.
 //
 // A convolution is the product A (P x K) * Wt (K x N): row p of A is output
 // pixel p's receptive field, column k = tap * cin + ci of it is input channel
