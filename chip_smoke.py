@@ -21,7 +21,10 @@ on any failure:
               kernel's product is fp32 FMA). K2 and K3 also at the shapes
               that pick their other tiles: the 64 -> 3 `final` conv (8-wide
               tile) and the 1024 -> 512 convs of the /8 level (128-wide
-              tile).
+              tile). K5 and K6 run twice: their weight and bias gradients
+              (and K5's attention gradient) must be equal bit for bit; K6's
+              library time in the swish cases includes the F.conv2d that
+              recomputes z.
   3. slice    the full-width SID model (random weights from --seed) restores
               a 96 x 96 input with 2 steps and injected noise on the card and
               on the host (plain versions); the outputs must agree.
@@ -268,16 +271,21 @@ def kernel_cases(gen, dev):
             return
         go = rnd(B, H, W, cout)
         kw = dict(act=act, norm_scale=a, norm_shift=t)
-        # the input and the weight gradient, and z again where swish needs it
+
+        def library():
+            # the input and the weight gradient, and z again where swish
+            # needs it
+            out = torch.ops.aten.convolution_backward(
+                nchw(go), nchw(x), k, [cout], [1, 1], [1, 1], [1, 1], False,
+                [0, 0], 1, [True, True, True])
+            return (out, F.conv2d(nchw(x), k, b, padding=1)) if act else out
         cases.append(dict(
             name='conv3x3_bwd', label=label,
             kernel=lambda: conv.conv3x3_backward_kernel(x, w, b, go, act, a,
                                                         t),
             plain=lambda: conv.conv3x3_backward_plain(x, w, b, go, **kw),
-            library=lambda: torch.ops.aten.convolution_backward(
-                nchw(go), nchw(x), k, [cout], [1, 1], [1, 1], [1, 1], False,
-                [0, 0], 1, [True, True, True]),
-            stats=0, flop=flop * (3 if act else 2),
+            library=library, stats=0, fixed=(1, 2),
+            flop=flop * (3 if act else 2),
             bytes=nbytes(x, go, w, b, a, t, x, w, b)))
 
     conv_case('downs_0 6->64 %dx%d stats' % (H0, W0), 1, H0, W0, 6, 64)
@@ -360,7 +368,7 @@ def kernel_cases(gen, dev):
             plain=lambda h=h, att=att, w=w, b=b, go=go, kw=kw:
                 akgm.akgm_block_tail_backward_plain(h, att, w, b, go, G,
                                                     **kw),
-            library=None, stats=0, flop=3 * flop,
+            library=None, stats=0, fixed=(1, 2, 3), flop=3 * flop,
             bytes=nbytes(h, go, att, w, b, *kw.values(), h, att, w, b,
                          kw['attw'])))
     bw = dict(backward=True)
@@ -401,7 +409,7 @@ def phase_kernels(dev, seed, results):
             fail('%s %s: %d results, plain gives %d'
                  % (name, label, len(got), len(want)))
         stat_scale = want[-1].abs().max().item()
-        errs, rel = [], 0.0
+        errs, rels = [], []
         for i, (g, w) in enumerate(zip(got, want)):
             if g.shape != w.shape:
                 fail('%s %s: result %d has shape %s, plain %s'
@@ -412,7 +420,17 @@ def phase_kernels(dev, seed, results):
             if not errs[-1] <= tol:
                 fail('%s %s: result %d max abs err %.3e > tol %.3e'
                      % (name, label, i, errs[-1], tol))
-            rel = max(rel, errs[-1] / max(big, 1e-30))
+            rels.append(errs[-1] / max(big, 1e-30))
+        # the weight and bias gradients of K5 and K6, and K5's attention
+        # gradient, are added in a fixed order: a second call gives the same
+        # bits
+        if case.get('fixed'):
+            again = flat(case['kernel']())
+            for i in case['fixed']:
+                if not torch.equal(got[i], again[i]):
+                    fail('%s %s: result %d differs between two calls'
+                         % (name, label, i))
+            del again
         del got, want
         err = errs[0]   # the first output's (gn1_stats: the sums')
         ms = timed(case['kernel'], 5)
@@ -431,13 +449,18 @@ def phase_kernels(dev, seed, results):
         r['flop_ms'] += t_flop
         if lib_ms is not None:
             r['library_ms'] = (r['library_ms'] or 0.0) + lib_ms
-        say('kernels', '%-13s %-44s max_abs_err %.3e (largest rel %.1e)  '
-            'kernel %.3f ms  plain %.3f ms  library %s  bound %.3f ms (%s)'
-            % (name, label, err, rel, ms, plain_ms,
+        say('kernels', '%-13s %-44s max_abs_err %.3e (largest rel %s)  '
+            'kernel %.3f ms  plain %.3f ms  library %s  bound %.3f ms (%s)%s'
+            % (name, label, err,
+               ' '.join('%.1e' % v for v in rels) if case.get('fixed')
+               else '%.1e' % max(rels), ms, plain_ms,
                'none' if lib_ms is None else '%.3f ms' % lib_ms,
                max(t_bytes, t_flop),
                'bytes' if t_bytes > t_flop else
-               'operations at 67 TFLOP/s, fp32 FMA'))
+               'operations at 67 TFLOP/s, fp32 FMA',
+               '; results %s bit-identical in a second call'
+               % (case['fixed'],)
+               if case.get('fixed') else ''))
         torch.cuda.empty_cache()
 
 

@@ -10,8 +10,12 @@ not have.)
 Tolerance: float32 on both sides, 1e-4 of max(1, |reference|) for tensors
 and 1e-5 of the largest sum of squares for the (B, C) statistics, which
 the kernels add with atomics in any order. The backward kernels K5 and K6
-also add their weight, bias and attention gradients with atomics: every
-output of theirs within 1e-4 of max(1, largest |reference| of that output).
+add their weight and bias gradients per chunk of pixels in a fixed order
+(the same bits in two calls) and K5 its attention gradients with atomics:
+every output of theirs within 1e-4 of max(1, largest |reference| of that
+output). K5's input gradient runs on tiles of 8, 16, 32 and 64 columns
+(C = 64, 128, 256, 512), its z recompute and both weight gradients on
+tiles of 64 and 128 columns, and K6's on the tiles of K2.
 K7, K8 and K9 (the pre-activated conv, the mix alone, the packed tail) are
 held to the same 1e-4 at small and ragged shapes and at the shapes of the
 validation path: one 1568 x 2272 frame and its levels, one 1024 x 1024 tile.
@@ -177,6 +181,55 @@ def test_conv3x3_backward(dev, B, H, W, cin, cout, fold, act):
     if fold:
         dxh = dxh * kw['norm_scale'][:, None, None, :]
     check(got[:3], (dxh, dw, db), 0)
+
+
+def _chunks_split_an_image(dev, K, N, cols, B, H, W):
+    """The weight gradient's plan on this card cuts the batch's pixels into
+    more than one chunk and some chunk ends inside an image."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    npix, P = B * H * W, H * W
+    s = conv.wgrad_splits(K, N, cols, npix, sms)
+    chunk = -(-(-(-npix // s)) // 16) * 16
+    return s > 1 and any(q % P for q in range(chunk, npix, chunk))
+
+
+@pytest.mark.parametrize('kind,shape', [
+    ('k6', (2, 37, 29, 64, 64, 'swish')), ('k6', (3, 19, 23, 6, 64, None)),
+    ('k6', (2, 21, 17, 192, 3, 'swish')), ('k6', (2, 23, 21, 512, 128, None)),
+    ('k5', (2, 31, 27, 64)), ('k5', (3, 17, 19, 128)),
+    ('k5', (2, 13, 11, 256)), ('k5', (2, 21, 23, 512))])
+def test_backward_weight_gradients_repeat_bit_for_bit(dev, kind, shape):
+    """dW and dbias of K5 and K6 are partial tiles of pixel chunks added in
+    a fixed order, and K5's datt the sum of a block's column tiles: two calls
+    give the same bits, where the chunks split images and the pixel count is
+    not a multiple of the 16-pixel slice."""
+    gen, G = torch.Generator(dev).manual_seed(13), 8
+    if kind == 'k6':
+        B, H, W, cin, cout, act = shape
+        x, go = rnd(gen, B, H, W, cin, scale=0.5), rnd(gen, B, H, W, cout)
+        w = rnd(gen, 9 * cin, cout, scale=(9 * cin) ** -0.5)
+        b = rnd(gen, cout, scale=0.1)
+        a, t = rnd(gen, B, cin, scale=0.2, off=1.0), rnd(gen, B, cin)
+        assert _chunks_split_an_image(dev, 9 * cin, cout, cout, B, H, W)
+        run = lambda: conv.conv3x3_backward_kernel(x, w, b, go, act, a, t)
+        fixed, want = (1, 2), conv.conv3x3_backward_plain(
+            x, w, b, go, act=act, norm_scale=a, norm_shift=t)
+    else:
+        B, H, W, C = shape
+        h, att, w, b = akgm_operands(gen, B, H, W, C)
+        go = rnd(gen, B, H, W, C)
+        ns, nt = rnd(gen, B, C, scale=0.2, off=1.0), rnd(gen, B, C, scale=0.2)
+        aw = rnd(gen, B, G, scale=0.3, off=1.0)
+        assert _chunks_split_an_image(dev, 9 * C // G, C * G, C, B, H, W)
+        run = lambda: akgm.akgm_block_tail_backward_kernel(
+            h, att, w, b, go, G, ns, nt, aw)
+        fixed, want = (1, 2, 3), akgm.akgm_block_tail_backward_plain(
+            h, att, w, b, go, G, norm_scale=ns, norm_shift=nt, attw=aw)
+    assert (H * W) % 16
+    first, second = run(), run()
+    check(first, want, 0)
+    for i in fixed:
+        assert torch.equal(first[i], second[i]), i
 
 
 FRAME = (1568, 2272)

@@ -1,0 +1,76 @@
+#!/usr/bin/env python3
+"""Where the time of K6 (the 3x3 conv backward) and of the library's
+backward goes, launch by launch, at four train shapes of the SID model.
+
+    python3 tools/torch_bwd_split.py
+
+For each case: `conv.conv3x3_backward_kernel` (K6: the z recompute, the
+weight gradient and its reduction, the input gradient) and
+`aten.convolution_backward` (cuDNN, TF32 off), five calls each under
+`torch.profiler`; prints each kernel's device ms per call, the four largest.
+The library may pick another algorithm than a direct product (FFT, GEMM on
+an unfolded input), which changes the work it does. Needs a CUDA card;
+prints the card's name and power limit first.
+"""
+import os
+import subprocess
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+# (batch, height = width, cin, cout, folded affine, activation)
+CASES = ((8, 144, 128, 512, False, None), (8, 288, 192, 64, True, 'swish'),
+         (8, 288, 6, 64, False, None), (8, 36, 1024, 512, True, 'swish'))
+
+
+def main():
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from ucdir_tpu_torch.ops import conv
+
+    if not torch.cuda.is_available():
+        print('torch_bwd_split: CUDA is not available', file=sys.stderr)
+        return 2
+    print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device('cuda', 0)
+    gen = torch.Generator(dev).manual_seed(0)
+
+    def rnd(*shape, scale=1.0, off=0.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale + off
+
+    for B, H, cin, cout, fold, act in CASES:
+        x, go = rnd(B, H, H, cin, scale=0.5), rnd(B, H, H, cout)
+        w = rnd(9 * cin, cout, scale=(9 * cin) ** -0.5)
+        b = rnd(cout, scale=0.1)
+        a = rnd(B, cin, scale=0.2, off=1.0) if fold else None
+        t = rnd(B, cin, scale=0.2) if fold else None
+        k = w.reshape(3, 3, cin, cout).permute(3, 2, 0, 1).contiguous()
+        calls = (
+            ('K6', lambda: conv.conv3x3_backward_kernel(x, w, b, go, act, a,
+                                                        t)),
+            ('library', lambda: torch.ops.aten.convolution_backward(
+                go.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), k, [cout],
+                [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                [True, True, True])))
+        for name, fn in calls:
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    fn()
+                torch.cuda.synchronize()
+            rows = sorted(((e.self_device_time_total / 5e3, e.key)
+                           for e in prof.key_averages()
+                           if e.device_type.name == 'CUDA'), reverse=True)
+            print('B=%d %dx%d %d->%d %s %s: %s' % (
+                B, H, H, cin, cout, act or 'linear', name,
+                ' | '.join('%.3f ms %s' % (ms, key[:70])
+                           for ms, key in rows[:4])), flush=True)
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

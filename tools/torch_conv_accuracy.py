@@ -4,6 +4,7 @@ to the comparison of card and host after ddim.
 
     python3 tools/torch_conv_accuracy.py [--seeds 0,1] [--runs 3]
     python3 tools/torch_conv_accuracy.py --seeds ''      # part 1 alone
+    python3 tools/torch_conv_accuracy.py --seeds '' --gradients   # 1 and 3
 
 1. Each kernel and its plain version (cuDNN, cuBLAS, TF32 off) against the
    same product in float64 on the card, at the widths of the main path and a
@@ -17,6 +18,9 @@ to the comparison of card and host after ddim.
    run of seed 0. DDIM's first step multiplies the network's output by
    1 / sqrt(abar_49) = 349, so this reading is the agreement of card and
    host on eps to about one unit in the last place.
+3. With --gradients: the weight and bias gradients of K6 and K5 and of
+   their plain versions against the plain version in float64, at train
+   shapes (batch 8).
 
 To read another checkout's kernels, put it first on PYTHONPATH: only the
 package `ucdir_tpu_torch` comes from there. Needs a CUDA card.
@@ -128,10 +132,74 @@ def ddim_card_against_host(dev, smoke, seeds, runs):
               % (seed, ' '.join('%.3e' % e for e in errs)), flush=True)
 
 
+def gradients_against_float64(dev):
+    """The weight and bias gradients of K6 and K5, the kernel's and the plain
+    version's, against the plain version in float64, at train shapes (batch
+    8): the largest error over the largest |float64 value| of each output.
+    The kernel's reading against the float32 plain version (phase 2 of
+    chip_smoke.py) holds both sides' rounding."""
+    import torch
+    from ucdir_tpu_torch.ops import akgm, conv
+    gen = torch.Generator(dev).manual_seed(12)
+
+    def rnd(*shape, scale=1.0, off=0.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale + off
+
+    def report(label, names, got, plain, ref):
+        for n, g, p, r in zip(names, got, plain, ref):
+            big = r.abs().max().item()
+            print('%-44s %-5s kernel %.3e  plain %.3e  kernel vs plain %.3e '
+                  '(of the largest |value|)'
+                  % (label, n, (g.double() - r).abs().max().item() / big,
+                     (p.double() - r).abs().max().item() / big,
+                     (g - p).abs().max().item() / p.abs().max().item()),
+                  flush=True)
+
+    def k6(label, B, H, cin, cout, act):
+        x, go = rnd(B, H, H, cin, scale=0.5), rnd(B, H, H, cout)
+        w = rnd(9 * cin, cout, scale=(9 * cin) ** -0.5)
+        b = rnd(cout, scale=0.1)
+        a, t = rnd(B, cin, scale=0.2, off=1.0), rnd(B, cin, scale=0.2)
+        got = conv.conv3x3_backward_kernel(x, w, b, go, act, a, t)
+        plain = conv.conv3x3_backward_plain(x, w, b, go, act=act,
+                                            norm_scale=a, norm_shift=t)
+        ref = conv.conv3x3_backward_plain(
+            x.double(), w.double(), b.double(), go.double(), act=act,
+            norm_scale=a.double(), norm_shift=t.double())
+        report(label, ('dw', 'dbias'), got[1:], plain[1:], ref[1:])
+
+    def k5(label, B, H, C):
+        G = 8
+        h, go = rnd(B, H, H, C, scale=0.5), rnd(B, H, H, C)
+        att, aw = rnd(B, H, H, G, scale=0.5), rnd(B, G, scale=0.3, off=1.0)
+        w = rnd(9 * C // G, C * G, scale=(9 * C / G) ** -0.5)
+        b = rnd(C * G, scale=0.1)
+        a, t = rnd(B, C, scale=0.2, off=1.0), rnd(B, C, scale=0.2)
+        got = akgm.akgm_block_tail_backward_kernel(h, att, w, b, go, G, a, t,
+                                                   aw)
+        plain = akgm.akgm_block_tail_backward_plain(
+            h, att, w, b, go, G, norm_scale=a, norm_shift=t, attw=aw)
+        d = [v.double() for v in (h, att, w, b, go, a, t, aw)]
+        ref = akgm.akgm_block_tail_backward_plain(
+            *d[:5], G, norm_scale=d[5], norm_shift=d[6], attw=d[7])
+        report(label, ('dw', 'dbias'), got[2:4], plain[2:4], ref[2:4])
+
+    with torch.no_grad():
+        k6('K6 B=8 conv1 192->64 288x288 fold+swish', 8, 288, 192, 64,
+           'swish')
+        k6('K6 B=8 conv1 1024->512 36x36 fold+swish', 8, 36, 1024, 512,
+           'swish')
+        k6('K6 B=8 downs_0 6->64 288x288', 8, 288, 6, 64, None)
+        k5('K5 B=8 C=64 288x288 fold+attw', 8, 288, 64)
+        k5('K5 B=8 C=512 36x36 fold+attw', 8, 36, 512)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seeds', default='0,1')
     ap.add_argument('--runs', type=int, default=3)
+    ap.add_argument('--gradients', action='store_true',
+                    help='also part 3: K5 and K6 weight gradients')
     args = ap.parse_args(argv)
 
     import torch
@@ -149,6 +217,8 @@ def main(argv=None):
     torch.set_num_threads(os.cpu_count() or 1)
     print(smoke.nvidia_smi())
     kernels_against_float64(dev)
+    if args.gradients:
+        gradients_against_float64(dev)
     seeds = [int(seed) for seed in args.seeds.split(',') if seed]
     ddim_card_against_host(dev, smoke, seeds, args.runs)
     return 0

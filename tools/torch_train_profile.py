@@ -10,8 +10,9 @@ width (random weights from --seed, one seeded batch), takes two warm-up steps,
 times three steps with the host clock around `torch.cuda.synchronize()`, then
 traces one more step with `torch.profiler` and prints: seconds per step, peak
 memory, the device's busy time and idle share inside the traced step, the
-time of each CUDA kernel by name (top 30) and the launches of K1..K6 in that
-step. With --val it restores one 1424 x 2128 frame (1568 x 2272 in the
+time of each CUDA kernel by name (top 30), the port's kernels by launch (K5's
+and K6's three: z recompute, weight gradient and its reduction, input
+gradient) and the launches of K1..K6 in that step. With --val it restores one 1424 x 2128 frame (1568 x 2272 in the
 network) with --steps DDPM steps instead, once to warm up and once traced:
 the same lines for that frame, whose time is one predictor pass plus --steps
 DY3h steps. Needs a CUDA card; prints the card's name
@@ -76,7 +77,42 @@ def main(argv=None):
     for name, ms, count in rows[:30]:
         print('%10.2f ms %5.1f%% %6d x  %s' % (ms, 100 * ms / busy, count,
                                                name[:90]))
+    parts = {}
+    for name, ms, count in rows:
+        part = launch_part(name)
+        if part:
+            t, n = parts.get(part, (0.0, 0))
+            parts[part] = (t + ms, n + count)
+    print('the port\'s kernels by launch:')
+    for part, (ms, count) in sorted(parts.items()):
+        print('%10.2f ms %6d x  %s' % (ms, count, part))
     return 0
+
+
+# kernel name -> the port's kernel and launch (csrc/*.cu), first match wins
+PARTS = (
+    (('akgm_do_kernel',), 'K5 do (z recompute)'),
+    (('wgrad_pc_kernel', 'DzD'), 'K5 dW'),
+    (('wgrad_reduce_kernel', 'DzD'), 'K5 dW reduction'),
+    (('akgm_dh_kernel',), 'K5 dh (input gradient)'),
+    (('conv_pc_kernel', 'Affine, true'), 'K6 dz (z recompute)'),
+    (('wgrad_pc_kernel', 'PlainD'), 'K6 dW'),
+    (('wgrad_reduce_kernel', 'PlainD'), 'K6 dW reduction'),
+    (('conv_pc_kernel', 'Dgrad'), 'K6 dx (input gradient)'),
+    (('conv_pc_kernel', 'Raw'), 'K3'),
+    (('conv_pc_kernel', 'Preact'), 'K7'),
+    (('conv_pc_kernel', 'Affine'), 'K2'),
+    (('akgm_kernel<true>',), 'K1'),
+    (('akgm_kernel<false>',), 'K8'),
+    (('gn1_stats',), 'K4'),
+)
+
+
+def launch_part(name):
+    for keys, part in PARTS:
+        if all(k in name for k in keys):
+            return part
+    return None
 
 
 def val_frame(dev, seed, steps):

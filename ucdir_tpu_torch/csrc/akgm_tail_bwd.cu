@@ -17,229 +17,307 @@
 // the 8x densified weights and their gradient, summed on the matrix unit with
 // selection matrices, staged a 2-row halo to recompute z and dz per row block
 // and carried dW, dbias and dattw across its ordered grid. Here everything
-// stays in K1's per-group form: a block's 64 columns are the 8 candidates of
-// 8 channels of one group and a thread's 8 accumulator columns one channel's
-// candidates, so o, do and the datt terms are register sums. Neither z nor dz
-// (both (B, H, W, C * G)) is ever written: the first launch recomputes z and
-// writes only do, a tensor of the output's size, and the other two rebuild
-// dz = do * att * attw as they stage it (one multiply per element), the
-// weight gradient as its pixel-major operand and the input gradient as the
-// input of K1's product with flipped, transposed per-group weights. dW,
-// dbias, datt and dattw are float32 atomics into zeroed buffers, in an order
-// that changes from run to run.
-// Bound: the fp32 FMA rate, at three times K1's operations. The input
-// gradient of a group has only C / G columns: below C = 512 its 64-column
-// tile is partly idle (C = 64: 8 of 64 columns live).
-#include "igemm.cuh"
+// stays in K1's per-group form and runs on the producer/consumer core of the
+// forward convolutions (igemm_pc.cuh). Neither z nor dz (both (B, H, W,
+// C * G)) is ever written:
+//   1. akgm_do_kernel recomputes z with the per-group product and writes do,
+//      a tensor of the output's size, and A = att * attw, (B, H, W, G). A
+//      consumer thread's 8 columns are two groups of 4 half a tile apart
+//      (igemm_pc.cuh); the wrapper permutes the weights' and the bias's
+//      columns within each tile so that they are one channel's candidates
+//      0..7, and o, do and the datt terms stay register sums. The terms
+//      q[p][j] = sum_c do[c] z[c * G + j] of a row of threads are added with
+//      a butterfly of warp shuffles that halves the values a lane holds at
+//      every step. A block walks all column tiles of its pixels, so it ends
+//      with the whole sum and stores datt once, in a fixed order, with no
+//      atomics (a block per column tile added 64 float atomics per pixel at
+//      C = 64). dattw adds one float atomic per block and candidate.
+//   2. the weight gradient, wgrad_pc_kernel with the group's channels of
+//      h * a + t as A and dz rebuilt as D (do[c] times 16 bytes of A), the
+//      pixels cut into chunks whose partial tiles wgrad_reduce_kernel adds
+//      in a fixed order: dW and dbias have the same bits from run to run.
+//   3. akgm_dh_kernel, the input gradient: per group K2's product on dz,
+//      rebuilt as it is staged, with the flipped, transposed per-group
+//      weights, on a tile as wide as the group's C / G output columns (8,
+//      16, 32 or 64), so that no column of the tile idles.
+// Bound: the fp32 FMA rate, at three times K1's operations.
+#include "igemm_pc.cuh"
 
 namespace {
 
-using ucdir::BM;
-using ucdir::BN;
-using ucdir::NT;
-using ucdir::TM;
-using ucdir::TN;
+namespace pc = ucdir::pc;
+constexpr int G = 8;  // candidates per channel
 
-constexpr int G = 8;  // candidates per channel; equals TN by construction
-static_assert(G == TN, "one thread holds one channel's candidates");
-static_assert(ucdir::BK * (BM + ucdir::APAD) >= BM * G,
-              "the A stage doubles as the (pixel, candidate) scratch");
+struct DoArgs {
+  const float* h;     // (B, H, W, C)
+  const float* go;    // (B, H, W, C)
+  const float* att;   // (B, H, W, G)
+  const float* attw;  // (B, G) or null
+  const float* w;     // (9 * C / G, C * G), columns permuted in each tile
+  const float* bias;  // (C * G), permuted alike
+  const float* a;     // (B, C) or null
+  const float* t;
+  float* dout;        // (B, H, W, C) do
+  float* aa;          // (B, H, W, G) att * attw, written when attw
+  float* datt;        // (B, H, W, G), written whole
+  float* dattw;       // zeroed (B, G) or null
+  ucdir::Geom g;      // g.C = C, g.cin = C / G
+  int ntn;            // column tiles of C * G, all walked by each block
+  bool vec_a;
+};
 
-// do = go * swish'(o), datt and dattw; z recomputed in registers
-__global__ void __launch_bounds__(NT)
-    akgm_bwd_do_kernel(const float* __restrict__ h,
-                       const float* __restrict__ go,
-                       const float* __restrict__ att,
-                       const float* __restrict__ attw,
-                       const float* __restrict__ w,
-                       const float* __restrict__ bias,
-                       const float* __restrict__ a, const float* __restrict__ t,
-                       float* __restrict__ dout, float* __restrict__ datt,
-                       float* __restrict__ dattw, ucdir::Geom g) {
-  __shared__ __align__(16) ucdir::Smem sm;
-  float acc[TM][TN];
-  const int C = g.C;
-  const int b = blockIdx.z;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int group = n0 / C;
-  ucdir::igemm(acc, sm, h, a, t, w, C * G, C * G, g, b, group * g.cin, m0, n0);
+// Adds CNT values over the M lanes of a row of consumer threads (M a power of
+// two, the lanes' low bits): every step a lane keeps half of its values and
+// adds the partner's copy of them, so each lane ends with CNT / M sums, those
+// of the indices from butterfly_offset().
+template <int CNT, int M>
+__device__ __forceinline__ void butterfly(float* v, int lane) {
+  if constexpr (M > 1) {
+    constexpr int H = CNT / 2;
+    const bool up = (lane & (M / 2)) != 0;
+#pragma unroll
+    for (int e = 0; e < H; ++e) {
+      const float send = up ? v[e] : v[e + H];
+      const float keep = up ? v[e + H] : v[e];
+      v[e] = keep + pc::shfl_xor(send, M / 2);
+    }
+    butterfly<H, M / 2>(v, lane);
+  }
+}
 
-  const int tid = threadIdx.x;
-  const int tm = tid / (BN / TN);
-  const int tn = tid % (BN / TN);
-  const int c = (n0 + tn * TN) / G;
-  const int P = g.Ho * g.Wo;
-  // q[pixel][j] = sum over this block's 8 channels of do[c] * z[c * G + j]
-  float* q = &sm.As[0][0];
-  for (int i = tid; i < BM * G; i += NT) q[i] = 0.f;
-  if (tid < G) sm.red[tid] = 0.f;
+template <int CNT, int M>
+__device__ __forceinline__ int butterfly_offset(int lane) {
+  int off = 0, h = CNT;
+#pragma unroll
+  for (int m = M / 2; m >= 1; m >>= 1) {
+    h >>= 1;
+    if (lane & m) off += h;
+  }
+  return off;
+}
+
+// The consumers' epilogue of one column tile of akgm_do_kernel: a thread's
+// TM rows of its channel's 8 candidates; adds the tile's datt terms of the
+// lane's row and candidates (see butterfly) to qs. The terms take the
+// accumulators' registers.
+template <class T>
+__device__ __forceinline__ void do_epilogue(float (&acc)[T::TM][T::TN],
+                                            const DoArgs& c, int b, int m0,
+                                            int n0, float* qs) {
+  static_assert(T::TN == G && T::GW == 4 && T::NG == 2, "a channel a thread");
+  constexpr int NV = T::TM * G;
+  const int tn = threadIdx.x % T::NCX;
+  const int tm = threadIdx.x / T::NCX;
+  const int C = c.g.C;
+  const int P = c.g.H * c.g.W;
+  const int ch = n0 / G + tn;
   float bj[G], awj[G];
 #pragma unroll
   for (int j = 0; j < G; ++j) {
-    bj[j] = bias[c * G + j];
-    awj[j] = attw ? attw[b * G + j] : 1.f;
+    bj[j] = c.bias[n0 + pc::tile_col<T>(tn, j)];
+    awj[j] = c.attw ? c.attw[b * G + j] : 1.f;
   }
-  __syncthreads();
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int p = m0 + tm * TM + i;
-    if (p >= P) continue;
+  for (int i = 0; i < T::TM; ++i) {
+    const int p = m0 + pc::tile_row<T>(tm, i);
+    if (p >= P) {
+#pragma unroll
+      for (int j = 0; j < G; ++j) acc[i][j] = 0.f;
+      continue;
+    }
     const int64_t pix = (int64_t)b * P + p;
-    const float* ap = att + pix * G;
-    float z[G];
+    const float4 a0 = __ldg(reinterpret_cast<const float4*>(c.att + pix * G));
+    const float4 a1 =
+        __ldg(reinterpret_cast<const float4*>(c.att + pix * G + 4));
+    const float at[G] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    float A[G], z[G];
     float o = 0.f;
 #pragma unroll
     for (int j = 0; j < G; ++j) {
+      A[j] = at[j] * awj[j];
       z[j] = acc[i][j] + bj[j];
-      o += z[j] * (ap[j] * awj[j]);
+      o += z[j] * A[j];
     }
-    const float d = go[pix * C + c] * ucdir::dswishf(o);
-    dout[pix * C + c] = d;
+    const float d = __ldg(c.go + pix * C + ch) * ucdir::dswishf(o);
+    c.dout[pix * C + ch] = d;
 #pragma unroll
-    for (int j = 0; j < G; ++j) atomicAdd(&q[(tm * TM + i) * G + j], d * z[j]);
-  }
-  __syncthreads();
-  const int p = m0 + tid;  // one thread per pixel of the tile (NT == BM)
-  if (p < P) {
-    const int64_t pix = (int64_t)b * P + p;
-#pragma unroll
-    for (int j = 0; j < G; ++j) {
-      const float v = q[tid * G + j];
-      atomicAdd(&datt[pix * G + j], v * (attw ? attw[b * G + j] : 1.f));
-      if (dattw) atomicAdd(&sm.red[j], v * att[pix * G + j]);
+    for (int j = 0; j < G; ++j) acc[i][j] = d * z[j];
+    if (c.attw != nullptr && n0 == 0 && tn == 0) {
+      float4* ap = reinterpret_cast<float4*>(c.aa + pix * G);
+      ap[0] = make_float4(A[0], A[1], A[2], A[3]);
+      ap[1] = make_float4(A[4], A[5], A[6], A[7]);
     }
   }
-  if (dattw == nullptr) return;
-  __syncthreads();
-  if (tid < G) atomicAdd(&dattw[b * G + tid], sm.red[tid]);
+  float* q = &acc[0][0];  // q[i * G + j]
+  butterfly<NV, T::NCX>(q, threadIdx.x & 31);
+#pragma unroll
+  for (int e = 0; e < NV / T::NCX; ++e) qs[e] += q[e];
 }
 
-// dz[c * G + j] = do[c] * att[j] * attw[j] of one image, rebuilt on the fly
-struct DzLoader {
-  const float* dob;   // image b's (H, W, C) do
-  const float* attb;  // image b's (H, W, G) att
-  const float* awb;   // image b's (G) attw or null
-  int W, C, n_first;  // n_first: the first dz column of this group
-  struct Col {
-    int c, j;
-    float aw;
-  };
-  __device__ __forceinline__ Col col(int nl) const {
-    Col s;
-    s.c = (n_first + nl) / G;
-    s.j = (n_first + nl) % G;
-    s.aw = awb ? awb[s.j] : 1.f;
-    return s;
+// do, A and the datt terms of one BM-pixel tile: the block walks every
+// column tile of z (all groups), so that it holds the whole sum over
+// channels of its pixels' datt terms, which it stores once (no atomics: datt
+// has the same bits from run to run). dattw adds one float atomic per block
+// and candidate.
+template <class T>
+__global__ void __launch_bounds__(T::NT) akgm_do_kernel(DoArgs c) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int b = blockIdx.z;
+  const int m0 = blockIdx.x * T::BM;
+  const int C = c.g.C;
+  const int nk = pc::igemm_setup<T>(smem, c.g, m0);
+  if (threadIdx.x >= T::NC) {
+    for (int nt = 0; nt < c.ntn; ++nt) {
+      const int n0 = nt * T::BN;
+      const int cin0 = (n0 / C) * c.g.cin;
+      pc::Operands op;
+      op.xb = c.h + (int64_t)b * c.g.H * c.g.W * C + cin0;
+      op.ab = c.a ? c.a + (int64_t)b * C + cin0 : nullptr;
+      op.tb = c.t ? c.t + (int64_t)b * C + cin0 : nullptr;
+      op.att = nullptr;
+      op.w = c.w;
+      op.ncols = C * G;
+      op.vec_a = c.vec_a;
+      op.vec_w = true;
+      pc::produce<T, pc::Affine>(smem, op, c.g, n0, nk);
+    }
+  } else {
+    constexpr int CNT = T::TM * G / T::NCX;  // sums a lane ends with
+    static_assert(CNT <= G && G % CNT == 0, "a lane's sums share a row");
+    float qs[CNT];
+#pragma unroll
+    for (int e = 0; e < CNT; ++e) qs[e] = 0.f;
+    for (int nt = 0; nt < c.ntn; ++nt) {
+      float acc[T::TM][T::TN];
+      pc::consume<T>(acc, smem, nk);
+      do_epilogue<T>(acc, c, b, m0, nt * T::BN, qs);
+    }
+    const int lane = threadIdx.x & 31;
+    const int off = butterfly_offset<T::TM * G, T::NCX>(lane);
+    const int P = c.g.H * c.g.W;
+    const int p = m0 + pc::tile_row<T>(threadIdx.x / T::NCX, off / G);
+    const int j0 = off % G;
+    if (p < P) {
+      const int64_t pix = (int64_t)b * P + p;
+#pragma unroll
+      for (int e = 0; e < CNT; ++e) {
+        const int j = j0 + e;
+        const float aw = c.attw ? __ldg(c.attw + b * G + j) : 1.f;
+        c.datt[pix * G + j] = qs[e] * aw;
+        if (c.dattw)
+          atomicAdd(smem + T::RED + j, qs[e] * __ldg(c.att + pix * G + j));
+      }
+    }
   }
-  __device__ __forceinline__ float at(const Col& s, int iy, int ix) const {
-    const int64_t pix = (int64_t)iy * W + ix;
-    return dob[pix * C + s.c] * attb[pix * G + s.j] * s.aw;
-  }
-  // pixel-major access for the weight gradient: column n of all C * G
-  __device__ __forceinline__ float at(int p, int n) const {
-    const int j = n % G;
-    return dob[(int64_t)p * C + n / G] * attb[(int64_t)p * G + j] *
-           (awb ? awb[j] : 1.f);
-  }
+  if (c.dattw == nullptr) return;
+  pc::block_sync<T::NT>();
+  if (threadIdx.x < G) atomicAdd(c.dattw + b * G + threadIdx.x,
+                                 smem[T::RED + threadIdx.x]);
+}
+
+struct DhArgs {
+  const float* dout;  // (B, H, W, C) do
+  const float* aa;    // (B, H, W, G) att * attw
+  const float* wf;    // (G, 9 * C, C / G)
+  float* dhh;         // (B, H, W, C)
+  ucdir::Geom g;      // g.C = C, g.cin = C (a group's dz columns), g.K = 9 C
+  int ntn;
 };
 
-__device__ __forceinline__ DzLoader dz_loader(const float* dout,
-                                              const float* att,
-                                              const float* attw,
-                                              const ucdir::Geom& g, int C,
-                                              int b, int n_first) {
-  const int64_t P = (int64_t)g.H * g.W;
-  DzLoader dl;
-  dl.dob = dout + b * P * C;
-  dl.attb = att + b * P * G;
-  dl.awb = attw ? attw + b * G : nullptr;
-  dl.W = g.W;
-  dl.C = C;
-  dl.n_first = n_first;
-  return dl;
-}
-
-// dW += im2col(h * a + t)^T @ dz per group, dbias += sum dz, one pixel chunk
-__global__ void __launch_bounds__(NT)
-    akgm_bwd_dw_kernel(const float* __restrict__ h,
-                       const float* __restrict__ dout,
-                       const float* __restrict__ att,
-                       const float* __restrict__ attw,
-                       const float* __restrict__ a, const float* __restrict__ t,
-                       float* __restrict__ dw, float* __restrict__ dbias,
-                       ucdir::Geom g, int splits, int chunk) {
-  __shared__ __align__(16) ucdir::Smem sm;
-  float acc[TM][TN];
-  float bsum;
-  const int C = g.C;
-  const int b = blockIdx.x / splits;
-  const int P = g.H * g.W;
-  const int p0 = (blockIdx.x % splits) * chunk;
-  const int p1 = min(p0 + chunk, P);
-  const int n0 = blockIdx.y * BN;
-  const int m0 = blockIdx.z * BM;
-  const int group = n0 / C;
-  ucdir::wgrad_core(acc, bsum, sm,
-                    ucdir::affine_loader(h, a, t, g, b, group * g.cin),
-                    dz_loader(dout, att, attw, g, C, b, 0), C * G, g, p0, p1,
-                    m0, n0);
-  ucdir::wgrad_store(acc, dw, C * G, g.K, C * G, m0, n0, 0);
-  if (blockIdx.z == 0 && threadIdx.x < BN)
-    atomicAdd(&dbias[n0 + threadIdx.x], bsum);
-}
-
-// dhh = transposed grouped conv of dz: per group, K1's product on dz with
-// the flipped, transposed weights wf (G, 9 * C, C / G)
-__global__ void __launch_bounds__(NT)
-    akgm_bwd_dh_kernel(const float* __restrict__ dout,
-                       const float* __restrict__ att,
-                       const float* __restrict__ attw,
-                       const float* __restrict__ wf, float* __restrict__ dhh,
-                       ucdir::Geom g, int C, int ctiles) {
-  __shared__ __align__(16) ucdir::Smem sm;
-  float acc[TM][TN];
-  const int cg = C / G;
+// dhh of one group: the group's dz (C columns) convolved with its flipped,
+// transposed weights (9 * C, C / G); blockIdx.y is the group
+template <class T>
+__global__ void __launch_bounds__(T::NT) akgm_dh_kernel(DhArgs c) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
   const int b = blockIdx.z;
-  const int m0 = blockIdx.x * BM;
-  const int group = blockIdx.y / ctiles;
-  const int n0 = (blockIdx.y % ctiles) * BN;
-  ucdir::igemm_core(acc, sm, dz_loader(dout, att, attw, g, C, b, group * C),
-                    wf + (int64_t)group * g.K * cg, cg, cg, g, m0, n0);
-  const int tm = threadIdx.x / (BN / TN);
-  const int tn = threadIdx.x % (BN / TN);
-  const int P = g.Ho * g.Wo;
+  const int group = blockIdx.y;
+  const int mt = blockIdx.x / c.ntn;
+  const int m0 = mt * T::BM;
+  const int n0 = (blockIdx.x - mt * c.ntn) * T::BN;
+  const int C = c.g.C;
+  const int cg = C / G;
+  const int64_t P = (int64_t)c.g.H * c.g.W;
+  pc::Operands op;
+  op.xb = c.dout + b * P * C + group * cg;
+  op.ab = op.tb = nullptr;
+  op.att = c.aa + b * P * G;
+  op.w = c.wf + (int64_t)group * c.g.K * cg;
+  op.ncols = cg;
+  op.vec_a = true;
+  op.vec_w = true;
+  const int nk = pc::igemm_setup<T>(smem, c.g, m0);
+  if (threadIdx.x >= T::NC) {
+    pc::produce<T, pc::Dz>(smem, op, c.g, n0, nk);
+    return;
+  }
+  float acc[T::TM][T::TN];
+  pc::consume<T>(acc, smem, nk);
+  const int tn = threadIdx.x % T::NCX;
+  const int tm = threadIdx.x / T::NCX;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int p = m0 + tm * TM + i;
+  for (int i = 0; i < T::TM; ++i) {
+    const int p = m0 + pc::tile_row<T>(tm, i);
     if (p >= P) continue;
-    float* row = dhh + ((int64_t)b * P + p) * C + group * cg;
+    float* row = c.dhh + (b * P + p) * C + group * cg;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tn * TN + j;
-      if (n < cg) row[n] = acc[i][j];
+    for (int g = 0; g < T::NG; ++g) {
+      const int n = n0 + pc::tile_col<T>(tn, T::GW * g);
+      const float* v = &acc[i][T::GW * g];
+      if constexpr (T::GW == 4) {
+        if (n + 4 <= cg)
+          *reinterpret_cast<float4*>(row + n) =
+              make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+        if (n + 2 <= cg)
+          *reinterpret_cast<float2*>(row + n) = make_float2(v[0], v[1]);
+      }
     }
   }
+}
+
+template <class T>
+int launch_do(DoArgs c, int B, cudaStream_t st) {
+  const int P = c.g.H * c.g.W;
+  c.ntn = c.g.C * G / T::BN;
+  akgm_do_kernel<T><<<dim3((P + T::BM - 1) / T::BM, 1, B), T::NT,
+                      T::SMEM_BYTES, st>>>(c);
+  return (int)cudaGetLastError();
+}
+
+template <class T>
+int launch_dh(DhArgs c, int B, cudaStream_t st) {
+  const int P = c.g.H * c.g.W;
+  const int cg = c.g.C / G;
+  c.ntn = (cg + T::BN - 1) / T::BN;
+  akgm_dh_kernel<T><<<dim3(((P + T::BM - 1) / T::BM) * c.ntn, G, B), T::NT,
+                      T::SMEM_BYTES, st>>>(c);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // h, go, dout, dhh (B, H, W, C) NHWC; att, datt (B, H, W, 8); attw, dattw
-// (B, 8) or both null; w, dw (9 * C/8, 8 * C) as in ucdir_akgm_tail; wf
-// (8, 9 * C, C/8) with wf[g][tap * C + nl][ci] = w[(8 - tap) * C/8 + ci]
-// [g * C + nl]; bias, dbias (8 * C); a, t (B, C) or null. dout is scratch;
-// datt, dw, dbias and dattw must be zeroed. C must be a multiple of 64.
-// Returns the first launch error as a cudaError_t.
+// (B, 8) or both null; w (9 * C/8, 8 * C) as in ucdir_akgm_tail and bias
+// (8 * C), both with the columns of every tile of 128 (C >= 128) or 64
+// (C = 64) permuted so that physical column h * BN / 2 + 4 * i + r holds
+// logical column 8 * i + 4 * h + r; wf (8, 9 * C, C/8) with wf[g][tap * C +
+// nl][ci] = w[(8 - tap) * C/8 + ci][g * C + nl] (unpermuted); a, t (B, C) or
+// null. dout is scratch, aa a (B, H, W, 8) scratch used with attw; dattw
+// must be zeroed; datt, dw (9 * C/8, 8 * C) and dbias (8 * C), unpermuted,
+// are written whole; ws is a (splits, 9 * C/8 + 1, 8 * C) workspace. C must
+// be a multiple of 64. Returns the first launch error as a cudaError_t.
 extern "C" int ucdir_akgm_tail_bwd(const float* h, const float* go,
                                    const float* att, const float* attw,
                                    const float* w, const float* wf,
                                    const float* bias, const float* a,
-                                   const float* t, float* dout, float* dhh,
-                                   float* datt, float* dw, float* dbias,
-                                   float* dattw, int B, int H, int W, int C,
+                                   const float* t, float* dout, float* aa,
+                                   float* dhh, float* datt, float* dw,
+                                   float* dbias, float* dattw, float* ws,
+                                   int B, int H, int W, int C, int splits,
                                    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int P = H * W;
   const int cg = C / G;
   ucdir::Geom g;
   g.H = H;
@@ -251,21 +329,52 @@ extern "C" int ucdir_akgm_tail_bwd(const float* h, const float* go,
   g.stride = 1;
   g.cin = cg;
   g.K = 9 * cg;
-  const int ptiles = (P + BM - 1) / BM;
-  const int ntiles = (C * G) / BN;
-  akgm_bwd_do_kernel<<<dim3(ptiles, ntiles, B), NT, 0, st>>>(
-      h, go, att, attw, w, bias, a, t, dout, datt, dattw, g);
-  const int mtiles = (g.K + BM - 1) / BM;
-  const int splits = ucdir::wgrad_splits(mtiles * ntiles, B, P);
-  int chunk = (P + splits - 1) / splits;
-  chunk = (chunk + ucdir::BK - 1) / ucdir::BK * ucdir::BK;
-  akgm_bwd_dw_kernel<<<dim3(B * splits, ntiles, mtiles), NT, 0, st>>>(
-      h, dout, att, attw, a, t, dw, dbias, g, splits, chunk);
-  ucdir::Geom gt = g;  // a group's transposed conv: C dz columns per tap
-  gt.cin = C;
-  gt.K = 9 * C;
-  const int ctiles = (cg + BN - 1) / BN;
-  akgm_bwd_dh_kernel<<<dim3(ptiles, G * ctiles, B), NT, 0, st>>>(
-      dout, att, attw, wf, dhh, gt, C, ctiles);
-  return (int)cudaGetLastError();
+  DoArgs d = {};
+  d.h = h;
+  d.go = go;
+  d.att = att;
+  d.attw = attw;
+  d.w = w;
+  d.bias = bias;
+  d.a = a;
+  d.t = t;
+  d.dout = dout;
+  d.aa = aa;
+  d.datt = datt;
+  d.dattw = dattw;
+  d.g = g;
+  d.vec_a = pc::aligned(h, 16) &&
+            (a == nullptr || (pc::aligned(a, 16) && pc::aligned(t, 16)));
+  int err = C >= 128 ? launch_do<pc::Wide>(d, B, st)
+                     : launch_do<pc::Mid>(d, B, st);
+  if (err) return err;
+  const float* A = attw ? aa : att;
+  pc::WgradArgs wa = {};
+  wa.x = h;
+  wa.a = a;
+  wa.t = t;
+  wa.d = dout;
+  wa.att = A;
+  wa.ws = ws;
+  wa.g = g;
+  wa.N = C * G;
+  wa.gw = C;
+  wa.npix = B * H * W;
+  wa.vec_d = true;
+  err = pc::launch_wgrad<pc::DzD>(wa, splits, dw, dbias, st);
+  if (err) return err;
+  DhArgs dh = {};
+  dh.dout = dout;
+  dh.aa = A;
+  dh.wf = wf;
+  dh.dhh = dhh;
+  dh.g = g;  // a group's transposed conv: C dz columns per tap
+  dh.g.cin = C;
+  dh.g.K = 9 * C;
+  switch (cg) {
+    case 8: return launch_dh<pc::Narrow>(dh, B, st);
+    case 16: return launch_dh<pc::N16>(dh, B, st);
+    case 32: return launch_dh<pc::N32>(dh, B, st);
+    default: return launch_dh<pc::Mid>(dh, B, st);
+  }
 }

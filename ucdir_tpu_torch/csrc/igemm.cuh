@@ -1,5 +1,6 @@
-// Implicit-GEMM core of the AKGM kernels and the backward convolution (fp32,
-// CUDA cores). The forward convolutions K2, K3 and K7 run on igemm_pc.cuh.
+// Implicit-GEMM core of the AKGM forward kernels K1, K8 and K9 (fp32, CUDA
+// cores). The convolutions K2, K3 and K7 and the backward kernels K5 and K6
+// run on igemm_pc.cuh.
 //
 // A convolution is the product A (P x K) * Wt (K x N): row p of A is output
 // pixel p's receptive field, column k = tap * cin + ci of it is input channel
@@ -16,13 +17,6 @@
 // about 20 (67 TFLOP/s over 3.35 TB/s), so fp32 FMA issue bounds them; the
 // register tile gives 8 + 8 shared-memory loads per 64 FMAs. Tensor cores
 // (wgmma, bf16) and asynchronous staging are later work.
-//
-// The backward kernels use the same tile twice more: igemm_core with another
-// A loader is the input gradient (a convolution of the output gradient with
-// the flipped, transposed weights), and wgrad_core is the weight gradient,
-// A^T (K x P) * D (P x N), whose reduction runs over pixels: blocks take one
-// image's pixel chunk each and add their tile into the zeroed gradient with
-// float32 atomics, in an order that changes from run to run.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -225,140 +219,6 @@ __device__ __forceinline__ void igemm(float (&acc)[TM][TN], Smem& sm,
                                       int cin0, int m0, int n0) {
   igemm_core(acc, sm, affine_loader(x, a, t, g, b, cin0), w, ldw, ncols, g,
              m0, n0);
-}
-
-// The weight-gradient product of one image's pixels [p0, p1):
-//   acc[i][j] += sum_p A[p][m0 + tm * TM + i] * D[p][n0 + tn * TN + j],
-// A the same matrix as in igemm_core (row p, column k = tap * g.cin + ci,
-// stride 1) and D[p][n] = dl.at(p, n), 0 at n >= ncols. bsum accumulates
-// this thread's column of D (threads below BN; the caller adds it where the
-// bias gradient is wanted). Needs g.Ho == g.H and g.Wo == g.W.
-template <class ALoader, class DLoader>
-__device__ __forceinline__ void wgrad_core(float (&acc)[TM][TN], float& bsum,
-                                           Smem& sm, const ALoader& al,
-                                           const DLoader& dl, int ncols,
-                                           const Geom& g, int p0, int p1,
-                                           int m0, int n0) {
-  const int tid = threadIdx.x;
-  const int k = m0 + tid;             // A staging: this thread's k row
-  const bool kv = k < g.K;
-  const int tap = kv ? k / g.cin : 0;
-  const int ci = kv ? k - tap * g.cin : 0;
-  const int ty = tap / 3 - 1;
-  const int tx = tap % 3 - 1;
-  const typename ALoader::Col cs = al.col(ci);
-  const int b_n = tid % BN;
-  const int b_k = tid / BN;
-  const int tm = tid / (BN / TN);
-  const int tn = tid % (BN / TN);
-  const bool nv = n0 + b_n < ncols;
-  zero_acc(acc);
-  bsum = 0.f;
-  static_assert(NT == BM, "one thread stages one k row");
-  for (int pb = p0; pb < p1; pb += BK) {
-    if (tid < BK) {
-      const int p = pb + tid;
-      const int oy = p / g.W;
-      sm.iy0[tid] = p < p1 ? oy : OUTSIDE;
-      sm.ix0[tid] = p < p1 ? p - oy * g.W : OUTSIDE;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      const int iy = sm.iy0[kk] + ty;
-      const int ix = sm.ix0[kk] + tx;
-      float v = 0.f;
-      if (kv && iy >= 0 && iy < g.H && ix >= 0 && ix < g.W)
-        v = al.at(cs, iy, ix);
-      sm.As[kk][tid] = v;
-    }
-    for (int kk = b_k; kk < BK; kk += NT / BN) {
-      const int p = pb + kk;
-      sm.Bs[kk][b_n] = (nv && p < p1) ? dl.at(p, n0 + b_n) : 0.f;
-    }
-    __syncthreads();
-    if (tid < BN) {
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) bsum += sm.Bs[kk][tid];
-    }
-    mma_stage(acc, sm, tm, tn);
-    __syncthreads();
-  }
-}
-
-// Adds a wgrad_core tile into the zeroed (K, ldw) gradient dw.
-__device__ __forceinline__ void wgrad_store(const float (&acc)[TM][TN],
-                                            float* __restrict__ dw, int ldw,
-                                            int K, int ncols, int m0, int n0,
-                                            int ncol0) {
-  const int tm = threadIdx.x / (BN / TN);
-  const int tn = threadIdx.x % (BN / TN);
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int k = m0 + tm * TM + i;
-    if (k >= K) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tn * TN + j;
-      if (n < ncols) atomicAdd(&dw[(int64_t)k * ldw + ncol0 + n], acc[i][j]);
-    }
-  }
-}
-
-// Pixel chunks per image for the weight-gradient kernels: enough blocks to
-// fill the card, as few atomics as that allows.
-inline int wgrad_splits(int tiles, int B, int P) {
-  int s = (2048 + tiles * B - 1) / (tiles * B);
-  const int most = (P + 4 * BK - 1) / (4 * BK);
-  if (s > most) s = most;
-  return s < 1 ? 1 : s;
-}
-
-// Plain convolution epilogue: + bias (null: none), optional swish, store, and the
-// per-(b, column) sum and sum of squares of the stored values (atomics into
-// zeroed (B, N) buffers; null when not asked for).
-__device__ __forceinline__ void conv_epilogue(
-    const float (&acc)[TM][TN], Smem& sm, const float* __restrict__ bias,
-    float* __restrict__ out, float* __restrict__ ssum, float* __restrict__ ssq,
-    int act, int P, int N, int b, int m0, int n0) {
-  const int tid = threadIdx.x;
-  const int tm = tid / (BN / TN);
-  const int tn = tid % (BN / TN);
-  float s[TN], q[TN], bj[TN];
-#pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    const int n = n0 + tn * TN + j;
-    s[j] = 0.f;
-    q[j] = 0.f;
-    bj[j] = (bias != nullptr && n < N) ? bias[n] : 0.f;
-  }
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int p = m0 + tm * TM + i;
-    if (p >= P) continue;
-    float* orow = out + ((int64_t)b * P + p) * N;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tn * TN + j;
-      if (n >= N) continue;
-      float v = acc[i][j] + bj[j];
-      if (act) v = swishf(v);
-      orow[n] = v;
-      s[j] += v;
-      q[j] += v * v;
-    }
-  }
-  if (ssum == nullptr) return;
-#pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    atomicAdd(&sm.red[tn * TN + j], s[j]);
-    atomicAdd(&sm.red[BN + tn * TN + j], q[j]);
-  }
-  __syncthreads();
-  if (tid < BN && n0 + tid < N) {
-    atomicAdd(&ssum[(int64_t)b * N + n0 + tid], sm.red[tid]);
-    atomicAdd(&ssq[(int64_t)b * N + n0 + tid], sm.red[BN + tid]);
-  }
 }
 
 }  // namespace ucdir

@@ -1,5 +1,10 @@
-// Implicit-GEMM core of the forward convolutions K2, K3 and K7 for an H100
-// (sm_90a): fp32 in and out, fp32 FMA, producer and consumer warps.
+// Implicit-GEMM core of the convolutions K2, K3 and K7 and of the backward
+// kernels K5 and K6 for an H100 (sm_90a): fp32 in and out, fp32 FMA,
+// producer and consumer warps. The backward uses it three ways: the forward
+// product with another epilogue (K6's dz, K5's do), the forward product on a
+// rebuilt or raw cotangent with flipped, transposed weights (the input
+// gradients), and the weight gradient at the end of this file, whose tile
+// runs over k rows and whose reduction runs over pixels.
 //
 // The product is igemm.cuh's: A (P x K) * Wt (K x N), row p of A output pixel
 // p's receptive field, column k = tap * cin + ci, the per-(batch, channel)
@@ -101,16 +106,29 @@ struct Tile {
 using Wide = Tile<128, 128, 8, 8, 16, 4>;
 using Mid = Tile<256, 64, 8, 8, 16, 8>;
 using Narrow = Tile<128, 8, 4, 2, 16, 8>;
+// 64 x 64 and 96 x 64 for a weight gradient of K <= 64 rows (K6's 6 -> 64
+// input conv) and of K <= 96 (K5 at C = 64), 64 or 96 consumer threads and
+// 2 or 3 producer warps, several blocks an SM.
+using Short = Tile<64, 64, 8, 8, 16, 2>;
+using Low = Tile<96, 64, 8, 8, 16, 3>;
+// 16 and 32 columns (the AKGM backward's input gradient at C = 128 and 256:
+// C / 8 columns a group), 128 consumer threads of 8 x 4 or 8 x 8 outputs on
+// a tall tile, and 8 producer warps: the staged operand is rebuilt from two
+// tensors there.
+using N16 = Tile<256, 16, 8, 4, 16, 8>;
+using N32 = Tile<256, 32, 8, 8, 16, 8>;
 
 // What the staging does to a loaded value: x * a + t, or swish of it (the
 // border stays 0 = swish(0)).
 struct Affine {
+  static constexpr bool kDz = false;
   static constexpr bool kAffine = true;
   static __device__ __forceinline__ float apply(float v, float a, float t) {
     return fmaf(v, a, t);
   }
 };
 struct Preact {
+  static constexpr bool kDz = false;
   static constexpr bool kAffine = true;
   static __device__ __forceinline__ float apply(float v, float a, float t) {
     return swishf(fmaf(v, a, t));
@@ -118,10 +136,23 @@ struct Preact {
 };
 
 struct Raw {
+  static constexpr bool kDz = false;
   static constexpr bool kAffine = false;
   static __device__ __forceinline__ float apply(float v, float, float) {
     return v;
   }
+};
+// The backward's input gradient: Raw's staging, an instance of its own so
+// that a trace tells it from K3.
+struct Dgrad : Raw {};
+
+// The AKGM backward's input gradient stages dz = do[c] * att[j] (att times
+// attw) of the pixel, rebuilt from the two tensors: x is do (C channels a
+// pixel) from the group's first channel, and k = tap * cin + nl reads column
+// nl of the group's cin = C dz columns: channel nl / 8, candidate nl % 8.
+struct Dz {
+  static constexpr bool kDz = true;
+  static constexpr bool kAffine = false;
 };
 
 // ---- PTX primitives
@@ -143,6 +174,7 @@ template <class T>
 struct Staged {
   float a[T::AI][4];   // raw inputs, 4 consecutive k of one pixel each
   float sa[4], st[4];  // the affine of those k columns
+  float dv[T::AI];     // Dz: do of each row's pixel
   uint32_t mask;       // bit 4 * i + j: a[i][j] is inside the image and K
   float b[T::BI][2][4];  // 4 consecutive columns of two rows of Wt each
 };
@@ -157,11 +189,41 @@ struct Operands {
   const float* xb;  // image b's (H, W, C) input
   const float* ab;  // image b's (C) scale or null
   const float* tb;  // image b's (C) shift or null
+  const float* att; // Dz: image b's (H, W, 8) attention times attw
   const float* w;   // (K, ncols) weights
   int ncols;
   bool vec_a;       // cin % 4 == 0 and xb, ab, tb 16-byte aligned
   bool vec_w;       // ncols % 4 == 0 and w 16-byte aligned
 };
+
+// The Wt half of a slice: rows k0 .. k0 + BK - 1, columns n0 .. n0 + BN - 1.
+template <class T>
+__device__ __forceinline__ void load_w_slice(Staged<T>& s, const Operands& op,
+                                             const Geom& g, int k0, int n0) {
+  const int tid = threadIdx.x - T::NC;  // among the producers
+#pragma unroll
+  for (int i = 0; i < T::BI; ++i) {
+    const int u = tid + i * T::NP;
+    const int n = n0 + 4 * (u % T::CG);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int k = k0 + 2 * (u / T::CG) + r;
+      const float* wr = op.w + (int64_t)k * op.ncols + n;
+      const bool row = (T::BU % T::NP == 0 || u < T::BU) && k < g.K;
+      if (op.vec_w) {
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (row && n < op.ncols)
+          v = __ldg(reinterpret_cast<const float4*>(wr));
+        s.b[i][r][0] = v.x; s.b[i][r][1] = v.y;
+        s.b[i][r][2] = v.z; s.b[i][r][3] = v.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          s.b[i][r][j] = (row && n + j < op.ncols) ? wr[j] : 0.f;
+      }
+    }
+  }
+}
 
 template <class T, class X>
 __device__ __forceinline__ void load_slice(Staged<T>& s, KColumn& kc,
@@ -172,7 +234,33 @@ __device__ __forceinline__ void load_slice(Staged<T>& s, KColumn& kc,
   const int am = tid / T::KG;
   const int ntaps = g.ks * g.ks;
   s.mask = 0u;
-  if (op.vec_a) {
+  if constexpr (X::kDz) {  // g.cin % 8 == 0: four candidates of a channel
+    const bool valid = kc.tap < ntaps;
+    const int ty = kc.tap / 3;
+    const int tx = kc.tap - ty * 3;
+#pragma unroll
+    for (int i = 0; i < T::AI; ++i) {
+      const int m = am + i * T::AROWS;
+      const int iy = iy0[m] + ty;
+      const int ix = ix0[m] + tx;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      s.dv[i] = 0.f;
+      if (valid && (unsigned)iy < (unsigned)g.H &&
+          (unsigned)ix < (unsigned)g.W) {
+        const int64_t pix = (int64_t)iy * g.W + ix;
+        s.dv[i] = __ldg(op.xb + pix * g.C + kc.ci / 8);
+        v = __ldg(reinterpret_cast<const float4*>(op.att + pix * 8 +
+                                                  kc.ci % 8));
+        s.mask |= 0xfu << (4 * i);
+      }
+      s.a[i][0] = v.x; s.a[i][1] = v.y; s.a[i][2] = v.z; s.a[i][3] = v.w;
+    }
+    kc.ci += T::BK;
+    while (kc.ci >= g.cin) {
+      kc.ci -= g.cin;
+      ++kc.tap;
+    }
+  } else if (op.vec_a) {
     const bool valid = kc.tap < ntaps;
     const int ty = kc.tap / 3;
     const int tx = kc.tap - ty * 3;
@@ -230,26 +318,21 @@ __device__ __forceinline__ void load_slice(Staged<T>& s, KColumn& kc,
       }
     }
   }
+  load_w_slice<T>(s, op, g, k0, n0);
+}
+
+template <class T>
+__device__ __forceinline__ void store_w_slice(const Staged<T>& s, float* Bs) {
+  const int tid = threadIdx.x - T::NC;  // among the producers
 #pragma unroll
   for (int i = 0; i < T::BI; ++i) {
     const int u = tid + i * T::NP;
-    const int n = n0 + 4 * (u % T::CG);
+    if (T::BU % T::NP != 0 && u >= T::BU) break;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int k = k0 + 2 * (u / T::CG) + r;
-      const float* wr = op.w + (int64_t)k * op.ncols + n;
-      const bool row = (T::BU % T::NP == 0 || u < T::BU) && k < g.K;
-      if (op.vec_w) {
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (row && n < op.ncols)
-          v = __ldg(reinterpret_cast<const float4*>(wr));
-        s.b[i][r][0] = v.x; s.b[i][r][1] = v.y;
-        s.b[i][r][2] = v.z; s.b[i][r][3] = v.w;
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          s.b[i][r][j] = (row && n + j < op.ncols) ? wr[j] : 0.f;
-      }
+      *reinterpret_cast<float4*>(Bs + (2 * (u / T::CG) + r) * T::SB +
+                                 4 * (u % T::CG)) =
+          make_float4(s.b[i][r][0], s.b[i][r][1], s.b[i][r][2], s.b[i][r][3]);
     }
   }
 }
@@ -264,22 +347,17 @@ __device__ __forceinline__ void store_slice(const Staged<T>& s, float* As,
   for (int i = 0; i < T::AI; ++i) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      As[(4 * kg + j) * T::SA + am + i * T::AROWS] =
-          (s.mask >> (4 * i + j)) & 1u ? X::apply(s.a[i][j], s.sa[j], s.st[j])
-                                       : 0.f;
+      float v = 0.f;
+      if ((s.mask >> (4 * i + j)) & 1u) {
+        if constexpr (X::kDz)
+          v = s.dv[i] * s.a[i][j];
+        else
+          v = X::apply(s.a[i][j], s.sa[j], s.st[j]);
+      }
+      As[(4 * kg + j) * T::SA + am + i * T::AROWS] = v;
     }
   }
-#pragma unroll
-  for (int i = 0; i < T::BI; ++i) {
-    const int u = tid + i * T::NP;
-    if (T::BU % T::NP != 0 && u >= T::BU) break;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      *reinterpret_cast<float4*>(Bs + (2 * (u / T::CG) + r) * T::SB +
-                                 4 * (u % T::CG)) =
-          make_float4(s.b[i][r][0], s.b[i][r][1], s.b[i][r][2], s.b[i][r][3]);
-    }
-  }
+  store_w_slice<T>(s, Bs);
 }
 
 // The producers' side of the product: stages slice 0, then in iteration i stores
@@ -399,11 +477,14 @@ __device__ __forceinline__ int igemm_setup(float* smem, const Geom& g,
 // optional swish, store, and with stats the tile's per-column sum and sum of
 // squares of the stored values added into the buffer at smem + T::RED.
 // vec: N % GW == 0 and out aligned to a group of GW columns.
-template <class T>
+// DZ: the backward's dz = go * swish'(acc + bias) in place of the output,
+// go (B, P, N) read as the output is stored, no statistics.
+template <class T, bool DZ = false>
 __device__ __forceinline__ void conv_epilogue_pc(
     const float (&acc)[T::TM][T::TN], float* smem,
     const float* __restrict__ bias, float* __restrict__ out, bool stats,
-    int act, bool vec, int P, int N, int b, int m0, int n0) {
+    int act, bool vec, int P, int N, int b, int m0, int n0,
+    const float* __restrict__ go = nullptr) {
   const int tn = threadIdx.x % T::NCX;
   const int tm = threadIdx.x / T::NCX;
   float* red = smem + T::RED;
@@ -422,13 +503,33 @@ __device__ __forceinline__ void conv_epilogue_pc(
     float* orow = out + ((int64_t)b * P + p) * N;
 #pragma unroll
     for (int g = 0; g < T::NG; ++g) {
-      float v[T::GW];
-#pragma unroll
-      for (int j = 0; j < T::GW; ++j) {
-        v[j] = acc[i][T::GW * g + j] + bj[T::GW * g + j];
-        if (act) v[j] = swishf(v[j]);
-      }
       const int n = n0 + tile_col<T>(tn, T::GW * g);
+      float v[T::GW];
+      if constexpr (DZ) {
+        const float* grow = go + ((int64_t)b * P + p) * N + n;
+        float gv[T::GW];
+        if (vec && n + T::GW <= N) {
+          if constexpr (T::GW == 4) {
+            const float4 u = __ldg(reinterpret_cast<const float4*>(grow));
+            gv[0] = u.x; gv[1] = u.y; gv[2] = u.z; gv[3] = u.w;
+          } else {
+            const float2 u = __ldg(reinterpret_cast<const float2*>(grow));
+            gv[0] = u.x; gv[1] = u.y;
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < T::GW; ++j) gv[j] = n + j < N ? grow[j] : 0.f;
+        }
+#pragma unroll
+        for (int j = 0; j < T::GW; ++j)
+          v[j] = gv[j] * dswishf(acc[i][T::GW * g + j] + bj[T::GW * g + j]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < T::GW; ++j) {
+          v[j] = acc[i][T::GW * g + j] + bj[T::GW * g + j];
+          if (act) v[j] = swishf(v[j]);
+        }
+      }
       if (vec && n + T::GW <= N) {
         if constexpr (T::GW == 4) {
           *reinterpret_cast<float4*>(orow + n) =
@@ -490,6 +591,7 @@ struct ConvArgs {
   float* out;         // (B, Ho, Wo, cout)
   float* ssum;        // zeroed (B, cout) or null
   float* ssq;
+  const float* go;    // DZ: (B, Ho, Wo, cout) output cotangent
   Geom g;
   int cout, act;
   int ntn;            // column tiles; blockIdx.x = pixel tile * ntn + column tile
@@ -497,8 +599,8 @@ struct ConvArgs {
 };
 
 // out = act(conv(X(x * a + t)) + bias) and its statistics: one BM x BN tile
-// of one image per block.
-template <class T, class X>
+// of one image per block. DZ: out = go * swish'(conv(X(x * a + t)) + bias).
+template <class T, class X, bool DZ = false>
 __global__ void __launch_bounds__(T::NT) conv_pc_kernel(ConvArgs c) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -522,8 +624,9 @@ __global__ void __launch_bounds__(T::NT) conv_pc_kernel(ConvArgs c) {
   } else {
     float acc[T::TM][T::TN];
     consume<T>(acc, smem, nk);
-    conv_epilogue_pc<T>(acc, smem, c.bias, c.out, c.ssum != nullptr, c.act,
-                        c.vec_out, c.g.Ho * c.g.Wo, c.cout, b, m0, n0);
+    conv_epilogue_pc<T, DZ>(acc, smem, c.bias, c.out, c.ssum != nullptr,
+                            c.act, c.vec_out, c.g.Ho * c.g.Wo, c.cout, b, m0,
+                            n0, c.go);
   }
   if (c.ssum != nullptr) flush_stats<T>(smem, c.ssum, c.ssq, c.cout, b, n0);
 }
@@ -532,28 +635,423 @@ inline bool aligned(const void* p, uintptr_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-template <class T, class X>
+template <class T, class X, bool DZ>
 int launch_tile(ConvArgs c, int B, cudaStream_t stream) {
   const int P = c.g.Ho * c.g.Wo;
-  c.vec_out = c.cout % T::GW == 0 && aligned(c.out, 4 * T::GW);
+  c.vec_out = c.cout % T::GW == 0 && aligned(c.out, 4 * T::GW) &&
+              (!DZ || aligned(c.go, 4 * T::GW));
   c.ntn = (c.cout + T::BN - 1) / T::BN;
   const dim3 grid((unsigned)((P + T::BM - 1) / T::BM) * c.ntn, 1, B);
-  conv_pc_kernel<T, X><<<grid, T::NT, T::SMEM_BYTES, stream>>>(c);
+  conv_pc_kernel<T, X, DZ><<<grid, T::NT, T::SMEM_BYTES, stream>>>(c);
   return (int)cudaGetLastError();
 }
 
 // Launches the convolution on the tile that cout selects. c.g, the pointers,
 // cout and act are the caller's; the rest is filled here.
-template <class X>
+template <class X, bool DZ = false>
 int launch_conv(ConvArgs c, int B, cudaStream_t stream) {
   const bool affine_ok =
       (c.a == nullptr || (aligned(c.a, 16) && aligned(c.t, 16)));
   c.vec_a = c.g.cin % 4 == 0 && c.g.C % 4 == 0 && aligned(c.x, 16) &&
             affine_ok;
   c.vec_w = c.cout % 4 == 0 && aligned(c.w, 16);
-  if (c.cout >= 128) return launch_tile<Wide, X>(c, B, stream);
-  if (c.cout > 8) return launch_tile<Mid, X>(c, B, stream);
-  return launch_tile<Narrow, X>(c, B, stream);
+  if (c.cout >= 128) return launch_tile<Wide, X, DZ>(c, B, stream);
+  if (c.cout > 8) return launch_tile<Mid, X, DZ>(c, B, stream);
+  return launch_tile<Narrow, X, DZ>(c, B, stream);
+}
+
+// ---- The weight gradient
+//   dW (K x N) = A^T D,  dbias (N) = sum of the rows of D,
+// reduced over pixels: A the im2col matrix of the forward product (row =
+// pixel, column k = tap * cin + ci of x * a + t, 0 outside the image AFTER
+// the affine), D the (pixels x N) cotangent. The M side of the tile is k, the
+// N side the columns of D, and the reduction runs over BK pixels a slice, so
+// consume() is the forward's own. The pixels of the batch, taken in order
+// across images, are cut into S chunks of a multiple of BK; block (tile,
+// chunk) writes its partial tile with plain stores to a workspace (S, K + 1,
+// N) whose row K holds the chunk's partial bias, and wgrad_reduce_kernel adds
+// the S partials in ascending chunk order. No atomics: dW and dbias have the
+// same bits from run to run.
+//
+// Producers: a thread stages one 4-wide k group (fixed for the block, so its
+// tap, channel and border offsets are computed once) for AW pixel rows a
+// slice, 16 bytes along the channels of x where cin % 4 == 0; the rows'
+// (image, y, x) advance by BK pixels a slice with additions. The same
+// threads stage BK pixels of D, 16 bytes along its columns, and sum them for
+// the bias.
+struct WgradArgs {
+  const float* x;    // (B, H, W, g.C) NHWC input
+  const float* a;    // (B, g.C) scale or null
+  const float* t;    // (B, g.C) shift or null
+  const float* d;    // PlainD: (npix, N) cotangent; DzD: do (npix, N / 8)
+  const float* att;  // DzD: (npix, 8) attention times attw
+  float* ws;         // (S, K + 1, N) partial sums
+  Geom g;            // stride 1; g.cin channels of x per group, g.K = 9 * cin
+  int N;             // columns of dW
+  int gw;            // columns per group: group n / gw reads channels
+                     // [(n / gw) * cin, + cin) of x
+  int npix;          // B * H * W
+  int chunk;         // pixels per block, a multiple of BK
+  int ntn;           // column tiles; blockIdx.x = k tile * ntn + column tile
+  bool vec_a;        // cin % 4 == 0, g.C % 4 == 0, x, a, t 16-byte aligned
+  bool vec_d;        // 16-byte loads of D (PlainD: N % 4 == 0 and aligned)
+  bool vec_ws;       // N % 4 == 0 and ws 16-byte aligned
+};
+
+// D[q][n..n+3] of the plain convolution: the cotangent itself.
+struct PlainD {
+  static __device__ __forceinline__ void load(float (&v)[4],
+                                              const WgradArgs& w, int64_t q,
+                                              int n) {
+    const float* r = w.d + q * w.N + n;
+    if (w.vec_d) {
+      const float4 u = __ldg(reinterpret_cast<const float4*>(r));
+      v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = n + j < w.N ? r[j] : 0.f;
+    }
+  }
+};
+
+// D[q][n..n+3] of the AKGM tail, rebuilt: dz[c * 8 + j] = do[c] * att[j]
+// (att already times attw), n % 4 == 0 so the four share channel c = n / 8.
+struct DzD {
+  static __device__ __forceinline__ void load(float (&v)[4],
+                                              const WgradArgs& w, int64_t q,
+                                              int n) {
+    const float dv = __ldg(w.d + q * (w.N / 8) + n / 8);
+    const float4 u =
+        __ldg(reinterpret_cast<const float4*>(w.att + q * 8 + n % 8));
+    v[0] = dv * u.x; v[1] = dv * u.y; v[2] = dv * u.z; v[3] = dv * u.w;
+  }
+};
+
+template <class T>
+struct WgradShape {
+  static constexpr int KGW = T::BM / 4;         // k groups of a pixel row
+  static constexpr int RSTEP = T::NP / KGW;     // pixel rows per pass
+  static constexpr int AW = T::BK / RSTEP;      // passes: rows per thread
+  static constexpr int DG = T::BN / 4;          // 4-wide column groups of D
+  static constexpr int DU = T::BK * DG;         // 4-wide loads of D a slice
+  static constexpr int DI = (DU + T::NP - 1) / T::NP;
+  static_assert(T::NP % KGW == 0 && T::BK % RSTEP == 0 && AW <= 8,
+                "wgrad staging");
+  static_assert(T::B_WORDS >= T::BK * T::BN, "bias rows fit a stage of Bs");
+};
+
+// One slice of A and D in registers, and where the producer's rows are.
+template <class T>
+struct WgradStaged {
+  using S = WgradShape<T>;
+  float a[S::AW][4];
+  float sa[S::AW][4], st[S::AW][4];
+  uint32_t mask;              // bit 4 * i + j: a[i][j] is inside
+  float d[S::DI][4];
+  int py[S::AW], px[S::AW];   // the rows' pixel, advanced by BK a slice
+  int pb[S::AW];              // and its image
+  int lb[S::AW];              // the image of sa and st (-1: none yet)
+};
+
+// The producer's fixed k group: tap offsets and channels of its 4 columns.
+struct KGroup {
+  int dy[4], dx[4], ci[4];
+  bool kv[4];
+};
+
+template <class T>
+__device__ __forceinline__ void wgrad_advance(WgradStaged<T>& s,
+                                              const Geom& g) {
+#pragma unroll
+  for (int i = 0; i < WgradShape<T>::AW; ++i) {
+    s.px[i] += T::BK;
+    while (s.px[i] >= g.W) {
+      s.px[i] -= g.W;
+      ++s.py[i];
+    }
+    while (s.py[i] >= g.H) {
+      s.py[i] -= g.H;
+      ++s.pb[i];
+    }
+  }
+}
+
+template <class T, class DL>
+__device__ __forceinline__ void wgrad_load(WgradStaged<T>& s, const KGroup& kg,
+                                           const WgradArgs& w, int cin0,
+                                           int64_t qs, int64_t q1, int n0) {
+  using S = WgradShape<T>;
+  const int tid = threadIdx.x - T::NC;
+  const int pr = tid / S::KGW;
+  const Geom& g = w.g;
+  s.mask = 0u;
+#pragma unroll
+  for (int i = 0; i < S::AW; ++i) {
+    const int64_t q = qs + pr + i * S::RSTEP;
+    const bool in = q < q1;
+    // the affine of the row's image, loaded again only when it changes
+    const bool reload = w.a != nullptr && in && s.pb[i] != s.lb[i];
+    if (reload) s.lb[i] = s.pb[i];
+    if (w.vec_a) {
+      const int iy = s.py[i] + kg.dy[0];
+      const int ix = s.px[i] + kg.dx[0];
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (in && kg.kv[0] && (unsigned)iy < (unsigned)g.H &&
+          (unsigned)ix < (unsigned)g.W) {
+        v = __ldg(reinterpret_cast<const float4*>(
+            w.x + (q + kg.dy[0] * g.W + kg.dx[0]) * g.C + cin0 + kg.ci[0]));
+        s.mask |= 0xfu << (4 * i);
+      }
+      if (reload) {
+        const int64_t o = (int64_t)s.pb[i] * g.C + cin0 + kg.ci[0];
+        const float4 u = __ldg(reinterpret_cast<const float4*>(w.a + o));
+        const float4 r = __ldg(reinterpret_cast<const float4*>(w.t + o));
+        s.sa[i][0] = u.x; s.sa[i][1] = u.y; s.sa[i][2] = u.z; s.sa[i][3] = u.w;
+        s.st[i][0] = r.x; s.st[i][1] = r.y; s.st[i][2] = r.z; s.st[i][3] = r.w;
+      }
+      s.a[i][0] = v.x; s.a[i][1] = v.y; s.a[i][2] = v.z; s.a[i][3] = v.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int iy = s.py[i] + kg.dy[j];
+        const int ix = s.px[i] + kg.dx[j];
+        float v = 0.f;
+        if (in && kg.kv[j] && (unsigned)iy < (unsigned)g.H &&
+            (unsigned)ix < (unsigned)g.W) {
+          v = w.x[(q + kg.dy[j] * g.W + kg.dx[j]) * g.C + cin0 + kg.ci[j]];
+          s.mask |= 1u << (4 * i + j);
+        }
+        if (reload) {
+          const int64_t o = (int64_t)s.pb[i] * g.C + cin0 + kg.ci[j];
+          s.sa[i][j] = w.a[o];
+          s.st[i][j] = w.t[o];
+        }
+        s.a[i][j] = v;
+      }
+    }
+  }
+  wgrad_advance<T>(s, g);
+#pragma unroll
+  for (int i = 0; i < S::DI; ++i) {
+    const int u = tid + i * T::NP;
+    const int64_t q = qs + u / S::DG;
+    const int n = n0 + 4 * (u % S::DG);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s.d[i][j] = 0.f;
+    if ((S::DU % T::NP == 0 || u < S::DU) && q < q1 && n < w.N)
+      DL::load(s.d[i], w, q, n);
+  }
+}
+
+template <class T>
+__device__ __forceinline__ void wgrad_store(
+    const WgradStaged<T>& s, float* As, float* Bs,
+    float (&bsum)[WgradShape<T>::DI][4]) {
+  using S = WgradShape<T>;
+  const int tid = threadIdx.x - T::NC;
+  const int kg = tid % S::KGW;
+  const int pr = tid / S::KGW;
+#pragma unroll
+  for (int i = 0; i < S::AW; ++i) {
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      v[j] = (s.mask >> (4 * i + j)) & 1u
+                 ? fmaf(s.a[i][j], s.sa[i][j], s.st[i][j])
+                 : 0.f;
+    *reinterpret_cast<float4*>(As + (pr + i * S::RSTEP) * T::SA + 4 * kg) =
+        make_float4(v[0], v[1], v[2], v[3]);
+  }
+#pragma unroll
+  for (int i = 0; i < S::DI; ++i) {
+    const int u = tid + i * T::NP;
+    if (S::DU % T::NP != 0 && u >= S::DU) break;
+    *reinterpret_cast<float4*>(Bs + (u / S::DG) * T::SB + 4 * (u % S::DG)) =
+        make_float4(s.d[i][0], s.d[i][1], s.d[i][2], s.d[i][3]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bsum[i][j] += s.d[i][j];
+  }
+}
+
+// The producers' side of the weight gradient, in produce()'s order; at the
+// end the per-thread bias sums go to stage 0 of Bs, row = the thread's pixel
+// row of D.
+template <class T, class DL>
+__device__ __forceinline__ void wgrad_produce(float* smem, const WgradArgs& w,
+                                              int cin0, int m0, int n0,
+                                              int64_t q0, int64_t q1, int nk) {
+  using S = WgradShape<T>;
+  const int tid = threadIdx.x - T::NC;
+  const int pr = tid / S::KGW;
+  const Geom& g = w.g;
+  float* As = smem;
+  float* Bs = smem + 2 * T::A_WORDS;
+  KGroup kg;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int k = m0 + 4 * (tid % S::KGW) + j;
+    kg.kv[j] = k < g.K;
+    const int tap = kg.kv[j] ? k / g.cin : 0;
+    kg.ci[j] = kg.kv[j] ? k - tap * g.cin : 0;
+    kg.dy[j] = tap / 3 - 1;
+    kg.dx[j] = tap % 3 - 1;
+  }
+  WgradStaged<T> s;
+#pragma unroll
+  for (int i = 0; i < S::AW; ++i) {
+    s.lb[i] = -1;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      s.sa[i][j] = 1.f;
+      s.st[i][j] = 0.f;
+    }
+    const int64_t q = q0 + pr + i * S::RSTEP;
+    const int p = (int)(q % ((int64_t)g.H * g.W));
+    s.pb[i] = (int)(q / ((int64_t)g.H * g.W));
+    s.py[i] = p / g.W;
+    s.px[i] = p - s.py[i] * g.W;
+  }
+  float bsum[S::DI][4];
+#pragma unroll
+  for (int i = 0; i < S::DI; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bsum[i][j] = 0.f;
+  }
+  wgrad_load<T, DL>(s, kg, w, cin0, q0, q1, n0);
+  wgrad_store<T>(s, As, Bs, bsum);
+  if (nk > 1) wgrad_load<T, DL>(s, kg, w, cin0, q0 + T::BK, q1, n0);
+  block_sync<T::NT>();
+  for (int i = 0; i < nk; ++i) {
+    const int nxt = (i + 1) & 1;
+    if (i + 1 < nk)
+      wgrad_store<T>(s, As + nxt * T::A_WORDS, Bs + nxt * T::B_WORDS, bsum);
+    if (i + 2 < nk)
+      wgrad_load<T, DL>(s, kg, w, cin0, q0 + (int64_t)(i + 2) * T::BK, q1,
+                        n0);
+    block_sync<T::NT>();
+  }
+#pragma unroll
+  for (int i = 0; i < S::DI; ++i) {
+    const int u = tid + i * T::NP;
+    if (S::DU % T::NP != 0 && u >= S::DU) break;
+    *reinterpret_cast<float4*>(Bs + (u / S::DG) * T::SB + 4 * (u % S::DG)) =
+        make_float4(bsum[i][0], bsum[i][1], bsum[i][2], bsum[i][3]);
+  }
+}
+
+// dW's partial tile of one chunk, and with the first k tile its partial
+// bias: plain stores into chunk blockIdx.y's (K + 1, N) slab of w.ws.
+template <class T, class DL>
+__global__ void __launch_bounds__(T::NT) wgrad_pc_kernel(WgradArgs w) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int mt = blockIdx.x / w.ntn;
+  const int m0 = mt * T::BM;
+  const int n0 = (blockIdx.x - mt * w.ntn) * T::BN;
+  const int64_t q0 = (int64_t)blockIdx.y * w.chunk;
+  const int64_t q1 = q0 + w.chunk < w.npix ? q0 + w.chunk : w.npix;
+  const int nk = (int)((q1 - q0 + T::BK - 1) / T::BK);
+  const int cin0 = (n0 / w.gw) * w.g.cin;
+  const int K = w.g.K;
+  float* slab = w.ws + (int64_t)blockIdx.y * (K + 1) * w.N;
+  if (threadIdx.x >= T::NC) {
+    wgrad_produce<T, DL>(smem, w, cin0, m0, n0, q0, q1, nk);
+  } else {
+    float acc[T::TM][T::TN];
+    consume<T>(acc, smem, nk);
+    const int tn = threadIdx.x % T::NCX;
+    const int tm = threadIdx.x / T::NCX;
+#pragma unroll
+    for (int i = 0; i < T::TM; ++i) {
+      const int k = m0 + tile_row<T>(tm, i);
+      if (k >= K) continue;
+      float* row = slab + (int64_t)k * w.N;
+#pragma unroll
+      for (int g = 0; g < T::NG; ++g) {
+        const int n = n0 + tile_col<T>(tn, T::GW * g);
+        const float* v = &acc[i][T::GW * g];
+        if (T::GW == 4 && w.vec_ws && n + 4 <= w.N) {
+          *reinterpret_cast<float4*>(row + n) =
+              make_float4(v[0], v[1], v[2], v[3]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < T::GW; ++j)
+            if (n + j < w.N) row[n + j] = v[j];
+        }
+      }
+    }
+  }
+  if (mt != 0) return;
+  // the bias: the producers' row sums, added in ascending row order
+  block_sync<T::NT>();
+  const float* Bs = smem + 2 * T::A_WORDS;
+  for (int c = threadIdx.x; c < T::BN; c += T::NT) {
+    if (n0 + c >= w.N) continue;
+    float v = 0.f;
+    for (int r = 0; r < T::BK; ++r) v += Bs[r * T::SB + c];
+    slab[(int64_t)K * w.N + n0 + c] = v;
+  }
+}
+
+// dW (K, N) and dbias (N): the S partials of ws added in ascending order
+// (an instance per D loader, so that a trace tells K5's from K6's).
+template <class DL>
+__global__ void wgrad_reduce_kernel(const float* __restrict__ ws,
+                                    float* __restrict__ dw,
+                                    float* __restrict__ dbias, int K, int N,
+                                    int S) {
+  const int64_t slab = (int64_t)(K + 1) * N;
+  for (int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; e < slab;
+       e += (int64_t)gridDim.x * blockDim.x) {
+    float v = 0.f;
+    for (int s = 0; s < S; ++s) v += ws[s * slab + e];
+    if (e < (int64_t)K * N)
+      dw[e] = v;
+    else
+      dbias[e - (int64_t)K * N] = v;
+  }
+}
+
+template <class T, class DL>
+int launch_wgrad_tile(WgradArgs w, int splits, float* dw, float* dbias,
+                      cudaStream_t stream) {
+  w.ntn = (w.N + T::BN - 1) / T::BN;
+  const int mtiles = (w.g.K + T::BM - 1) / T::BM;
+  int chunk = (int)((w.npix + splits - 1) / splits);
+  w.chunk = (chunk + T::BK - 1) / T::BK * T::BK;
+  const int used = (int)((w.npix + w.chunk - 1) / w.chunk);
+  wgrad_pc_kernel<T, DL>
+      <<<dim3(mtiles * w.ntn, used), T::NT, T::SMEM_BYTES, stream>>>(w);
+  const int64_t n = (int64_t)(w.g.K + 1) * w.N;
+  const int blocks = (int)((n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024);
+  wgrad_reduce_kernel<DL><<<blocks, 256, 0, stream>>>(w.ws, dw, dbias,
+                                                      w.g.K, w.N, used);
+  return (int)cudaGetLastError();
+}
+
+// dW and dbias on the tile that the group's width selects (as launch_conv
+// selects by cout): 128 x 128 from 128 columns a group, 256 x 64 from 9
+// (64 x 64 where K <= 64, 96 x 64 where K <= 96), 128 x 8 below. w.x .. w.gw, w.npix and w.ws are
+// the caller's; splits is the number of chunks the caller's workspace holds
+// (S), of which the launch uses the ones that a whole number of BK pixels
+// fills.
+template <class DL>
+int launch_wgrad(WgradArgs w, int splits, float* dw, float* dbias,
+                 cudaStream_t stream) {
+  const bool affine_ok =
+      (w.a == nullptr || (aligned(w.a, 16) && aligned(w.t, 16)));
+  w.vec_a = w.g.cin % 4 == 0 && w.g.C % 4 == 0 && aligned(w.x, 16) &&
+            affine_ok;
+  w.vec_ws = w.N % 4 == 0 && aligned(w.ws, 16);
+  if (w.gw >= 128) return launch_wgrad_tile<Wide, DL>(w, splits, dw, dbias,
+                                                      stream);
+  if (w.gw > 8 && w.g.K <= Short::BM)
+    return launch_wgrad_tile<Short, DL>(w, splits, dw, dbias, stream);
+  if (w.gw > 8 && w.g.K <= Low::BM)
+    return launch_wgrad_tile<Low, DL>(w, splits, dw, dbias, stream);
+  if (w.gw > 8) return launch_wgrad_tile<Mid, DL>(w, splits, dw, dbias,
+                                                  stream);
+  return launch_wgrad_tile<Narrow, DL>(w, splits, dw, dbias, stream);
 }
 
 }  // namespace pc

@@ -17,7 +17,8 @@ import torch
 import torch.nn.functional as F
 
 from ucdir_tpu_torch.ops import _build
-from ucdir_tpu_torch.ops.conv import dswish, swish, vjp_of_plain
+from ucdir_tpu_torch.ops.conv import (dswish, swish, vjp_of_plain,
+                                     wgrad_workspace)
 from ucdir_tpu_torch.ops.stats import fold_stats_grad, gn1_stats_plain
 
 
@@ -122,6 +123,23 @@ def akgm_block_tail_backward_plain(h, att_sp, w, bias, go, nset: int, *,
             dz.sum(dim=(0, 2, 3)), dattw)
 
 
+def do_tile_cols(C):
+    """The column tile of K5's z recompute (`csrc/akgm_tail_bwd.cu`): 128
+    wide from C = 128, 64 at C = 64, so that a tile lies in one group."""
+    return 128 if C >= 128 else 64
+
+
+def tile_columns(n, bn):
+    """The logical column that each physical column of K5's z recompute
+    holds, (n,) int64: in a tile of `bn` columns a consumer thread holds the
+    physical columns 4 i + r and bn / 2 + 4 i + r (r < 4; igemm_pc.cuh), and
+    they must be channel i's candidates 0..7, logical 8 i + 4 h + r."""
+    p = torch.arange(n)
+    tile, r = p // bn, p % bn
+    half, rest = r // (bn // 2), r % (bn // 2)
+    return tile * bn + (rest // 4) * 8 + half * 4 + rest % 4
+
+
 def akgm_block_tail_backward_kernel(h, att_sp, w, bias, go, nset,
                                      norm_scale, norm_shift, attw):
     """K5 on CUDA tensors: (dhh, datt_sp, dw, dbias, dattw)."""
@@ -133,18 +151,24 @@ def akgm_block_tail_backward_kernel(h, att_sp, w, bias, go, nset,
     # per-group weights of the transposed conv: (G, 9 * C, C / G), taps
     # flipped, wf[g][tap * C + n][ci] = w[(8 - tap) * C/G + ci][g * C + n]
     wf = (w.reshape(9, cg, nset, C).flip(0).permute(2, 0, 3, 1).contiguous())
+    # the z recompute's weights and bias, columns permuted within each tile
+    cols = tile_columns(C * nset, do_tile_cols(C)).to(w.device)
+    wp, bp = w[:, cols].contiguous(), bias[cols].contiguous()
     do = torch.empty_like(h)             # scratch: go * swish'(o)
+    aa = None if attw is None else torch.empty_like(att_sp)  # att * attw
     dhh = torch.empty_like(h)
-    datt = torch.zeros_like(att_sp)
-    dw = torch.zeros_like(w)
-    dbias = torch.zeros_like(bias)
+    datt = torch.empty_like(att_sp)
+    dw = torch.empty_like(w)
+    dbias = torch.empty_like(bias)
     dattw = None if attw is None else torch.zeros_like(attw)
+    splits, ws = wgrad_workspace(9 * cg, C * nset, C, B * H * W, dev)
     _build.launch('akgm_tail_bwd', h.data_ptr(), go.data_ptr(),
-                  att_sp.data_ptr(), _build.ptr(attw), w.data_ptr(),
-                  wf.data_ptr(), bias.data_ptr(), _build.ptr(norm_scale),
-                  _build.ptr(norm_shift), do.data_ptr(), dhh.data_ptr(),
-                  datt.data_ptr(), dw.data_ptr(), dbias.data_ptr(),
-                  _build.ptr(dattw), B, H, W, C, _build.stream(h))
+                  att_sp.data_ptr(), _build.ptr(attw), wp.data_ptr(),
+                  wf.data_ptr(), bp.data_ptr(), _build.ptr(norm_scale),
+                  _build.ptr(norm_shift), do.data_ptr(), _build.ptr(aa),
+                  dhh.data_ptr(), datt.data_ptr(), dw.data_ptr(),
+                  dbias.data_ptr(), _build.ptr(dattw), ws.data_ptr(), B, H,
+                  W, C, splits, _build.stream(h))
     return dhh, datt, dw, dbias, dattw
 
 

@@ -125,6 +125,53 @@ def conv3x3_backward_plain(x, w, bias, go, *, act=None, norm_scale=None,
     return dxh, dw, dz.sum(dim=(0, 2, 3))
 
 
+# The weight gradients of K5 and K6 (`csrc/igemm_pc.cuh`, wgrad_pc_kernel)
+# cut the batch's pixels into S chunks and reduce the S partial tiles in a
+# fixed order from a workspace of S x (K + 1) x N floats, which the wrapper
+# allocates. The plan below mirrors the kernel's tile rule (by the columns of
+# one group, as K2's by cout) and holds the workspace under WGRAD_CAP_BYTES.
+WGRAD_CAP_BYTES = 64 * 2 ** 20
+WGRAD_MIN_CHUNK = 256        # pixels: 16 slices of 16 per block at least
+
+
+def wgrad_tile(group_cols, K):
+    """(BM, BN, blocks an SM holds) of the weight-gradient tile of K rows for
+    a group of `group_cols` columns, as the kernel chooses: 128 x 128,
+    64 x 64 (K <= 64), 96 x 64 (K <= 96), 256 x 64 or 128 x 8."""
+    if group_cols >= 128:
+        return 128, 128, 1
+    if group_cols > 8:
+        if K <= 64:
+            return 64, 64, 4
+        return (96, 64, 2) if K <= 96 else (256, 64, 1)
+    return 128, 8, 1
+
+
+def wgrad_splits(K, N, group_cols, npix, sms=132):
+    """The number of pixel chunks S of a (K x N) weight gradient over `npix`
+    pixels: the least S whose grid fills the `sms` SMs (as many blocks as an
+    SM holds) to 90% in its last wave and in all, within the workspace cap
+    and the least chunk; the most that the cap and the chunk allow where
+    none does."""
+    bm, bn, per_sm = wgrad_tile(group_cols, K)
+    tiles = -(-K // bm) * -(-N // bn)
+    slots = sms * per_sm
+    most = max(1, min(WGRAD_CAP_BYTES // (4 * (K + 1) * N),
+                      -(-npix // WGRAD_MIN_CHUNK)))
+    for s in range(1, most + 1):
+        blocks = tiles * s
+        if blocks >= 0.9 * slots * -(-blocks // slots):
+            return s
+    return most
+
+
+def wgrad_workspace(K, N, group_cols, npix, device):
+    """(S, the (S, K + 1, N) workspace) for a weight gradient on `device`."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    s = wgrad_splits(K, N, group_cols, npix, sms)
+    return s, torch.empty(s, K + 1, N, device=device, dtype=torch.float32)
+
+
 def conv3x3_backward_kernel(x, w, bias, go, act, norm_scale, norm_shift):
     """K6 on CUDA tensors: (dxh, dw, dbias)."""
     B, H, W, cin = x.shape
@@ -141,13 +188,14 @@ def conv3x3_backward_kernel(x, w, bias, go, act, norm_scale, norm_shift):
           .reshape(9 * cout, cin).contiguous())
     dz = torch.empty_like(go) if act == 'swish' else None
     dxh = torch.empty_like(x)
-    dw = torch.zeros_like(w)
-    dbias = torch.zeros_like(bias)
+    dw = torch.empty_like(w)
+    dbias = torch.empty_like(bias)
+    splits, ws = wgrad_workspace(9 * cin, cout, cout, B * H * W, dev)
     _build.launch('conv3x3_bwd', x.data_ptr(), go.data_ptr(), w.data_ptr(),
                   wf.data_ptr(), bias.data_ptr(), _build.ptr(norm_scale),
                   _build.ptr(norm_shift), _build.ptr(dz), dxh.data_ptr(),
-                  dw.data_ptr(), dbias.data_ptr(), B, H, W, cin, cout,
-                  int(act == 'swish'), _build.stream(x))
+                  dw.data_ptr(), dbias.data_ptr(), ws.data_ptr(), B, H, W,
+                  cin, cout, int(act == 'swish'), splits, _build.stream(x))
     return dxh, dw, dbias
 
 
