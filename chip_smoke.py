@@ -21,10 +21,11 @@ on any failure:
               kernel's product is fp32 FMA). K2 and K3 also at the shapes
               that pick their other tiles: the 64 -> 3 `final` conv (8-wide
               tile) and the 1024 -> 512 convs of the /8 level (128-wide
-              tile). K5 and K6 run twice: their weight and bias gradients
-              (and K5's attention gradient) must be equal bit for bit; K6's
-              library time in the swish cases includes the F.conv2d that
-              recomputes z.
+              tile), and K1 and K8 at C = 8, 16 and 32 (the narrow tiles) on
+              the frame's /8 level. K1, K5 and K6 run twice: K1's statistics,
+              K5's and K6's weight and bias gradients (and K5's attention
+              gradient) must be equal bit for bit; K6's library time in the
+              swish cases includes the F.conv2d that recomputes z.
   3. slice    the full-width SID model (random weights from --seed) restores
               a 96 x 96 input with 2 steps and injected noise on the card and
               on the host (plain versions); the outputs must agree.
@@ -202,13 +203,14 @@ def kernel_cases(gen, dev):
 
     cases = []
 
-    def akgm_operands(B, H, W, C):
-        h = rnd(B, H, W, C, scale=0.5)
-        att, aw = rnd(B, H, W, G, scale=0.5), rnd(B, G, scale=0.3, off=1.0)
-        w = rnd(9 * C // G, C * G, scale=(9 * C / G) ** -0.5)
-        b = rnd(C * G, scale=0.1)
-        kw = dict(norm_scale=rnd(B, C, scale=0.2, off=1.0),
-                  norm_shift=rnd(B, C, scale=0.2), attw=aw)
+    def akgm_operands(B, H, W, C, gen=gen):
+        h = rnd(B, H, W, C, scale=0.5, gen=gen)
+        att = rnd(B, H, W, G, scale=0.5, gen=gen)
+        aw = rnd(B, G, scale=0.3, off=1.0, gen=gen)
+        w = rnd(9 * C // G, C * G, scale=(9 * C / G) ** -0.5, gen=gen)
+        b = rnd(C * G, scale=0.1, gen=gen)
+        kw = dict(norm_scale=rnd(B, C, scale=0.2, off=1.0, gen=gen),
+                  norm_shift=rnd(B, C, scale=0.2, gen=gen), attw=aw)
         # the grouped conv, then the 8-candidate mix per channel
         flop = B * H * W * C * G * (2 * 9 * C // G + 2)
         return h, att, w, b, kw, flop
@@ -225,7 +227,7 @@ def kernel_cases(gen, dev):
             plain=lambda h=h, att=att, w=w, b=b, res=res, kw=kw:
                 akgm.akgm_block_tail_plain(h, att, w, b, res, G,
                                            emit_stats=True, **kw),
-            library=None, stats=2, flop=flop,
+            library=None, stats=2, fixed=(1, 2), flop=flop,
             bytes=nbytes(h, att, w, b, res, h, *kw.values()) + 8 * C))
         cases.append(dict(
             name='akgm_mix', label='C=%d %dx%d' % (C, H, W),
@@ -245,6 +247,32 @@ def kernel_cases(gen, dev):
                                                   **kw),
             library=None, stats=0, flop=H * W * C * (2 * 9 * C + 2 * G),
             bytes=nbytes(h, att, wp, b, res, h, *kw.values())))
+
+    # K1 and K8 at the widths of narrower models (the tiles of 128 pixels by
+    # 8, 16 and 32 columns) on the frame's /8 level, from a generator of
+    # their own like K7's
+    gen_narrow = torch.Generator(dev).manual_seed(gen.initial_seed() + 8)
+    for C in (8, 16, 32):
+        H, W = H0 // 8, W0 // 8
+        h, att, w, b, kw, flop = akgm_operands(1, H, W, C, gen=gen_narrow)
+        res = rnd(1, H, W, C, scale=0.5, gen=gen_narrow)
+        cases.append(dict(
+            name='akgm_tail', label='C=%d %dx%d fold+attw+stats' % (C, H, W),
+            kernel=lambda h=h, att=att, w=w, b=b, res=res, kw=kw:
+                akgm.akgm_block_tail(h, att, w, b, res, G, emit_stats=True,
+                                     **kw),
+            plain=lambda h=h, att=att, w=w, b=b, res=res, kw=kw:
+                akgm.akgm_block_tail_plain(h, att, w, b, res, G,
+                                           emit_stats=True, **kw),
+            library=None, stats=2, fixed=(1, 2), flop=flop,
+            bytes=nbytes(h, att, w, b, res, h, *kw.values()) + 8 * C))
+        cases.append(dict(
+            name='akgm_mix', label='C=%d %dx%d' % (C, H, W),
+            kernel=lambda h=h, att=att, w=w, b=b:
+                akgm.akgm_mix(h, att, w, b, G),
+            plain=lambda h=h, att=att, w=w, b=b:
+                akgm.akgm_mix_reference(h, att, w, b, G),
+            library=None, stats=0, flop=flop, bytes=nbytes(h, att, w, b, h)))
 
     def conv_case(label, B, H, W, cin, cout, stride=1, fold=False, act=None,
                   backward=False, gen=gen):
@@ -402,8 +430,9 @@ def phase_kernels(dev, seed, results):
         # of K5 and K6 among them, whose weight, bias and attention parts
         # are sums over up to 0.66 M pixels added with atomics) within 1e-4
         # of max(1, its largest magnitude); (B, C) sums and sums of squares
-        # of up to 3.6 M values, added in another order (atomics), within
-        # 1e-5 of the largest sum of squares
+        # of up to 3.6 M values, added in another order (K1 per pixel tile,
+        # then over the tiles; K2, K4 with atomics), within 1e-5 of the
+        # largest sum of squares
         n_out = len(got) - case['stats']
         if len(got) != len(want):
             fail('%s %s: %d results, plain gives %d'
@@ -421,9 +450,9 @@ def phase_kernels(dev, seed, results):
                 fail('%s %s: result %d max abs err %.3e > tol %.3e'
                      % (name, label, i, errs[-1], tol))
             rels.append(errs[-1] / max(big, 1e-30))
-        # the weight and bias gradients of K5 and K6, and K5's attention
-        # gradient, are added in a fixed order: a second call gives the same
-        # bits
+        # K1's statistics, the weight and bias gradients of K5 and K6, and
+        # K5's attention gradient are added in a fixed order: a second call
+        # gives the same bits
         if case.get('fixed'):
             again = flat(case['kernel']())
             for i in case['fixed']:
@@ -900,7 +929,6 @@ def phase_variants(dev, seed, counts):
 
 def phase_fewstep(dev, seed, counts):
     """The few-step samplers on one SID frame, `dropout: 0` model."""
-    import numpy as np
     import torch
     from ucdir_tpu_torch.configs import SID_VAL_SCHEDULE
     from ucdir_tpu_torch.eval import eval_step
@@ -945,19 +973,34 @@ def phase_fewstep(dev, seed, counts):
         del sr
     counts['fewstep'] = total
 
+    err = agree('fewstep', 'ddim card vs host',
+                *ddim_card_and_host(dev, seed, model, host))
+    say('fewstep', 'ddim, 3 steps, full width, 64x64: card vs host max abs '
+        'err %.3e (tol 1e-5)' % err)
+
+
+def ddim_card_and_host(dev, seed, model, host):
+    """The `dropout: 0` model on the card and on the host restores one 64 x
+    64 input with ddim, 3 steps, on the shipped 50-step schedule and the
+    same injected draws: (card's output, host's output)."""
+    import numpy as np
+    import torch
+    from ucdir_tpu_torch.configs import SID_VAL_SCHEDULE
+    from ucdir_tpu_torch.eval import eval_step
+    from ucdir_tpu_torch.schedule import make_schedule
+
     rng = np.random.default_rng(seed + 7)
     x = rng.uniform(-1, 1, (1, 64, 64, 3)).astype(np.float32)
     shape = (1, 64 + 2 * PAD, 64 + 2 * PAD, 3)
     draws = [rng.standard_normal(shape).astype(np.float32) for _ in range(4)]
     kw = dict(sampler='ddim', sampling_timesteps=3)
-    got = eval_step(model, sched, torch.from_numpy(x).to(dev),
-                    noise=injected(draws, dev), **kw)[0]
+    got = eval_step(model, make_schedule(SID_VAL_SCHEDULE, dev),
+                    torch.from_numpy(x).to(dev), noise=injected(draws, dev),
+                    **kw)[0]
     want = eval_step(host, make_schedule(SID_VAL_SCHEDULE, 'cpu'),
                      torch.from_numpy(x), noise=injected(draws, 'cpu'),
                      **kw)[0]
-    err = agree('fewstep', 'ddim card vs host', got, want)
-    say('fewstep', 'ddim, 3 steps, full width, 64x64: card vs host max abs '
-        'err %.3e (tol 1e-5)' % err)
+    return got, want
 
 
 def phase_hires(dev, seed, counts):

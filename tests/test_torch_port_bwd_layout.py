@@ -42,7 +42,7 @@ def tile_col(bn, tn, j):
 
 @pytest.mark.parametrize('C', [64, 128, 256, 512])
 def test_tile_columns_is_a_permutation_within_tiles(C):
-    bn = akgm.do_tile_cols(C)
+    bn = akgm.tail_tile(C)[1]
     assert bn <= C and C % bn == 0          # a tile lies in one group
     cols = akgm.tile_columns(C * G, bn)
     assert torch.equal(torch.sort(cols).values, torch.arange(C * G))
@@ -62,7 +62,7 @@ def permuted_tail(h, att, w, bias, res, *, norm_scale, norm_shift, attw):
     """The block tail from the grouped product on permuted weights and bias,
     its candidates un-permuted before the mix."""
     B, H, W, C = h.shape
-    cols = akgm.tile_columns(C * G, akgm.do_tile_cols(C))
+    cols = akgm.tile_columns(C * G, akgm.tail_tile(C)[1])
     wp, bp = w[:, cols], bias[cols]
     hh = h * norm_scale[:, None, None, :] + norm_shift[:, None, None, :]
     k = wp.reshape(3, 3, C // G, C * G).permute(3, 2, 0, 1)

@@ -9,7 +9,8 @@ not have.)
 
 Tolerance: float32 on both sides, 1e-4 of max(1, |reference|) for tensors
 and 1e-5 of the largest sum of squares for the (B, C) statistics, which
-the kernels add with atomics in any order. The backward kernels K5 and K6
+the kernels add in another order than the plain versions (K2, K3 and K4
+with atomics). The backward kernels K5 and K6
 add their weight and bias gradients per chunk of pixels in a fixed order
 (the same bits in two calls) and K5 its attention gradients with atomics:
 every output of theirs within 1e-4 of max(1, largest |reference| of that
@@ -19,6 +20,11 @@ tiles of 64 and 128 columns, and K6's on the tiles of K2.
 K7, K8 and K9 (the pre-activated conv, the mix alone, the packed tail) are
 held to the same 1e-4 at small and ragged shapes and at the shapes of the
 validation path: one 1568 x 2272 frame and its levels, one 1024 x 1024 tile.
+K1 and K8 run on tiles of 128 x 128 (C % 128 == 0), 256 x 64 (C % 64 ==
+0) and 128 pixels by 32, 16 or 8 columns (other multiples of 8): their
+cases and K9's include C = 8, 16, 24, 32 and 192. K1 adds its statistics
+without atomics: they are held to the same bits in a second call, and K5's
+refusal of the widths it does not take is checked.
 K2 and K3 run on tiles of 128 pixels by 128 or 8 columns, or 256 by 64, in k
 slices of 16: their cases include cout 3, 8, 9 and 130, cin 4, 6 and 70, P
 one short of and one past a pixel tile, stride 2 on odd sizes and B = 3.
@@ -79,6 +85,55 @@ def test_akgm_tail(dev, B, H, W, C, fold):
     got = akgm.akgm_block_tail(h, att, w, b, res, G, **kw)
     assert _build.LAUNCHES['akgm_tail'] == n + 1
     check(got, akgm.akgm_block_tail_plain(h, att, w, b, res, G, **kw), 2)
+
+
+# K1 and K8 on the tiles narrower than 64 columns (128 pixels by the widest
+# of 32, 16 and 8 columns that divides C) and on the 256 x 64 tile at C =
+# 192; K9 at the same widths
+NARROW = [(2, 13, 21, 8), (1, 9, 130, 16), (1, 17, 11, 32), (1, 6, 10, 24),
+          (1, 5, 9, 192)]
+
+
+def tail_operands(gen, B, H, W, C, fold, G=8):
+    h, att, w, b = akgm_operands(gen, B, H, W, C)
+    res = rnd(gen, B, H, W, C, scale=0.5)
+    kw = dict(attw=rnd(gen, B, G, scale=0.3, off=1.0))
+    if fold:
+        kw.update(norm_scale=rnd(gen, B, C, scale=0.2, off=1.0),
+                  norm_shift=rnd(gen, B, C, scale=0.2))
+    return h, att, w, b, res, kw
+
+
+@pytest.mark.parametrize('B,H,W,C', NARROW)
+@pytest.mark.parametrize('fold', [False, True])
+@pytest.mark.parametrize('emit_stats', [False, True])
+def test_akgm_tail_narrow(dev, B, H, W, C, fold, emit_stats):
+    gen, G = torch.Generator(dev).manual_seed(13), 8
+    h, att, w, b, res, kw = tail_operands(gen, B, H, W, C, fold)
+    n = _build.LAUNCHES['akgm_tail']
+    got = akgm.akgm_block_tail(h, att, w, b, res, G, emit_stats=emit_stats,
+                               **kw)
+    assert _build.LAUNCHES['akgm_tail'] == n + 1
+    check(got, akgm.akgm_block_tail_plain(h, att, w, b, res, G,
+                                          emit_stats=emit_stats, **kw),
+          2 if emit_stats else 0)
+
+
+@pytest.mark.parametrize('B,H,W,C', [(2, 40, 37, 64), (1, 33, 65, 128),
+                                     (3, 9, 13, 8), (1, 7, 300, 512)])
+def test_akgm_tail_statistics_repeat_bit_for_bit(dev, B, H, W, C):
+    """K1 adds its statistics per pixel tile and then over the tiles in a
+    fixed order, with no atomics: a second call gives the same bits, and
+    the output itself is the same too."""
+    gen, G = torch.Generator(dev).manual_seed(14), 8
+    h, att, w, b, res, kw = tail_operands(gen, B, H, W, C, True)
+    one = flat(akgm.akgm_block_tail(h, att, w, b, res, G, emit_stats=True,
+                                    **kw))
+    two = flat(akgm.akgm_block_tail(h, att, w, b, res, G, emit_stats=True,
+                                    **kw))
+    assert all(torch.equal(x, y) for x, y in zip(one, two))
+    check(tuple(one), akgm.akgm_block_tail_plain(
+        h, att, w, b, res, G, emit_stats=True, **kw), 2)
 
 
 @pytest.mark.parametrize('B,H,W,cin,cout,stride', [
@@ -307,6 +362,45 @@ def test_akgm_packed(dev, B, H, W, C, fold_attw):
     assert _build.LAUNCHES['akgm_tail'] == n['akgm_tail']
     check(got, akgm.akgm_block_tail_packed_plain(h, att, wp, b, res, G, **kw),
           0)
+
+
+@pytest.mark.parametrize('B,H,W,C', NARROW)
+def test_akgm_mix_narrow(dev, B, H, W, C):
+    gen, G = torch.Generator(dev).manual_seed(15), 8
+    h, att, w, b = akgm_operands(gen, B, H, W, C)
+    n = _build.LAUNCHES['akgm_mix']
+    got = akgm.akgm_mix(h, att, w, b, G)
+    assert _build.LAUNCHES['akgm_mix'] == n + 1
+    check(got, akgm.akgm_mix_reference(h, att, w, b, G), 0)
+
+
+@pytest.mark.parametrize('B,H,W,C', NARROW)
+@pytest.mark.parametrize('fold', [False, True])
+def test_akgm_packed_narrow(dev, B, H, W, C, fold):
+    gen, G = torch.Generator(dev).manual_seed(16), 8
+    h, att, w, b, res, kw = tail_operands(gen, B, H, W, C, fold)
+    wp = akgm.pack_grouped_weight(w, G).contiguous()
+    n = _build.LAUNCHES['akgm_packed']
+    got = akgm.akgm_block_tail_packed(h, att, wp, b, res, G, **kw)
+    assert _build.LAUNCHES['akgm_packed'] == n + 1
+    check(got, akgm.akgm_block_tail_packed_plain(h, att, wp, b, res, G, **kw),
+          0)
+
+
+@pytest.mark.parametrize('C', [8, 32, 192])
+def test_akgm_tail_backward_refuses_what_k5_does_not_take(dev, C):
+    """K5 takes C = 64 and multiples of 128; a narrower model's training on
+    the card raises, naming K5, and never falls back to the plain version."""
+    gen, G = torch.Generator(dev).manual_seed(17), 8
+    h, att, w, b, res, kw = tail_operands(gen, 1, 4, 5, C, True)
+    with pytest.raises(ValueError, match='K5'):
+        akgm.akgm_block_tail_backward(h, att, w, b, res, G, **kw)
+    w.requires_grad_()
+    out = akgm.akgm_block_tail(h, att, w, b, res, G, **kw)
+    n = _build.LAUNCHES['akgm_tail_bwd']
+    with pytest.raises(ValueError, match='K5'):
+        out.sum().backward()
+    assert _build.LAUNCHES['akgm_tail_bwd'] == n
 
 
 def test_new_functions_backward_on_the_card(dev):

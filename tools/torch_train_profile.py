@@ -10,9 +10,10 @@ width (random weights from --seed, one seeded batch), takes two warm-up steps,
 times three steps with the host clock around `torch.cuda.synchronize()`, then
 traces one more step with `torch.profiler` and prints: seconds per step, peak
 memory, the device's busy time and idle share inside the traced step, the
-time of each CUDA kernel by name (top 30), the port's kernels by launch (K5's
-and K6's three: z recompute, weight gradient and its reduction, input
-gradient) and the launches of K1..K6 in that step. With --val it restores one 1424 x 2128 frame (1568 x 2272 in the
+time of each CUDA kernel by name (top 30), the port's kernels by launch (K1's
+two: the product and its statistics' reduction; K5's and K6's three: z
+recompute, weight gradient and its reduction, input gradient) and the
+launches of K1..K6 in that step. With --val it restores one 1424 x 2128 frame (1568 x 2272 in the
 network) with --steps DDPM steps instead, once to warm up and once traced:
 the same lines for that frame, whose time is one predictor pass plus --steps
 DY3h steps. Needs a CUDA card; prints the card's name
@@ -102,8 +103,9 @@ PARTS = (
     (('conv_pc_kernel', 'Raw'), 'K3'),
     (('conv_pc_kernel', 'Preact'), 'K7'),
     (('conv_pc_kernel', 'Affine'), 'K2'),
-    (('akgm_kernel<true>',), 'K1'),
-    (('akgm_kernel<false>',), 'K8'),
+    (('akgm_tail_kernel', ', true>'), 'K1'),
+    (('stats_reduce_kernel',), 'K1 statistics reduction'),
+    (('akgm_tail_kernel', ', false>'), 'K8'),
     (('gn1_stats',), 'K4'),
 )
 

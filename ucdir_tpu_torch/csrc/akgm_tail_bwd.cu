@@ -165,23 +165,10 @@ __global__ void __launch_bounds__(T::NT) akgm_do_kernel(DoArgs c) {
   float* smem = reinterpret_cast<float*>(smem4);
   const int b = blockIdx.z;
   const int m0 = blockIdx.x * T::BM;
-  const int C = c.g.C;
   const int nk = pc::igemm_setup<T>(smem, c.g, m0);
   if (threadIdx.x >= T::NC) {
-    for (int nt = 0; nt < c.ntn; ++nt) {
-      const int n0 = nt * T::BN;
-      const int cin0 = (n0 / C) * c.g.cin;
-      pc::Operands op;
-      op.xb = c.h + (int64_t)b * c.g.H * c.g.W * C + cin0;
-      op.ab = c.a ? c.a + (int64_t)b * C + cin0 : nullptr;
-      op.tb = c.t ? c.t + (int64_t)b * C + cin0 : nullptr;
-      op.att = nullptr;
-      op.w = c.w;
-      op.ncols = C * G;
-      op.vec_a = c.vec_a;
-      op.vec_w = true;
-      pc::produce<T, pc::Affine>(smem, op, c.g, n0, nk);
-    }
+    pc::grouped_produce<T>(smem, c.h, c.a, c.t, c.w, c.g, b, 0, c.ntn, nk,
+                           c.vec_a);
   } else {
     constexpr int CNT = T::TM * G / T::NCX;  // sums a lane ends with
     static_assert(CNT <= G && G % CNT == 0, "a lane's sums share a row");

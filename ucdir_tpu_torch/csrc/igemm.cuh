@@ -1,6 +1,6 @@
-// Implicit-GEMM core of the AKGM forward kernels K1, K8 and K9 (fp32, CUDA
-// cores). The convolutions K2, K3 and K7 and the backward kernels K5 and K6
-// run on igemm_pc.cuh.
+// Implicit-GEMM core of the group-packed AKGM tail K9 alone (fp32, CUDA
+// cores), and the definitions igemm_pc.cuh shares (Geom, swishf, dswishf).
+// Every other kernel runs on igemm_pc.cuh; this core goes when K9 moves.
 //
 // A convolution is the product A (P x K) * Wt (K x N): row p of A is output
 // pixel p's receptive field, column k = tap * cin + ci of it is input channel
@@ -44,7 +44,6 @@ struct Geom {
 struct Smem {
   float As[BK][BM + APAD];
   float Bs[BK][BN];
-  float red[2 * BN];  // per-column sum and sum of squares of the block
   int iy0[BM];
   int ix0[BM];
 };
@@ -57,11 +56,6 @@ __device__ __forceinline__ float swishf(float v) {
 __device__ __forceinline__ float dswishf(float v) {
   const float sig = 1.f / (1.f + expf(-v));
   return sig * (1.f + v * (1.f - sig));
-}
-
-// Zeroes the statistics scratch; igemm's first barrier publishes it.
-__device__ __forceinline__ void zero_red(Smem& sm) {
-  for (int i = threadIdx.x; i < 2 * BN; i += NT) sm.red[i] = 0.f;
 }
 
 // A-operand loader of one image: channel cin0 + ci of x * a + t (a, t null:
@@ -206,19 +200,6 @@ __device__ __forceinline__ void igemm_core(float (&acc)[TM][TN], Smem& sm,
     mma_stage(acc, sm, tm, tn);
     __syncthreads();
   }
-}
-
-// igemm_core on x * a + t: x is the (B, H, W, g.C) input and A reads
-// channels [cin0, cin0 + g.cin) of image b; a and t are (B, g.C) or null.
-__device__ __forceinline__ void igemm(float (&acc)[TM][TN], Smem& sm,
-                                      const float* __restrict__ x,
-                                      const float* __restrict__ a,
-                                      const float* __restrict__ t,
-                                      const float* __restrict__ w, int ldw,
-                                      int ncols, const Geom& g, int b,
-                                      int cin0, int m0, int n0) {
-  igemm_core(acc, sm, affine_loader(x, a, t, g, b, cin0), w, ldw, ncols, g,
-             m0, n0);
 }
 
 }  // namespace ucdir

@@ -1,10 +1,11 @@
-// Implicit-GEMM core of the convolutions K2, K3 and K7 and of the backward
-// kernels K5 and K6 for an H100 (sm_90a): fp32 in and out, fp32 FMA,
-// producer and consumer warps. The backward uses it three ways: the forward
-// product with another epilogue (K6's dz, K5's do), the forward product on a
-// rebuilt or raw cotangent with flipped, transposed weights (the input
-// gradients), and the weight gradient at the end of this file, whose tile
-// runs over k rows and whose reduction runs over pixels.
+// Implicit-GEMM core of the convolutions K2, K3 and K7, of the AKGM tail K1
+// and the mix K8, and of the backward kernels K5 and K6 for an H100
+// (sm_90a): fp32 in and out, fp32 FMA, producer and consumer warps. The
+// backward uses it three ways: the forward product with another epilogue
+// (K6's dz, K5's do), the forward product on a rebuilt or raw cotangent with
+// flipped, transposed weights (the input gradients), and the weight gradient
+// at the end of this file, whose tile runs over k rows and whose reduction
+// runs over pixels.
 //
 // The product is igemm.cuh's: A (P x K) * Wt (K x N), row p of A output pixel
 // p's receptive field, column k = tap * cin + ci, the per-(batch, channel)
@@ -360,13 +361,19 @@ __device__ __forceinline__ void store_slice(const Staged<T>& s, float* As,
   store_w_slice<T>(s, Bs);
 }
 
+struct NoHook {
+  __device__ __forceinline__ void operator()() const {}
+};
+
 // The producers' side of the product: stages slice 0, then in iteration i stores
 // slice i + 1, loaded one iteration earlier, into stage (i + 1) % 2 and starts
 // the loads of slice i + 2 into the registers the store has freed, so that a
-// load has a whole iteration to arrive.
-template <class T, class X>
+// load has a whole iteration to arrive. hook() runs once, in iteration 0,
+// after the consumers have passed their first barrier of this product.
+template <class T, class X, class Hook = NoHook>
 __device__ __forceinline__ void produce(float* smem, const Operands& op,
-                                        const Geom& g, int n0, int nk) {
+                                        const Geom& g, int n0, int nk,
+                                        const Hook& hook = Hook()) {
   const int pt = threadIdx.x - T::NC;
   const int* iy0 = reinterpret_cast<const int*>(smem + T::ORG);
   const int* ix0 = iy0 + T::BM;
@@ -386,7 +393,46 @@ __device__ __forceinline__ void produce(float* smem, const Operands& op,
       store_slice<T, X>(s, As + nxt * T::A_WORDS, Bs + nxt * T::B_WORDS);
     if (i + 2 < nk)
       load_slice<T, X>(s, kc, op, g, iy0, ix0, (i + 2) * T::BK, n0);
+    if (i == 0) hook();
     block_sync<T::NT>();
+  }
+}
+
+// What the producers stage for the epilogues besides the product: nothing.
+struct NoStage {
+  __device__ __forceinline__ void block(int) const {}
+  __device__ __forceinline__ void tile(int) const {}
+};
+
+// The producers of the AKGM tail's per-group product (K1, K8 and K5's z
+// recompute): column tiles nt0 .. nt1 - 1 of the (9 * C / 8, 8 * C) weights
+// w in turn, each staging its group's g.cin = C / 8 channels of image b's
+// x * a + t (a, t null: x); a tile's first two slices are loaded and stored
+// while the consumers run the epilogue of the tile before. st.block(nt0)
+// runs first; st.tile(nt + 1) runs while the consumers multiply tile nt.
+template <class T, class Stage = NoStage>
+__device__ __forceinline__ void grouped_produce(
+    float* smem, const float* __restrict__ x, const float* __restrict__ a,
+    const float* __restrict__ t, const float* __restrict__ w, const Geom& g,
+    int b, int nt0, int nt1, int nk, bool vec_a,
+    const Stage& st = Stage()) {
+  const int C = g.C;
+  st.block(nt0);
+  for (int nt = nt0; nt < nt1; ++nt) {
+    const int n0 = nt * T::BN;
+    const int cin0 = (n0 / C) * g.cin;
+    Operands op;
+    op.xb = x + (int64_t)b * g.H * g.W * C + cin0;
+    op.ab = a ? a + (int64_t)b * C + cin0 : nullptr;
+    op.tb = t ? t + (int64_t)b * C + cin0 : nullptr;
+    op.att = nullptr;
+    op.w = w;
+    op.ncols = 8 * C;
+    op.vec_a = vec_a;
+    op.vec_w = true;
+    produce<T, Affine>(smem, op, g, n0, nk, [&] {
+      if (nt + 1 < nt1) st.tile(nt + 1);
+    });
   }
 }
 

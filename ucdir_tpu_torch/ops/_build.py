@@ -37,7 +37,7 @@ LAUNCHES = {'akgm_tail': 0, 'conv3x3': 0, 'conv1x1': 0, 'gn1_stats': 0,
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: pointers and the stream as void*, sizes and flags as int.
 _SIGNATURES = {
-    'akgm_tail': [_P] * 11 + [_I] * 4 + [_P],
+    'akgm_tail': [_P] * 12 + [_I] * 4 + [_P],
     'conv3x3': [_P] * 8 + [_I] * 7 + [_P],
     'conv1x1': [_P] * 4 + [_I] * 6 + [_P],
     'gn1_stats': [_P] * 3 + [_I] * 3 + [_P],

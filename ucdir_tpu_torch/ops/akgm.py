@@ -13,6 +13,8 @@ kernel (3, 3, C / G, C * G) reshaped to (9 * C / G, C * G).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -57,35 +59,45 @@ def _akgm_block_tail_forward(h, att_sp, w, bias, res, nset, norm_scale,
             norm_shift=norm_shift, attw=attw, emit_stats=emit_stats)
         return (y[0], *y[1]) if emit_stats else (y, None, None)
     B, H, W, C = h.shape
-    dev = _check_operands(h, att_sp, w, bias, nset, norm_scale, norm_shift,
-                          attw)
+    dev = _check_operands('K1', h, att_sp, w, bias, nset, norm_scale,
+                          norm_shift, attw)
     _build.check('res', res, (B, H, W, C), device=dev)
     out = torch.empty_like(h)
-    s = q = None
+    wp = permuted_columns(w)
+    s = q = ws = None
     if emit_stats:
-        s = torch.zeros(B, C, device=dev, dtype=torch.float32)
-        q = torch.zeros_like(s)
+        s = torch.empty(B, C, device=dev, dtype=torch.float32)
+        q = torch.empty_like(s)
+        ws = torch.empty(B, stats_tiles(H * W, C), 2, C, device=dev,
+                         dtype=torch.float32)
     _build.launch('akgm_tail', h.data_ptr(), att_sp.data_ptr(),
-                  _build.ptr(attw), w.data_ptr(), bias.data_ptr(),
+                  _build.ptr(attw), wp.data_ptr(), bias.data_ptr(),
                   res.data_ptr(), _build.ptr(norm_scale),
                   _build.ptr(norm_shift), out.data_ptr(), _build.ptr(s),
-                  _build.ptr(q), B, H, W, C, _build.stream(h))
+                  _build.ptr(q), _build.ptr(ws), B, H, W, C,
+                  _build.stream(h))
     return out, s, q
 
 
-def _check_operands(h, att_sp, w, bias, nset, norm_scale, norm_shift, attw,
-                    packed=False):
-    """Raises on what the AKGM kernels do not take; w is the grouped kernel
-    (9 * C / G, C * G), or with `packed` the dense (9 * C, C)."""
+def _check_operands(kernel, h, att_sp, w, bias, nset, norm_scale, norm_shift,
+                    attw):
+    """Raises on what AKGM kernel `kernel` ('K1', 'K5', 'K8' or 'K9') does
+    not take; w is the grouped kernel (9 * C / G, C * G), for K9 the dense
+    (9 * C, C)."""
     B, H, W, C = h.shape
-    if nset != 8 or C % 64:
-        raise ValueError('the AKGM kernels need nset == 8 and C %% 64 == 0, '
-                         'got nset=%d, C=%d' % (nset, C))
+    if nset != 8:
+        raise ValueError('%s needs nset == 8, got nset=%d' % (kernel, nset))
+    if kernel == 'K5' and (C % 64 or (C > 64 and C % 128)):
+        # its 128-column tiles would straddle two groups at C = 192, 320, ..
+        raise ValueError('K5 (the AKGM tail backward) needs C == 64 or C a '
+                         'multiple of 128, got C=%d' % C)
+    if C % 8:
+        raise ValueError('%s needs C %% 8 == 0, got C=%d' % (kernel, C))
     dev = h.device
     _build.check('h', h)
     _build.check('att_sp', att_sp, (B, H, W, nset), device=dev)
-    _build.check('w', w, (9 * C, C) if packed else (9 * C // nset, C * nset),
-                 device=dev)
+    _build.check('w', w, (9 * C, C) if kernel == 'K9'
+                 else (9 * C // nset, C * nset), device=dev)
     _build.check('bias', bias, (C * nset,), device=dev)
     _build.check('norm_scale', norm_scale, (B, C), device=dev)
     _build.check('norm_shift', norm_shift, (B, C), device=dev)
@@ -123,36 +135,65 @@ def akgm_block_tail_backward_plain(h, att_sp, w, bias, go, nset: int, *,
             dz.sum(dim=(0, 2, 3)), dattw)
 
 
-def do_tile_cols(C):
-    """The column tile of K5's z recompute (`csrc/akgm_tail_bwd.cu`): 128
-    wide from C = 128, 64 at C = 64, so that a tile lies in one group."""
-    return 128 if C >= 128 else 64
+def tail_tile(C):
+    """(pixels, columns) of the tile of K1's and K8's product
+    (`csrc/akgm_tail.cu`), and of K5's z recompute, which takes C = 64 and
+    multiples of 128: 128 x 128 where C % 128 == 0, 256 x 64 where C % 64 ==
+    0, else 128 pixels by the widest of 32, 16 and 8 columns that divides C,
+    so that a tile lies in one group."""
+    if C % 128 == 0:
+        return 128, 128
+    if C % 64 == 0:
+        return 256, 64
+    return 128, next(bn for bn in (32, 16, 8) if C % bn == 0)
+
+
+def stats_tiles(P, C):
+    """Pixel tiles of an image of P pixels in K1's product: the rows of its
+    (B, tiles, 2, C) statistics workspace, one partial sum and sum of
+    squares per tile and channel."""
+    return -(-P // tail_tile(C)[0])
 
 
 def tile_columns(n, bn):
-    """The logical column that each physical column of K5's z recompute
-    holds, (n,) int64: in a tile of `bn` columns a consumer thread holds the
-    physical columns 4 i + r and bn / 2 + 4 i + r (r < 4; igemm_pc.cuh), and
-    they must be channel i's candidates 0..7, logical 8 i + 4 h + r."""
+    """The logical column that each physical column of K1's, K8's and K5's
+    grouped product holds, (n,) int64: in a tile of `bn` columns a consumer
+    thread holds the physical columns 4 i + r and bn / 2 + 4 i + r (r < 4;
+    igemm_pc.cuh), and they must be channel i's candidates 0..7, logical
+    8 i + 4 h + r."""
     p = torch.arange(n)
     tile, r = p // bn, p % bn
     half, rest = r // (bn // 2), r % (bn // 2)
     return tile * bn + (rest // 4) * 8 + half * 4 + rest % 4
 
 
+@functools.lru_cache(maxsize=None)
+def _tile_columns_on(n, bn, device):
+    return tile_columns(n, bn).to(device)
+
+
+def permuted_columns(w):
+    """The grouped kernel (9 * C / G, C * G) with its columns permuted within
+    each tile of `tail_tile`, as the grouped product's kernels take it: a
+    gather per call, since the weights change in training."""
+    n = w.shape[1]
+    return w[:, _tile_columns_on(n, tail_tile(n // 8)[1],
+                                 w.device)].contiguous()
+
+
 def akgm_block_tail_backward_kernel(h, att_sp, w, bias, go, nset,
                                      norm_scale, norm_shift, attw):
     """K5 on CUDA tensors: (dhh, datt_sp, dw, dbias, dattw)."""
     B, H, W, C = h.shape
-    dev = _check_operands(h, att_sp, w, bias, nset, norm_scale, norm_shift,
-                          attw)
+    dev = _check_operands('K5', h, att_sp, w, bias, nset, norm_scale,
+                          norm_shift, attw)
     _build.check('go', go, (B, H, W, C), device=dev)
     cg = C // nset
     # per-group weights of the transposed conv: (G, 9 * C, C / G), taps
     # flipped, wf[g][tap * C + n][ci] = w[(8 - tap) * C/G + ci][g * C + n]
     wf = (w.reshape(9, cg, nset, C).flip(0).permute(2, 0, 3, 1).contiguous())
     # the z recompute's weights and bias, columns permuted within each tile
-    cols = tile_columns(C * nset, do_tile_cols(C)).to(w.device)
+    cols = _tile_columns_on(C * nset, tail_tile(C)[1], w.device)
     wp, bp = w[:, cols].contiguous(), bias[cols].contiguous()
     do = torch.empty_like(h)             # scratch: go * swish'(o)
     aa = None if attw is None else torch.empty_like(att_sp)  # att * attw
@@ -228,7 +269,8 @@ def akgm_block_tail(h, att_sp, w, bias, res, nset: int, *, norm_scale=None,
     h, res (B, H, W, C); att_sp (B, H, W, G); w (9 * C / G, C * G); bias
     (C * G); norm_scale, norm_shift (B, C) or None; attw (B, G) or None.
     With emit_stats, returns (out, (sum, sumsq)) of out per (batch, channel).
-    The kernels take G = 8 and C a multiple of 64 (the SID widths 64..512).
+    The kernels take G = 8; K1 takes C a multiple of 8, its backward K5 C =
+    64 or a multiple of 128 (the SID widths 64..512).
     """
     if (norm_scale is None) != (norm_shift is None):
         raise ValueError('norm_scale and norm_shift come together')
@@ -248,11 +290,11 @@ class _AkgmMix(torch.autograd.Function):
         if _build.on_host(h):
             return akgm_mix_reference(h, att_sp, w, bias, nset)
         B, H, W, C = h.shape
-        _check_operands(h, att_sp, w, bias, nset, None, None, None)
-        out = torch.empty_like(h)
+        _check_operands('K8', h, att_sp, w, bias, nset, None, None, None)
+        wp, out = permuted_columns(w), torch.empty_like(h)
         _build.launch('akgm_mix', h.data_ptr(), att_sp.data_ptr(),
-                      w.data_ptr(), bias.data_ptr(), out.data_ptr(), B, H, W,
-                      C, _build.stream(h))
+                      wp.data_ptr(), bias.data_ptr(), out.data_ptr(), B, H,
+                      W, C, _build.stream(h))
         return out
 
     @staticmethod
@@ -320,8 +362,8 @@ class _AkgmBlockTailPacked(torch.autograd.Function):
                 h, att_sp, w_packed, bias, res, nset, norm_scale=norm_scale,
                 norm_shift=norm_shift, attw=attw)
         B, H, W, C = h.shape
-        dev = _check_operands(h, att_sp, w_packed, bias, nset, norm_scale,
-                              norm_shift, attw, packed=True)
+        dev = _check_operands('K9', h, att_sp, w_packed, bias, nset,
+                              norm_scale, norm_shift, attw)
         _build.check('res', res, (B, H, W, C), device=dev)
         out = torch.empty_like(h)
         _build.launch('akgm_packed', h.data_ptr(), att_sp.data_ptr(),
