@@ -21,11 +21,13 @@ on any failure:
               kernel's product is fp32 FMA). K2 and K3 also at the shapes
               that pick their other tiles: the 64 -> 3 `final` conv (8-wide
               tile) and the 1024 -> 512 convs of the /8 level (128-wide
-              tile), and K1 and K8 at C = 8, 16 and 32 (the narrow tiles) on
-              the frame's /8 level. K1, K5 and K6 run twice: K1's statistics,
-              K5's and K6's weight and bias gradients (and K5's attention
-              gradient) must be equal bit for bit; K6's library time in the
-              swish cases includes the F.conv2d that recomputes z.
+              tile), K1 and K8 at C = 8, 16 and 32 (the narrow tiles) on
+              the frame's /8 level, and K5 at C = 32 (288 x 288) and 192 (36 x
+              36), widths of narrower models. K1, K5 and K6 run twice: K1's
+              statistics, K5's and K6's weight and bias gradients (and K5's
+              attention gradients) must be equal bit for bit; K6's library
+              time in the swish cases includes the F.conv2d that recomputes
+              z.
   3. slice    the full-width SID model (random weights from --seed) restores
               a 96 x 96 input with 2 steps and injected noise on the card and
               on the host (plain versions); the outputs must agree.
@@ -39,7 +41,9 @@ on any failure:
   6. train_slice  full width, crop 64, batch 2, dropout off, injected gammas
               and noise, 2 AdamW steps on the card and on the host: the loss
               of each step, every gradient of the first step and every
-              parameter after the second must agree.
+              parameter after the second must agree; then the same for the
+              model with inner_channel 24 (C = 24, 48, 96, 192: K1's and
+              K5's narrow and 64-column tiles on the train path).
   7. train    the Trainer in its train phase at full width: crop 256 (288 x
               288 in the network), batch 32 (halved while it does not fit),
               8 optimize_parameters on one seeded batch with dropout on:
@@ -382,23 +386,30 @@ def kernel_cases(gen, dev):
 
     # the backward kernels at the train path's shapes
     B, T = KERNEL_BATCH, TRAIN_NET
-    for C, s in ((64, 1), (128, 2), (256, 4), (512, 8), (512, 16)):
-        H = T // s
-        h, att, w, b, kw, flop = akgm_operands(B, H, H, C)
-        go = rnd(B, H, H, C)
+
+    def k5_case(C, H, gen=gen):
+        h, att, w, b, kw, flop = akgm_operands(B, H, H, C, gen=gen)
+        go = rnd(B, H, H, C, gen=gen)
         cases.append(dict(
             name='akgm_tail_bwd',
             label='B=%d C=%d %dx%d fold+attw' % (B, C, H, H),
-            kernel=lambda h=h, att=att, w=w, b=b, go=go, kw=kw:
-                akgm.akgm_block_tail_backward_kernel(
-                    h, att, w, b, go, G, kw['norm_scale'], kw['norm_shift'],
-                    kw['attw']),
-            plain=lambda h=h, att=att, w=w, b=b, go=go, kw=kw:
-                akgm.akgm_block_tail_backward_plain(h, att, w, b, go, G,
-                                                    **kw),
-            library=None, stats=0, fixed=(1, 2, 3), flop=3 * flop,
+            kernel=lambda: akgm.akgm_block_tail_backward_kernel(
+                h, att, w, b, go, G, kw['norm_scale'], kw['norm_shift'],
+                kw['attw']),
+            plain=lambda: akgm.akgm_block_tail_backward_plain(
+                h, att, w, b, go, G, **kw),
+            library=None, stats=0, fixed=(1, 2, 3, 4), flop=3 * flop,
             bytes=nbytes(h, go, att, w, b, *kw.values(), h, att, w, b,
                          kw['attw'])))
+
+    for C, s in ((64, 1), (128, 2), (256, 4), (512, 8), (512, 16)):
+        k5_case(C, T // s)
+    # K5 at the widths of narrower models: C = 32 on the narrow tiles (inner
+    # channel 32, level 0) and C = 192 on 256 x 64 (inner channel 24, /8),
+    # from a generator of their own like K7's
+    gen_k5 = torch.Generator(dev).manual_seed(gen.initial_seed() + 5)
+    k5_case(32, T, gen=gen_k5)
+    k5_case(192, T // 8, gen=gen_k5)
     bw = dict(backward=True)
     conv_case('B=%d downs_0 6->64 %dx%d' % (B, T, T), B, T, T, 6, 64, **bw)
     conv_case('B=%d conv1 192->64 %dx%d fold+swish' % (B, T, T), B, T, T,
@@ -428,7 +439,7 @@ def phase_kernels(dev, seed, results):
         torch.cuda.synchronize()
         # tolerances, float32 on both sides: a tensor output (the gradients
         # of K5 and K6 among them, whose weight, bias and attention parts
-        # are sums over up to 0.66 M pixels added with atomics) within 1e-4
+        # are sums over up to 0.66 M pixels in another order) within 1e-4
         # of max(1, its largest magnitude); (B, C) sums and sums of squares
         # of up to 3.6 M values, added in another order (K1 per pixel tile,
         # then over the tiles; K2, K4 with atomics), within 1e-5 of the
@@ -451,7 +462,7 @@ def phase_kernels(dev, seed, results):
                      % (name, label, i, errs[-1], tol))
             rels.append(errs[-1] / max(big, 1e-30))
         # K1's statistics, the weight and bias gradients of K5 and K6, and
-        # K5's attention gradient are added in a fixed order: a second call
+        # K5's attention gradients are added in a fixed order: a second call
         # gives the same bits
         if case.get('fixed'):
             again = flat(case['kernel']())
@@ -665,13 +676,14 @@ def phase_sid(dev, seed):
 
 
 # ------------------------------------------------------------- phases 6-7
-def phase_train_slice(dev, seed):
-    """Two AdamW steps of the full-width model on a 64 x 64 batch of 2 with
-    dropout off and injected draws, on the card (kernels K1..K6) and on the
-    host (their plain versions)."""
+def phase_train_slice(dev, seed, **unet):
+    """Two AdamW steps of the full-width model (`unet` overrides) on a 64 x
+    64 batch of 2 with dropout off and injected draws, on the card (kernels
+    K1..K6) and on the host (their plain versions)."""
     import numpy as np
     import torch
     from ucdir_tpu_torch.configs import SID_MODEL
+    from ucdir_tpu_torch.ops import _build
     from ucdir_tpu_torch.schedule import make_schedule
     from ucdir_tpu_torch.train import (create_train_state, make_optimizer,
                                        train_step)
@@ -683,9 +695,10 @@ def phase_train_slice(dev, seed):
     draws = [{'gammas': rng.uniform(0.3, 0.95, (2, 1)).astype(np.float32),
               'noise': rng.standard_normal(hr.shape).astype(np.float32)}
              for _ in range(2)]
-    host = build_model(seed)      # eval(): dropout off, autograd on
+    host = build_model(seed, **unet)   # eval(): dropout off, autograd on
     card = copy.deepcopy(host).to(dev)
     run = {}
+    _build.reset_launches()
     for name, model, d in (('cuda', card, dev), ('cpu', host, 'cpu')):
         state = create_train_state(
             model, make_optimizer(model.parameters(), {'type': 'adamw',
@@ -705,6 +718,11 @@ def phase_train_slice(dev, seed):
                      {k: v.detach().cpu() for k, v in
                       model.state_dict().items()}, time.perf_counter() - t)
     (l_c, g_c, p_c, s_c), (l_h, g_h, p_h, s_h) = run['cuda'], run['cpu']
+    launches = dict(_build.LAUNCHES)
+    missing = [k for k in ('akgm_tail', 'akgm_tail_bwd', 'conv3x3_bwd')
+               if launches[k] == 0]
+    if missing:
+        fail('train_slice: kernels never launched: %s' % missing)
     # float32 on both sides, sums in other orders (atomics, cuDNN, oneDNN)
     # through ~70 layers forward and back. Limits from readings on an H100
     # (PERF.md): the first loss within 1e-5 rel and the second, taken on
@@ -738,12 +756,13 @@ def phase_train_slice(dev, seed):
         p_err = max(p_err, diff.max().item())
         p_mean += diff.sum().item()
         n += diff.numel()
-    say('train_slice', 'full width, 64x64, batch 2, 2 AdamW steps: losses '
+    say('train_slice', '%s, 64x64, batch 2, 2 AdamW steps: losses '
         'card %s host %s; largest gradient err %.3e of its parameter\'s '
         'largest gradient (tol 1e-3); parameters after: max diff %.3e (tol '
-        '4.04e-4), mean diff %.3e; card %.2f s, host %.2f s'
-        % (json.dumps(l_c), json.dumps(l_h), g_err, p_err, p_mean / n, s_c,
-           s_h))
+        '4.04e-4), mean diff %.3e; card %.2f s, host %.2f s; launches %s'
+        % (json.dumps(unet) if unet else 'full width', json.dumps(l_c),
+           json.dumps(l_h), g_err, p_err, p_mean / n, s_c, s_h,
+           json.dumps(launches)))
 
 
 def phase_train(dev, seed):
@@ -1103,6 +1122,7 @@ def main(argv=None):
     counts = {'main': phase_main(dev, args.seed)}
     phase_sid(dev, args.seed)
     phase_train_slice(dev, args.seed)
+    phase_train_slice(dev, args.seed, inner_channel=24)
     counts['train'] = phase_train(dev, args.seed)
     phase_variants(dev, args.seed, counts)
     phase_fewstep(dev, args.seed, counts)

@@ -12,7 +12,12 @@ tests/test_torch_port_gpu.py).
 - The weight gradients reduce per-chunk partials from a workspace whose
   plan (`ops/conv.py` `wgrad_splits`) must hold its cap at every SID train
   shape at batch 32: the sites are recorded from the full-width SID model's
-  backward at a small crop and scaled to crop 256.
+  backward at a small crop and scaled to crop 256. K5's weight-gradient tile
+  (`wgrad_tile`, as `launch_wgrad` chooses it) lies in one group at every
+  width K5 takes, and K6's (one group) is chosen by width as before.
+- K9's staging (`csrc/igemm_pc.cuh`, `AttScaled`) takes the input group of
+  each staged channel by additions as a producer's column advances slice by
+  slice; mirrored here, it is c // (C / 8) at every tap and channel.
 
 Tolerance: the permuted product is the same sums in the same order, exact;
 the gradients through it 1e-6 abs (float32, the same ops on permuted
@@ -73,7 +78,7 @@ def permuted_tail(h, att, w, bias, res, *, norm_scale, norm_shift, attw):
     return conv.swish(o) + res
 
 
-@pytest.mark.parametrize('C', [64, 128])
+@pytest.mark.parametrize('C', [8, 24, 64, 128, 192])
 def test_permuted_grouped_product_is_the_tail_and_its_backward(C):
     rng = np.random.default_rng(C)
     B, H, W = 2, 5, 6
@@ -144,7 +149,7 @@ def test_wgrad_plan_fits_its_cap_at_the_sid_train_shapes():
             K, N, cols = 9 * C // G, C * G, C
         npix = batch * H * W
         s = conv.wgrad_splits(K, N, cols, npix)
-        bm, bn, per_sm = conv.wgrad_tile(cols, K)
+        bm, bn, per_sm = conv.wgrad_tile(cols, K, N)
         tiles = -(-K // bm) * -(-N // bn)
         assert s >= 1 and s * (K + 1) * N * 4 <= conv.WGRAD_CAP_BYTES, site
         assert npix / s >= conv.WGRAD_MIN_CHUNK, site
@@ -167,3 +172,61 @@ def test_wgrad_splits_follows_the_tile_and_the_card():
     assert conv.wgrad_splits(9216, 512, 512, 32 * 36 * 36) == 3
     # a small image: the least chunk bounds S
     assert conv.wgrad_splits(54, 64, 64, 1000) == 4
+
+
+def test_wgrad_tile_lies_in_one_group_at_every_width():
+    """K5's weight gradient (N = 8 C columns in groups of C) runs on a tile
+    whose columns divide C from C = 8 to 512: 128 where C % 128 == 0, 64
+    where C % 64 == 0 (by K), else 32, 16 or 8 (64 rows up to K = 64, 128
+    above). K6 (one group of N = cout) keeps its tile by width."""
+    for C in range(8, 513, 8):
+        K = 9 * C // G
+        bm, bn, _ = conv.wgrad_tile(C, K, C * G)
+        assert C % bn == 0, C
+        assert bn == (128 if C % 128 == 0 else 64 if C % 64 == 0 else
+                      next(b for b in (32, 16, 8) if C % b == 0)), C
+        if bn == 64:
+            assert bm == (64 if K <= 64 else 96 if K <= 96 else 256)
+        elif bn < 64:
+            assert bm == (64 if K <= 64 else 128)
+    for cout, K, want in ((3, 576, (128, 8)), (64, 54, (64, 64)),
+                          (64, 1728, (256, 64)), (130, 630, (128, 128)),
+                          (192, 3456, (128, 128)), (512, 9216, (128, 128))):
+        assert conv.wgrad_tile(cout, K, cout)[:2] == want, cout
+
+
+def packed_groups(C, BK=16, KG=4):
+    """The input group of every k a K9 producer stages, as the kernel
+    advances it (`load_slice` and `produce`, AttScaled): a producer's first
+    column 4 * kg, its tap, channel, group and place in the group set once
+    by division, then per slice the groups of its 4 channels by a running
+    count and the column BK further by additions. Returns {k: group}."""
+    cg = C // G
+    got = {}
+    for kg in range(KG):
+        tap, ci = divmod(4 * kg, C)
+        grp, gc = divmod(ci, cg)
+        for sl in range(-(-9 * C // BK)):
+            gv, cv = grp, gc
+            for j in range(4):
+                if tap < 9:
+                    k = tap * C + ci + j
+                    assert k == sl * BK + 4 * kg + j
+                    got[k] = gv
+                cv += 1
+                if cv == cg:
+                    cv, gv = 0, gv + 1
+            gc += BK
+            while gc >= cg:
+                gc, grp = gc - cg, grp + 1
+            ci += BK
+            while ci >= C:
+                ci, tap, grp = ci - C, tap + 1, grp - G
+    return got
+
+
+@pytest.mark.parametrize('C', [8, 16, 24, 32, 40, 56, 64, 96, 128, 192, 512])
+def test_packed_staging_groups_by_additions_are_c_over_cg(C):
+    got = packed_groups(C)
+    assert sorted(got) == list(range(9 * C))
+    assert all(g == (k % C) // (C // G) for k, g in got.items())

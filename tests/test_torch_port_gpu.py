@@ -12,19 +12,20 @@ and 1e-5 of the largest sum of squares for the (B, C) statistics, which
 the kernels add in another order than the plain versions (K2, K3 and K4
 with atomics). The backward kernels K5 and K6
 add their weight and bias gradients per chunk of pixels in a fixed order
-(the same bits in two calls) and K5 its attention gradients with atomics:
-every output of theirs within 1e-4 of max(1, largest |reference| of that
-output). K5's input gradient runs on tiles of 8, 16, 32 and 64 columns
-(C = 64, 128, 256, 512), its z recompute and both weight gradients on
-tiles of 64 and 128 columns, and K6's on the tiles of K2.
+(the same bits in two calls), and K5 its attention gradients per pixel tile
+in a fixed order too: every output of theirs within 1e-4 of max(1, largest
+|reference| of that output). K5 takes every C % 8 == 0: its z recompute
+runs on K1's tile for C (128 x 128, 256 x 64, 128 by 32, 16 or 8 columns),
+its weight gradient on the widest tile whose columns divide C, its input
+gradient on tiles of 8, 16, 32 and 64 columns; its cases include C = 8, 16,
+24, 32, 96 and 192. K6's run on the tiles of K2.
 K7, K8 and K9 (the pre-activated conv, the mix alone, the packed tail) are
 held to the same 1e-4 at small and ragged shapes and at the shapes of the
 validation path: one 1568 x 2272 frame and its levels, one 1024 x 1024 tile.
 K1 and K8 run on tiles of 128 x 128 (C % 128 == 0), 256 x 64 (C % 64 ==
 0) and 128 pixels by 32, 16 or 8 columns (other multiples of 8): their
 cases and K9's include C = 8, 16, 24, 32 and 192. K1 adds its statistics
-without atomics: they are held to the same bits in a second call, and K5's
-refusal of the widths it does not take is checked.
+without atomics: they are held to the same bits in a second call.
 K2 and K3 run on tiles of 128 pixels by 128 or 8 columns, or 256 by 64, in k
 slices of 16: their cases include cout 3, 8, 9 and 130, cin 4, 6 and 70, P
 one short of and one past a pixel tile, stride 2 on odd sizes and B = 3.
@@ -252,12 +253,16 @@ def _chunks_split_an_image(dev, K, N, cols, B, H, W):
     ('k6', (2, 37, 29, 64, 64, 'swish')), ('k6', (3, 19, 23, 6, 64, None)),
     ('k6', (2, 21, 17, 192, 3, 'swish')), ('k6', (2, 23, 21, 512, 128, None)),
     ('k5', (2, 31, 27, 64)), ('k5', (3, 17, 19, 128)),
-    ('k5', (2, 13, 11, 256)), ('k5', (2, 21, 23, 512))])
+    ('k5', (2, 13, 11, 256)), ('k5', (2, 21, 23, 512)),
+    ('k5', (2, 31, 27, 8)), ('k5', (2, 29, 23, 16)), ('k5', (2, 21, 19, 24)),
+    ('k5', (2, 25, 23, 32)), ('k5', (2, 17, 15, 96)),
+    ('k5', (2, 13, 11, 192))])
 def test_backward_weight_gradients_repeat_bit_for_bit(dev, kind, shape):
     """dW and dbias of K5 and K6 are partial tiles of pixel chunks added in
-    a fixed order, and K5's datt the sum of a block's column tiles: two calls
-    give the same bits, where the chunks split images and the pixel count is
-    not a multiple of the 16-pixel slice."""
+    a fixed order, K5's datt the sum of a block's column tiles and its dattw
+    per pixel tile sums added in a fixed order: two calls give the same
+    bits, where the chunks split images and the pixel count is not a
+    multiple of the 16-pixel slice."""
     gen, G = torch.Generator(dev).manual_seed(13), 8
     if kind == 'k6':
         B, H, W, cin, cout, act = shape
@@ -278,7 +283,7 @@ def test_backward_weight_gradients_repeat_bit_for_bit(dev, kind, shape):
         assert _chunks_split_an_image(dev, 9 * C // G, C * G, C, B, H, W)
         run = lambda: akgm.akgm_block_tail_backward_kernel(
             h, att, w, b, go, G, ns, nt, aw)
-        fixed, want = (1, 2, 3), akgm.akgm_block_tail_backward_plain(
+        fixed, want = (1, 2, 3, 4), akgm.akgm_block_tail_backward_plain(
             h, att, w, b, go, G, norm_scale=ns, norm_shift=nt, attw=aw)
     assert (H * W) % 16
     first, second = run(), run()
@@ -387,20 +392,32 @@ def test_akgm_packed_narrow(dev, B, H, W, C, fold):
           0)
 
 
-@pytest.mark.parametrize('C', [8, 32, 192])
-def test_akgm_tail_backward_refuses_what_k5_does_not_take(dev, C):
-    """K5 takes C = 64 and multiples of 128; a narrower model's training on
-    the card raises, naming K5, and never falls back to the plain version."""
+@pytest.mark.parametrize('B,H,W,C', NARROW + [(2, 11, 9, 96)])
+@pytest.mark.parametrize('fold_attw', [False, True])
+def test_akgm_tail_backward_narrow(dev, B, H, W, C, fold_attw):
+    """K5 at the widths of narrower models: the narrow tiles of the z
+    recompute, weight-gradient tiles that divide C, and the input gradient's
+    8-, 16- and 32-column tiles with ragged groups (C / 8 = 1, 2, 3, 4, 12,
+    24), against its plain version, every output."""
     gen, G = torch.Generator(dev).manual_seed(17), 8
-    h, att, w, b, res, kw = tail_operands(gen, 1, 4, 5, C, True)
-    with pytest.raises(ValueError, match='K5'):
-        akgm.akgm_block_tail_backward(h, att, w, b, res, G, **kw)
-    w.requires_grad_()
-    out = akgm.akgm_block_tail(h, att, w, b, res, G, **kw)
+    h, att, w, b = akgm_operands(gen, B, H, W, C)
+    go = rnd(gen, B, H, W, C)
+    kw = {}
+    if fold_attw:
+        kw.update(norm_scale=rnd(gen, B, C, scale=0.2, off=1.0),
+                  norm_shift=rnd(gen, B, C, scale=0.2),
+                  attw=rnd(gen, B, G, scale=0.3, off=1.0))
     n = _build.LAUNCHES['akgm_tail_bwd']
-    with pytest.raises(ValueError, match='K5'):
-        out.sum().backward()
-    assert _build.LAUNCHES['akgm_tail_bwd'] == n
+    got = akgm.akgm_block_tail_backward_kernel(
+        h, att, w, b, go, G, kw.get('norm_scale'), kw.get('norm_shift'),
+        kw.get('attw'))
+    assert _build.LAUNCHES['akgm_tail_bwd'] == n + 1
+    want = akgm.akgm_block_tail_backward_plain(h, att, w, b, go, G, **kw)
+    if fold_attw:
+        check(got, want, 0)
+    else:
+        assert got[4] is None and want[4] is None
+        check(got[:4], want[:4], 0)
 
 
 def test_new_functions_backward_on_the_card(dev):

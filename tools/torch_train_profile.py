@@ -4,6 +4,7 @@ port goes on the card.
 
     python3 tools/torch_train_profile.py [--batch 32] [--crop 256] [--seed 0]
     python3 tools/torch_train_profile.py --val [--steps 2] [--seed 0]
+                                         [--tail fused|mix|packed]
 
 Builds the Trainer of `ucdir_tpu_torch` in its train phase at the full SID
 width (random weights from --seed, one seeded batch), takes two warm-up steps,
@@ -16,8 +17,8 @@ recompute, weight gradient and its reduction, input gradient) and the
 launches of K1..K6 in that step. With --val it restores one 1424 x 2128 frame (1568 x 2272 in the
 network) with --steps DDPM steps instead, once to warm up and once traced:
 the same lines for that frame, whose time is one predictor pass plus --steps
-DY3h steps. Needs a CUDA card; prints the card's name
-and power limit first.
+DY3h steps, and with --tail the denoiser's AKGM tail (`DY3h(tail=...)`: K1,
+K8 or K9). Needs a CUDA card; prints the card's name and power limit first.
 """
 import argparse
 import copy
@@ -39,6 +40,9 @@ def main(argv=None):
                     help='trace a validation frame instead of a train step')
     ap.add_argument('--steps', type=int, default=2,
                     help='DDPM steps of the traced validation frame')
+    ap.add_argument('--tail', default='fused',
+                    choices=('fused', 'mix', 'packed'),
+                    help="the validation denoiser's AKGM tail")
     args = ap.parse_args(argv)
 
     import torch
@@ -55,7 +59,7 @@ def main(argv=None):
                          text=True, check=True).stdout.strip())
     dev = torch.device('cuda', 0)
     if args.val:
-        step = val_frame(dev, args.seed, args.steps)
+        step = val_frame(dev, args.seed, args.steps, args.tail)
     else:
         step = train_step(dev, args)
     _build.reset_launches()
@@ -93,6 +97,7 @@ def main(argv=None):
 # kernel name -> the port's kernel and launch (csrc/*.cu), first match wins
 PARTS = (
     (('akgm_do_kernel',), 'K5 do (z recompute)'),
+    (('dattw_reduce_kernel',), 'K5 dattw reduction'),
     (('wgrad_pc_kernel', 'DzD'), 'K5 dW'),
     (('wgrad_reduce_kernel', 'DzD'), 'K5 dW reduction'),
     (('akgm_dh_kernel',), 'K5 dh (input gradient)'),
@@ -107,6 +112,7 @@ PARTS = (
     (('stats_reduce_kernel',), 'K1 statistics reduction'),
     (('akgm_tail_kernel', ', false>'), 'K8'),
     (('gn1_stats',), 'K4'),
+    (('akgm_packed_kernel',), 'K9'),
 )
 
 
@@ -117,7 +123,7 @@ def launch_part(name):
     return None
 
 
-def val_frame(dev, seed, steps):
+def val_frame(dev, seed, steps, tail='fused'):
     """Warms up and returns a call that restores one SID frame."""
     import torch
     from ucdir_tpu_torch.configs import SID_MODEL, SID_VAL_SCHEDULE
@@ -127,6 +133,7 @@ def val_frame(dev, seed, steps):
 
     model_opt = copy.deepcopy(SID_MODEL)
     model_opt['beta_schedule']['val'] = dict(SID_VAL_SCHEDULE)
+    model_opt['unet']['tail'] = tail
     torch.manual_seed(seed)
     model = define_G({'model': model_opt}).eval().to(dev)
     sched = make_schedule(dict(SID_VAL_SCHEDULE, n_timestep=steps), dev)
@@ -141,8 +148,8 @@ def val_frame(dev, seed, steps):
     t = time.perf_counter()
     step()
     torch.cuda.synchronize()
-    print('frame 1424x2128 (network 1568x2272), %d DDPM steps: %.3f s'
-          % (steps, time.perf_counter() - t))
+    print("frame 1424x2128 (network 1568x2272), tail '%s', %d DDPM steps: "
+          '%.3f s' % (tail, steps, time.perf_counter() - t))
     return step
 
 

@@ -14,107 +14,246 @@
 // Replaces the TPU kernel B1p (ucdir_tpu/ops/akgm_pallas.py
 // _akgm_block_forward_packed). The TPU kernel scaled an im2col scratch row by
 // the expanded attention and got the folded shift from a ring of -t / a and
-// a correction matrix; here the implicit GEMM (igemm.cuh) scales each value
-// of A as it is staged, the shift rides the staged value h * a + t, and the
-// border is masked after the affine, so it is the affine's exact 0.
-// Bound: fp32 FMA issue (see igemm.cuh): 2 * 9 * C * C FLOP per pixel against
-// 4 * (3 * C + 8) bytes, the same count as K1's per-group product (the TPU
-// kernel saved 8x only against its own densified weights).
-#include "igemm.cuh"
+// a correction matrix. Here it is K2's dense implicit GEMM on the
+// producer/consumer core (igemm_pc.cuh), with:
+// - the staging pc::AttScaled: the producers apply the affine, mask the
+//   border (so it is the affine's exact 0), then multiply by the pixel's A
+//   of the column's input group. A thread's 4 columns are a 16-byte run of
+//   channels whose groups are carried by additions as the tap and the
+//   channel advance (a run crosses a group where C / G is not a multiple of
+//   4); A of the block's pixels sits in shared memory, staged by the whole
+//   block before the product;
+// - the epilogue's other operands in shared memory: the producers copy the
+//   tile's (BN, G) bias slice and its residual with cp.async in the first
+//   iteration of the product and wait for them in the last, so the copies
+//   ride under the product;
+// - the expression order of the kernel this one replaced: (affine -> mask) *
+//   A staged, one fmaf chain in ascending k, then v = fmaf(A[j], bias[n * G +
+//   j], v) for j = 0..7, swish, + residual, 16-byte stores: the same bits.
+// The tile follows C as K2's follows cout: 128 x 128 (with 8 producer warps)
+// from C = 128, 256 x 64 from 64, 128 pixels by 32, 16 or 8 columns below.
+// Bound: fp32 FMA issue: 2 * 9 * C * C FLOP per pixel against 4 * (3 * C +
+// 8) bytes, the same count as K1's per-group product (the TPU kernel saved
+// 8x only against its own densified weights).
+#include "igemm_pc.cuh"
 
 namespace {
 
-constexpr int G = 8;  // candidates per channel
+namespace pc = ucdir::pc;
+constexpr int G = 8;  // candidates per channel, input groups
 
-// Scales column c of A in block row m by that pixel's A[m][c / cg].
-struct AttScale {
-  const float* att;  // shared (BM, G): att * attw of the block's pixels
-  int cg;            // channels per group
-  __device__ __forceinline__ float apply(float v,
-                                         const ucdir::AffineLoader::Col& s,
-                                         int m) const {
-    return v * att[m * G + s.c / cg];
+// 128 x 128 with 8 producer warps: the staging scales every value, and with
+// pc::Wide's 4 the producers bound the product (12% slower at C >= 128).
+using Wide = pc::Tile<128, 128, 8, 8, 16, 8>;
+
+struct PackedArgs {
+  const float* h;     // (B, H, W, C)
+  const float* att;   // (B, H, W, G)
+  const float* attw;  // (B, G) or null
+  const float* w;     // (9 * C, C)
+  const float* bias;  // (C * G)
+  const float* res;   // (B, H, W, C)
+  const float* a;     // (B, C) or null
+  const float* t;
+  float* out;         // (B, H, W, C)
+  ucdir::Geom g;      // g.C = g.cin = C, g.K = 9 * C
+  int ntn;            // column tiles; blockIdx.x = pixel tile * ntn + column
+  bool vec_a;
+};
+
+// Shared memory past the tile's own, in words: the block's (BM, G) A, the
+// tile's (BN, G) bias slice and its (BM, BN) residual in rows of RS words.
+template <class T>
+struct Layout {
+  static constexpr int RS = T::BN + 4;
+  static constexpr int ATT = T::ORG + 2 * T::BM;
+  static constexpr int BIAS = ATT + T::BM * G;
+  static constexpr int RES = BIAS + T::BN * G;
+  static constexpr int BYTES = 4 * (RES + T::BM * RS);
+  static_assert(ATT % 4 == 0 && BIAS % 4 == 0 && RES % 4 == 0 && RS % 4 == 0,
+                "16-byte rows");
+  static_assert(BYTES <= 227 * 1024, "shared memory of a block");
+};
+
+// The producers' copies of the tile's bias slice and residual (zeros past
+// the image's pixels and past C), issued in iteration 0 of the product and
+// awaited in its last.
+template <class T>
+struct CopyOperands {
+  const PackedArgs* c;
+  float* smem;
+  int b, m0, n0, nk;
+
+  __device__ __forceinline__ void operator()(int i) const {
+    using L = Layout<T>;
+    if (i == 0) {
+      const int tid = threadIdx.x - T::NC;
+      const int C = c->g.C;
+      const int P = c->g.H * c->g.W;
+      for (int u = tid; u < T::BN * G / 4; u += T::NP) {
+        const int e = n0 * G + 4 * u;  // C * G % 4 == 0: whole runs
+        pc::cp_async16(smem + L::BIAS + 4 * u, c->bias + (e < C * G ? e : 0),
+                       e < C * G);
+      }
+      constexpr int Q = T::BN / 4;  // 16-byte runs of a row
+      for (int u = tid; u < T::BM * Q; u += T::NP) {
+        const int m = u / Q, n = n0 + 4 * (u % Q);
+        const bool in = m0 + m < P && n < C;  // C % 4 == 0
+        pc::cp_async16(smem + L::RES + m * L::RS + 4 * (u % Q),
+                       in ? c->res + ((int64_t)b * P + m0 + m) * C + n
+                          : c->res,
+                       in);
+      }
+    }
+    if (i == nk - 1) pc::cp_async_wait_all();
   }
 };
 
-__global__ void __launch_bounds__(ucdir::NT)
-    akgm_packed_kernel(const float* __restrict__ h,
-                       const float* __restrict__ att,
-                       const float* __restrict__ attw,
-                       const float* __restrict__ w,
-                       const float* __restrict__ bias,
-                       const float* __restrict__ res,
-                       const float* __restrict__ a, const float* __restrict__ t,
-                       float* __restrict__ out, ucdir::Geom g) {
-  __shared__ __align__(16) ucdir::Smem sm;
-  __shared__ float satt[ucdir::BM * G];
-  float acc[ucdir::TM][ucdir::TN];
-  const int C = g.C;
-  const int P = g.Ho * g.Wo;
-  const int b = blockIdx.z;
-  const int m0 = blockIdx.x * ucdir::BM;
-  const int n0 = blockIdx.y * ucdir::BN;
-  const int tid = threadIdx.x;
-  for (int i = tid; i < ucdir::BM * G; i += ucdir::NT) {
-    const int p = m0 + i / G;
-    const int j = i % G;
-    satt[i] = p < P ? att[((int64_t)b * P + p) * G + j] *
-                          (attw ? attw[b * G + j] : 1.f)
-                    : 0.f;
-  }
-  // igemm_core's first barrier publishes satt
-  AttScale rs;
-  rs.att = satt;
-  rs.cg = C / G;
-  ucdir::igemm_core(acc, sm, ucdir::affine_loader(h, a, t, g, b, 0), w, C, C,
-                    g, m0, n0, rs);
-
-  const int tm = tid / (ucdir::BN / ucdir::TN);
-  const int tn = tid % (ucdir::BN / ucdir::TN);
+// The consumers' epilogue: a thread's TM rows and TN columns, from shared
+// memory only.
+template <class T>
+__device__ __forceinline__ void packed_epilogue(
+    const float (&acc)[T::TM][T::TN], const PackedArgs& c, const float* smem,
+    int b, int m0, int n0) {
+  static_assert(T::GW == 4, "16-byte groups of columns");
+  using L = Layout<T>;
+  const int tn = threadIdx.x % T::NCX;
+  const int tm = threadIdx.x / T::NCX;
+  const int C = c.g.C;
+  const int P = c.g.H * c.g.W;
 #pragma unroll
-  for (int j = 0; j < ucdir::TN; ++j) {
-    const int n = n0 + tn * ucdir::TN + j;
-    if (n >= C) continue;
-    float bj[G];
+  for (int i = 0; i < T::TM; ++i) {
+    const int m = pc::tile_row<T>(tm, i);
+    if (m0 + m >= P) continue;
+    const float4 a0 = *reinterpret_cast<const float4*>(smem + L::ATT + m * G);
+    const float4 a1 =
+        *reinterpret_cast<const float4*>(smem + L::ATT + m * G + 4);
+    const float ap[G] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    float* orow = c.out + ((int64_t)b * P + m0 + m) * C + n0;
 #pragma unroll
-    for (int jj = 0; jj < G; ++jj) bj[jj] = bias[n * G + jj];
+    for (int g = 0; g < T::NG; ++g) {
+      const int nl = pc::tile_col<T>(tn, 4 * g);
+      if (n0 + nl >= C) continue;  // C % 4 == 0: the group is in or out
+      const float4 r =
+          *reinterpret_cast<const float4*>(smem + L::RES + m * L::RS + nl);
+      const float rv[4] = {r.x, r.y, r.z, r.w};
+      float v[4];
 #pragma unroll
-    for (int i = 0; i < ucdir::TM; ++i) {
-      const int m = tm * ucdir::TM + i;
-      if (m0 + m >= P) continue;
-      float v = acc[i][j];
+      for (int q = 0; q < 4; ++q) {
+        const float* bp = smem + L::BIAS + (nl + q) * G;
+        const float4 b0 = *reinterpret_cast<const float4*>(bp);
+        const float4 b1 = *reinterpret_cast<const float4*>(bp + 4);
+        const float bj[G] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+        float x = acc[i][4 * g + q];
 #pragma unroll
-      for (int jj = 0; jj < G; ++jj) v = fmaf(satt[m * G + jj], bj[jj], v);
-      const int64_t o = ((int64_t)b * P + m0 + m) * C + n;
-      out[o] = ucdir::swishf(v) + res[o];
+        for (int j = 0; j < G; ++j) x = fmaf(ap[j], bj[j], x);
+        v[q] = ucdir::swishf(x) + rv[q];
+      }
+      *reinterpret_cast<float4*>(orow + nl) = make_float4(v[0], v[1], v[2],
+                                                          v[3]);
     }
   }
+}
+
+// One BM x BN tile of image blockIdx.z.
+template <class T>
+__global__ void __launch_bounds__(T::NT) akgm_packed_kernel(PackedArgs c) {
+  using L = Layout<T>;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int b = blockIdx.z;
+  const int mt = blockIdx.x / c.ntn;
+  const int m0 = mt * T::BM;
+  const int n0 = (blockIdx.x - mt * c.ntn) * T::BN;
+  const int C = c.g.C;
+  const int P = c.g.H * c.g.W;
+  // A of the block's pixels, by the whole block: igemm_setup's barrier
+  // publishes it
+  for (int e = threadIdx.x; e < T::BM * G; e += T::NT) {
+    const int p = m0 + e / G;
+    const int j = e % G;
+    smem[L::ATT + e] = p < P ? c.att[((int64_t)b * P + p) * G + j] *
+                                   (c.attw ? c.attw[b * G + j] : 1.f)
+                             : 0.f;
+  }
+  const int nk = pc::igemm_setup<T>(smem, c.g, m0);
+  if (threadIdx.x >= T::NC) {
+    pc::Operands op;
+    op.xb = c.h + (int64_t)b * P * C;
+    op.ab = c.a ? c.a + (int64_t)b * C : nullptr;
+    op.tb = c.t ? c.t + (int64_t)b * C : nullptr;
+    op.att = nullptr;
+    op.ascale = smem + L::ATT;
+    op.w = c.w;
+    op.ncols = C;
+    op.cg = C / G;
+    op.vec_a = c.vec_a;
+    op.vec_w = true;
+    pc::produce<T, pc::AttScaled>(smem, op, c.g, n0, nk,
+                                  CopyOperands<T>{&c, smem, b, m0, n0, nk});
+  } else {
+    float acc[T::TM][T::TN];
+    pc::consume<T>(acc, smem, nk);
+    packed_epilogue<T>(acc, c, smem, b, m0, n0);
+  }
+}
+
+template <class T>
+int launch_tile(PackedArgs c, int B, cudaStream_t st) {
+  constexpr int bytes = Layout<T>::BYTES;
+  if (bytes > 48 * 1024) {
+    const int err = (int)cudaFuncSetAttribute(
+        akgm_packed_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    if (err) return err;
+  }
+  const int P = c.g.H * c.g.W;
+  c.ntn = (c.g.C + T::BN - 1) / T::BN;
+  akgm_packed_kernel<T><<<dim3((unsigned)((P + T::BM - 1) / T::BM) * c.ntn,
+                               1, B),
+                          T::NT, bytes, st>>>(c);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // h, res, out (B, H, W, C) NHWC; att (B, H, W, 8); attw (B, 8) or null;
 // w (9 * C, C) packed as above; bias (8 * C); a, t (B, C) or null. C must be
-// a multiple of 8 (the wrapper takes multiples of 64, as for K1). Returns
-// the launch's cudaError_t.
+// a multiple of 8; w, bias and res 16-byte aligned (cudaErrorMisalignedAddress
+// otherwise). Returns the launch's cudaError_t.
 extern "C" int ucdir_akgm_packed(const float* h, const float* att,
                                  const float* attw, const float* w,
                                  const float* bias, const float* res,
                                  const float* a, const float* t, float* out,
                                  int B, int H, int W, int C, void* stream) {
-  ucdir::Geom g;
-  g.H = H;
-  g.W = W;
-  g.C = C;
-  g.Ho = H;
-  g.Wo = W;
-  g.ks = 3;
-  g.stride = 1;
-  g.cin = C;
-  g.K = 9 * C;
-  dim3 grid((H * W + ucdir::BM - 1) / ucdir::BM,
-            (C + ucdir::BN - 1) / ucdir::BN, B);
-  akgm_packed_kernel<<<grid, ucdir::NT, 0, (cudaStream_t)stream>>>(
-      h, att, attw, w, bias, res, a, t, out, g);
-  return (int)cudaGetLastError();
+  if (!pc::aligned(w, 16) || !pc::aligned(bias, 16) || !pc::aligned(res, 16) ||
+      !pc::aligned(out, 16))
+    return (int)cudaErrorMisalignedAddress;
+  PackedArgs c = {};
+  c.h = h;
+  c.att = att;
+  c.attw = attw;
+  c.w = w;
+  c.bias = bias;
+  c.res = res;
+  c.a = a;
+  c.t = t;
+  c.out = out;
+  c.g.H = H;
+  c.g.W = W;
+  c.g.C = C;
+  c.g.Ho = H;
+  c.g.Wo = W;
+  c.g.ks = 3;
+  c.g.stride = 1;
+  c.g.cin = C;
+  c.g.K = 9 * C;
+  c.vec_a = pc::aligned(h, 16) &&
+            (a == nullptr || (pc::aligned(a, 16) && pc::aligned(t, 16)));
+  cudaStream_t st = (cudaStream_t)stream;
+  if (C >= 128) return launch_tile<Wide>(c, B, st);
+  if (C >= 64) return launch_tile<pc::Mid>(c, B, st);
+  if (C >= 32) return launch_tile<pc::Thin<32>>(c, B, st);
+  if (C >= 16) return launch_tile<pc::Thin<16>>(c, B, st);
+  return launch_tile<pc::Thin<8>>(c, B, st);
 }

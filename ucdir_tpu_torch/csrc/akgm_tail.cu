@@ -28,8 +28,8 @@
 //   is read in its own order.
 // - Every output is one accumulator over ascending k with fmaf, and the
 //   epilogue adds mix += (acc + b_j) * (att_j * attw_j) for j = 0..7, then
-//   swish, then the residual: the bits of the kernel on igemm.cuh that this
-//   one replaced.
+//   swish, then the residual: the bits of the single-role fp32 kernel that
+//   this one replaced.
 // - The tile follows the group's width C: 128 x 128 where C % 128 == 0, 256
 //   x 64 where C % 64 == 0, else 128 pixels by the widest of 32, 16 and 8
 //   columns that divides C, with one channel per consumer thread. A tile
@@ -59,11 +59,6 @@ namespace {
 namespace pc = ucdir::pc;
 constexpr int G = 8;       // candidates per channel; a consumer thread's TN
 constexpr int MAX_CW = 8;  // column tiles a block walks, at most
-
-// 128 pixels by 8, 16 or 32 columns (C not a multiple of 64): 4 x 8 outputs
-// a thread, one channel, and 2 producer warps.
-template <int BN>
-using Thin = pc::Tile<128, BN, 4, 8, 16, 2>;
 
 struct TailArgs {
   const float* h;     // (B, H, W, C)
@@ -359,9 +354,11 @@ int launch(TailArgs c, float* ssum, float* ssq, int B, int H, int W, int C,
   c.vec_res = c.res != nullptr && pc::aligned(c.res, 16);
   if (C % 128 == 0) return launch_tile<pc::Wide, TAIL>(c, ssum, ssq, B, st);
   if (C % 64 == 0) return launch_tile<pc::Mid, TAIL>(c, ssum, ssq, B, st);
-  if (C % 32 == 0) return launch_tile<Thin<32>, TAIL>(c, ssum, ssq, B, st);
-  if (C % 16 == 0) return launch_tile<Thin<16>, TAIL>(c, ssum, ssq, B, st);
-  return launch_tile<Thin<8>, TAIL>(c, ssum, ssq, B, st);
+  if (C % 32 == 0)
+    return launch_tile<pc::Thin<32>, TAIL>(c, ssum, ssq, B, st);
+  if (C % 16 == 0)
+    return launch_tile<pc::Thin<16>, TAIL>(c, ssum, ssq, B, st);
+  return launch_tile<pc::Thin<8>, TAIL>(c, ssum, ssq, B, st);
 }
 
 }  // namespace

@@ -31,15 +31,21 @@
 //      every step. A block walks all column tiles of its pixels, so it ends
 //      with the whole sum and stores datt once, in a fixed order, with no
 //      atomics (a block per column tile added 64 float atomics per pixel at
-//      C = 64). dattw adds one float atomic per block and candidate.
+//      C = 64). The tile is K1's for that C (128 x 128, 256 x 64, or 128
+//      pixels by 32, 16 or 8 columns: ops/akgm.py tail_tile), so a tile lies
+//      in one group. dattw: the block's pixel terms go to shared memory and
+//      are added in ascending pixel order into a (B, pixel tiles, G)
+//      workspace, whose tiles dattw_reduce_kernel adds in ascending order,
+//      as K1's statistics: dattw has the same bits from run to run.
 //   2. the weight gradient, wgrad_pc_kernel with the group's channels of
 //      h * a + t as A and dz rebuilt as D (do[c] times 16 bytes of A), the
 //      pixels cut into chunks whose partial tiles wgrad_reduce_kernel adds
 //      in a fixed order: dW and dbias have the same bits from run to run.
+//      Its tile's columns divide the group's C columns (launch_wgrad).
 //   3. akgm_dh_kernel, the input gradient: per group K2's product on dz,
 //      rebuilt as it is staged, with the flipped, transposed per-group
-//      weights, on a tile as wide as the group's C / G output columns (8,
-//      16, 32 or 64), so that no column of the tile idles.
+//      weights, on the narrowest tile of 8, 16, 32 or 64 columns that holds
+//      the group's C / G output columns, so that few columns of it idle.
 // Bound: the fp32 FMA rate, at three times K1's operations.
 #include "igemm_pc.cuh"
 
@@ -60,9 +66,10 @@ struct DoArgs {
   float* dout;        // (B, H, W, C) do
   float* aa;          // (B, H, W, G) att * attw, written when attw
   float* datt;        // (B, H, W, G), written whole
-  float* dattw;       // zeroed (B, G) or null
+  float* dattw_ws;    // (B, ntp, G) per-tile sums of dattw, or null
   ucdir::Geom g;      // g.C = C, g.cin = C / G
   int ntn;            // column tiles of C * G, all walked by each block
+  int ntp;            // pixel tiles of an image
   bool vec_a;
 };
 
@@ -157,10 +164,11 @@ __device__ __forceinline__ void do_epilogue(float (&acc)[T::TM][T::TN],
 // do, A and the datt terms of one BM-pixel tile: the block walks every
 // column tile of z (all groups), so that it holds the whole sum over
 // channels of its pixels' datt terms, which it stores once (no atomics: datt
-// has the same bits from run to run). dattw adds one float atomic per block
-// and candidate.
+// has the same bits from run to run), and its pixels' dattw terms, which it
+// adds in ascending pixel order into its row of the dattw workspace.
 template <class T>
 __global__ void __launch_bounds__(T::NT) akgm_do_kernel(DoArgs c) {
+  static_assert(2 * T::A_WORDS >= T::BM * G, "dattw terms fit the stages");
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int b = blockIdx.z;
@@ -171,7 +179,7 @@ __global__ void __launch_bounds__(T::NT) akgm_do_kernel(DoArgs c) {
                            c.vec_a);
   } else {
     constexpr int CNT = T::TM * G / T::NCX;  // sums a lane ends with
-    static_assert(CNT <= G && G % CNT == 0, "a lane's sums share a row");
+    static_assert(CNT % G == 0 || G % CNT == 0, "a lane's sums are rows");
     float qs[CNT];
 #pragma unroll
     for (int e = 0; e < CNT; ++e) qs[e] = 0.f;
@@ -180,27 +188,58 @@ __global__ void __launch_bounds__(T::NT) akgm_do_kernel(DoArgs c) {
       pc::consume<T>(acc, smem, nk);
       do_epilogue<T>(acc, c, b, m0, nt * T::BN, qs);
     }
-    const int lane = threadIdx.x & 31;
-    const int off = butterfly_offset<T::TM * G, T::NCX>(lane);
+    // lane's sums: flat indices off .. off + CNT - 1 of its row of
+    // threads' (TM, G) terms, whole rows where CNT >= G
+    const int off = butterfly_offset<T::TM * G, T::NCX>(threadIdx.x & 31);
+    const int tm = threadIdx.x / T::NCX;
     const int P = c.g.H * c.g.W;
-    const int p = m0 + pc::tile_row<T>(threadIdx.x / T::NCX, off / G);
-    const int j0 = off % G;
-    if (p < P) {
-      const int64_t pix = (int64_t)b * P + p;
+    float* terms = smem;  // (BM, G); the stages are free after the product
 #pragma unroll
-      for (int e = 0; e < CNT; ++e) {
-        const int j = j0 + e;
+    for (int e = 0; e < CNT; ++e) {
+      const int i = (off + e) / G;
+      const int j = (off + e) % G;
+      const int m = pc::tile_row<T>(tm, i);
+      float term = 0.f;
+      if (m0 + m < P) {
+        const int64_t pix = (int64_t)b * P + m0 + m;
         const float aw = c.attw ? __ldg(c.attw + b * G + j) : 1.f;
         c.datt[pix * G + j] = qs[e] * aw;
-        if (c.dattw)
-          atomicAdd(smem + T::RED + j, qs[e] * __ldg(c.att + pix * G + j));
+        term = qs[e] * __ldg(c.att + pix * G + j);
       }
+      terms[m * G + j] = term;
     }
   }
-  if (c.dattw == nullptr) return;
+  if (c.dattw_ws == nullptr) return;
   pc::block_sync<T::NT>();
-  if (threadIdx.x < G) atomicAdd(c.dattw + b * G + threadIdx.x,
-                                 smem[T::RED + threadIdx.x]);
+  if (threadIdx.x < G) {
+    float v = 0.f;
+    for (int m = 0; m < T::BM; ++m) v += smem[m * G + threadIdx.x];
+    c.dattw_ws[((int64_t)b * c.ntp + blockIdx.x) * G + threadIdx.x] = v;
+  }
+}
+
+// dattw (B, G) from the (B, ntp, G) per-tile terms: lane l of warp j adds
+// the tiles [l * run, (l + 1) * run) of candidate j in ascending order, run =
+// ceil(ntp / 32), then lane 0 adds the 32 runs in ascending order; one block
+// per image.
+__global__ void __launch_bounds__(32 * G)
+    dattw_reduce_kernel(const float* __restrict__ ws, float* __restrict__ dattw,
+                        int ntp) {
+  __shared__ float part[G][32];
+  const int lane = threadIdx.x & 31;
+  const int j = threadIdx.x >> 5;
+  const int b = blockIdx.x;
+  const int run = (ntp + 31) / 32;
+  const int t1 = min(ntp, (lane + 1) * run);
+  float s = 0.f;
+  for (int tile = lane * run; tile < t1; ++tile)
+    s += __ldg(ws + ((int64_t)b * ntp + tile) * G + j);
+  part[j][lane] = s;
+  __syncthreads();
+  if (lane != 0) return;
+  float S = 0.f;
+  for (int k = 0; k < 32; ++k) S += part[j][k];
+  dattw[b * G + j] = S;
 }
 
 struct DhArgs {
@@ -233,7 +272,7 @@ __global__ void __launch_bounds__(T::NT) akgm_dh_kernel(DhArgs c) {
   op.w = c.wf + (int64_t)group * c.g.K * cg;
   op.ncols = cg;
   op.vec_a = true;
-  op.vec_w = true;
+  op.vec_w = cg % 4 == 0;
   const int nk = pc::igemm_setup<T>(smem, c.g, m0);
   if (threadIdx.x >= T::NC) {
     pc::produce<T, pc::Dz>(smem, op, c.g, n0, nk);
@@ -252,25 +291,43 @@ __global__ void __launch_bounds__(T::NT) akgm_dh_kernel(DhArgs c) {
     for (int g = 0; g < T::NG; ++g) {
       const int n = n0 + pc::tile_col<T>(tn, T::GW * g);
       const float* v = &acc[i][T::GW * g];
-      if constexpr (T::GW == 4) {
-        if (n + 4 <= cg)
+      if (cg % T::GW == 0 && n + T::GW <= cg) {
+        if constexpr (T::GW == 4)
           *reinterpret_cast<float4*>(row + n) =
               make_float4(v[0], v[1], v[2], v[3]);
-      } else {
-        if (n + 2 <= cg)
+        else
           *reinterpret_cast<float2*>(row + n) = make_float2(v[0], v[1]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < T::GW; ++j)
+          if (n + j < cg) row[n + j] = v[j];
       }
     }
   }
 }
 
 template <class T>
-int launch_do(DoArgs c, int B, cudaStream_t st) {
+int launch_do(DoArgs c, float* dattw, int B, cudaStream_t st) {
   const int P = c.g.H * c.g.W;
-  c.ntn = c.g.C * G / T::BN;
-  akgm_do_kernel<T><<<dim3((P + T::BM - 1) / T::BM, 1, B), T::NT,
-                      T::SMEM_BYTES, st>>>(c);
+  c.ntn = c.g.C * G / T::BN;  // T::BN divides C
+  c.ntp = (P + T::BM - 1) / T::BM;
+  akgm_do_kernel<T><<<dim3(c.ntp, 1, B), T::NT, T::SMEM_BYTES, st>>>(c);
+  if (c.dattw_ws != nullptr) {
+    const int err = (int)cudaGetLastError();
+    if (err) return err;
+    dattw_reduce_kernel<<<B, 32 * G, 0, st>>>(c.dattw_ws, dattw, c.ntp);
+  }
   return (int)cudaGetLastError();
+}
+
+// z recompute and do on K1's tile for C (akgm_tail.cu launch)
+int launch_do_for(DoArgs c, float* dattw, int B, cudaStream_t st) {
+  const int C = c.g.C;
+  if (C % 128 == 0) return launch_do<pc::Wide>(c, dattw, B, st);
+  if (C % 64 == 0) return launch_do<pc::Mid>(c, dattw, B, st);
+  if (C % 32 == 0) return launch_do<pc::Thin<32>>(c, dattw, B, st);
+  if (C % 16 == 0) return launch_do<pc::Thin<16>>(c, dattw, B, st);
+  return launch_do<pc::Thin<8>>(c, dattw, B, st);
 }
 
 template <class T>
@@ -287,14 +344,16 @@ int launch_dh(DhArgs c, int B, cudaStream_t st) {
 
 // h, go, dout, dhh (B, H, W, C) NHWC; att, datt (B, H, W, 8); attw, dattw
 // (B, 8) or both null; w (9 * C/8, 8 * C) as in ucdir_akgm_tail and bias
-// (8 * C), both with the columns of every tile of 128 (C >= 128) or 64
-// (C = 64) permuted so that physical column h * BN / 2 + 4 * i + r holds
-// logical column 8 * i + 4 * h + r; wf (8, 9 * C, C/8) with wf[g][tap * C +
-// nl][ci] = w[(8 - tap) * C/8 + ci][g * C + nl] (unpermuted); a, t (B, C) or
-// null. dout is scratch, aa a (B, H, W, 8) scratch used with attw; dattw
-// must be zeroed; datt, dw (9 * C/8, 8 * C) and dbias (8 * C), unpermuted,
-// are written whole; ws is a (splits, 9 * C/8 + 1, 8 * C) workspace. C must
-// be a multiple of 64. Returns the first launch error as a cudaError_t.
+// (8 * C), both with the columns of every tile of the width ops/akgm.py
+// tail_tile gives (128, 64, 32, 16 or 8) permuted so that physical column
+// h * bn / 2 + 4 * i + r holds logical column 8 * i + 4 * h + r; wf (8, 9 *
+// C, C/8) with wf[g][tap * C + nl][ci] = w[(8 - tap) * C/8 + ci][g * C + nl]
+// (unpermuted); a, t (B, C) or null. dout is scratch, aa a (B, H, W, 8)
+// scratch used with attw; datt, dattw, dw (9 * C/8, 8 * C) and dbias (8 *
+// C), unpermuted, are written whole; ws is a (splits, 9 * C/8 + 1, 8 * C)
+// workspace and wsa, with attw, a (B, ceil(H * W / bm), 8) one, bm the
+// tile's pixels (128, or 256 at 64 columns). C must be a multiple of 8.
+// Returns the first launch error as a cudaError_t.
 extern "C" int ucdir_akgm_tail_bwd(const float* h, const float* go,
                                    const float* att, const float* attw,
                                    const float* w, const float* wf,
@@ -302,8 +361,8 @@ extern "C" int ucdir_akgm_tail_bwd(const float* h, const float* go,
                                    const float* t, float* dout, float* aa,
                                    float* dhh, float* datt, float* dw,
                                    float* dbias, float* dattw, float* ws,
-                                   int B, int H, int W, int C, int splits,
-                                   void* stream) {
+                                   float* wsa, int B, int H, int W, int C,
+                                   int splits, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int cg = C / G;
   ucdir::Geom g;
@@ -328,12 +387,11 @@ extern "C" int ucdir_akgm_tail_bwd(const float* h, const float* go,
   d.dout = dout;
   d.aa = aa;
   d.datt = datt;
-  d.dattw = dattw;
+  d.dattw_ws = dattw ? wsa : nullptr;
   d.g = g;
-  d.vec_a = pc::aligned(h, 16) &&
+  d.vec_a = cg % 4 == 0 && pc::aligned(h, 16) &&
             (a == nullptr || (pc::aligned(a, 16) && pc::aligned(t, 16)));
-  int err = C >= 128 ? launch_do<pc::Wide>(d, B, st)
-                     : launch_do<pc::Mid>(d, B, st);
+  int err = launch_do_for(d, dattw, B, st);
   if (err) return err;
   const float* A = attw ? aa : att;
   pc::WgradArgs wa = {};
@@ -358,10 +416,8 @@ extern "C" int ucdir_akgm_tail_bwd(const float* h, const float* go,
   dh.g = g;  // a group's transposed conv: C dz columns per tap
   dh.g.cin = C;
   dh.g.K = 9 * C;
-  switch (cg) {
-    case 8: return launch_dh<pc::Narrow>(dh, B, st);
-    case 16: return launch_dh<pc::N16>(dh, B, st);
-    case 32: return launch_dh<pc::N32>(dh, B, st);
-    default: return launch_dh<pc::Mid>(dh, B, st);
-  }
+  if (cg <= 8) return launch_dh<pc::Narrow>(dh, B, st);
+  if (cg <= 16) return launch_dh<pc::N16>(dh, B, st);
+  if (cg <= 32) return launch_dh<pc::N32>(dh, B, st);
+  return launch_dh<pc::Mid>(dh, B, st);
 }

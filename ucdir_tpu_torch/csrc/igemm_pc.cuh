@@ -1,18 +1,22 @@
-// Implicit-GEMM core of the convolutions K2, K3 and K7, of the AKGM tail K1
-// and the mix K8, and of the backward kernels K5 and K6 for an H100
-// (sm_90a): fp32 in and out, fp32 FMA, producer and consumer warps. The
-// backward uses it three ways: the forward product with another epilogue
-// (K6's dz, K5's do), the forward product on a rebuilt or raw cotangent with
-// flipped, transposed weights (the input gradients), and the weight gradient
-// at the end of this file, whose tile runs over k rows and whose reduction
-// runs over pixels.
+// Implicit-GEMM core of the convolutions K2, K3 and K7, of the AKGM tail K1,
+// the mix K8 and the group-packed tail K9, and of the backward kernels K5 and
+// K6 for an H100 (sm_90a): fp32 in and out, fp32 FMA, producer and consumer
+// warps. The backward uses it three ways: the forward product with another
+// epilogue (K6's dz, K5's do), the forward product on a rebuilt or raw
+// cotangent with flipped, transposed weights (the input gradients), and the
+// weight gradient at the end of this file, whose tile runs over k rows and
+// whose reduction runs over pixels.
 //
-// The product is igemm.cuh's: A (P x K) * Wt (K x N), row p of A output pixel
-// p's receptive field, column k = tap * cin + ci, the per-(batch, channel)
-// affine x * a + t applied as A is staged and the border read as 0 AFTER it.
+// A convolution is the product A (P x K) * Wt (K x N): row p of A is output
+// pixel p's receptive field, column k = tap * cin + ci of it is input channel
+// ci at tap (ty, tx) = (tap / 3, tap % 3), read at input pixel
+// (oy * stride - 1 + ty, ox * stride - 1 + tx) for a 3x3 window (the 1x1
+// window reads (oy, ox)). An optional per-(batch, channel) affine x * a + t (a
+// folded GroupNorm(1)) is applied as A is staged; taps outside the image read
+// 0 AFTER the affine, which is the SAME padding of the normalized tensor.
 // Every output is one accumulator that takes its K products in ascending k
-// with fmaf, as in igemm.cuh, so both cores give the same bits. What differs
-// is how the card is used:
+// with fmaf, as the host's libraries and the kernels this core replaced do,
+// so that they share their rounding. How the card is used:
 //
 // 1. Producer and consumer warps. The last PW warps of a block only stage:
 //    they load a slice of A and Wt into registers, transform it and store it
@@ -65,9 +69,31 @@
 // the loads of a quarter warp would hit every bank twice.
 #pragma once
 
-#include "igemm.cuh"
+#include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace ucdir {
+
+constexpr int OUTSIDE = -(1 << 28);  // origin for rows past the end
+
+struct Geom {
+  int H, W, C;     // input height, width and channel stride
+  int Ho, Wo;      // output height and width
+  int ks, stride;  // 3 (padding 1) or 1
+  int cin;         // input channels in this product (a group's width)
+  int K;           // ks * ks * cin
+};
+
+__device__ __forceinline__ float swishf(float v) {
+  return v * (1.f / (1.f + expf(-v)));
+}
+
+// d swish(v) / dv = sig * (1 + v * (1 - sig)).
+__device__ __forceinline__ float dswishf(float v) {
+  const float sig = 1.f / (1.f + expf(-v));
+  return sig * (1.f + v * (1.f - sig));
+}
+
 namespace pc {
 
 // BM x BN output tile. (BM / TM) x (BN / TN) consumer threads hold TM x TN
@@ -118,12 +144,23 @@ using Low = Tile<96, 64, 8, 8, 16, 3>;
 // tensors there.
 using N16 = Tile<256, 16, 8, 4, 16, 8>;
 using N32 = Tile<256, 32, 8, 8, 16, 8>;
+// 128 pixels by 8, 16 or 32 columns, 4 x 8 outputs a thread (one AKGM
+// channel's 8 candidates) and 2 producer warps: the AKGM tails and K5 where
+// C is not a multiple of 64, K9 below C = 64.
+template <int BN>
+using Thin = Tile<128, BN, 4, 8, 16, 2>;
+// 64 rows by 32, 16 or 8 columns, 64 consumer threads and 2 producer warps,
+// several blocks an SM: K5's weight gradient below C = 64 (K = 9 C / 8 <= 63
+// rows, which Thin's 128 would mostly waste).
+template <int BN>
+using ShortN = Tile<64, BN, BN == 8 ? 4 : 8, BN == 32 ? 4 : 2, 16, 2>;
 
 // What the staging does to a loaded value: x * a + t, or swish of it (the
 // border stays 0 = swish(0)).
 struct Affine {
   static constexpr bool kDz = false;
   static constexpr bool kAffine = true;
+  static constexpr bool kAtt = false;
   static __device__ __forceinline__ float apply(float v, float a, float t) {
     return fmaf(v, a, t);
   }
@@ -131,6 +168,7 @@ struct Affine {
 struct Preact {
   static constexpr bool kDz = false;
   static constexpr bool kAffine = true;
+  static constexpr bool kAtt = false;
   static __device__ __forceinline__ float apply(float v, float a, float t) {
     return swishf(fmaf(v, a, t));
   }
@@ -139,6 +177,7 @@ struct Preact {
 struct Raw {
   static constexpr bool kDz = false;
   static constexpr bool kAffine = false;
+  static constexpr bool kAtt = false;
   static __device__ __forceinline__ float apply(float v, float, float) {
     return v;
   }
@@ -146,6 +185,11 @@ struct Raw {
 // The backward's input gradient: Raw's staging, an instance of its own so
 // that a trace tells it from K3.
 struct Dgrad : Raw {};
+// K9's staging: x * a + t, 0 outside the image, then times the row's pixel's
+// scale of the column's input group, op.ascale[m * 8 + ci / op.cg].
+struct AttScaled : Affine {
+  static constexpr bool kAtt = true;
+};
 
 // The AKGM backward's input gradient stages dz = do[c] * att[j] (att times
 // attw) of the pixel, rebuilt from the two tensors: x is do (C channels a
@@ -154,6 +198,7 @@ struct Dgrad : Raw {};
 struct Dz {
   static constexpr bool kDz = true;
   static constexpr bool kAffine = false;
+  static constexpr bool kAtt = false;
 };
 
 // ---- PTX primitives
@@ -167,6 +212,20 @@ template <int N>
 __device__ __forceinline__ void block_sync() {
   asm volatile("bar.sync 1, %0;" ::"n"(N) : "memory");
 }
+
+// A 16-byte copy from global to shared memory that runs on while the thread
+// goes on; full = false writes 16 zero bytes and reads nothing.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool full) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+// Waits for every cp_async16 of this thread.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
 // ---- end of PTX primitives
 
 // One slice of A and Wt in registers, between its global loads and its
@@ -176,14 +235,17 @@ struct Staged {
   float a[T::AI][4];   // raw inputs, 4 consecutive k of one pixel each
   float sa[4], st[4];  // the affine of those k columns
   float dv[T::AI];     // Dz: do of each row's pixel
+  int grp[4];          // AttScaled: the input group of each of the 4 k
   uint32_t mask;       // bit 4 * i + j: a[i][j] is inside the image and K
   float b[T::BI][2][4];  // 4 consecutive columns of two rows of Wt each
 };
 
 // The A column a thread stages: k = slice * BK + 4 * (tid % KG), as a tap and
-// a channel, advanced slice by slice.
+// a channel, and for AttScaled the channel's input group and its place in it
+// (ci = grp * cg + gc), advanced slice by slice with additions.
 struct KColumn {
   int tap, ci;
+  int grp, gc;
 };
 
 struct Operands {
@@ -191,8 +253,10 @@ struct Operands {
   const float* ab;  // image b's (C) scale or null
   const float* tb;  // image b's (C) shift or null
   const float* att; // Dz: image b's (H, W, 8) attention times attw
+  const float* ascale;  // AttScaled: the block's (BM, 8) scales, shared
   const float* w;   // (K, ncols) weights
   int ncols;
+  int cg;           // AttScaled: channels per input group
   bool vec_a;       // cin % 4 == 0 and xb, ab, tb 16-byte aligned
   bool vec_w;       // ncols % 4 == 0 and w 16-byte aligned
 };
@@ -287,10 +351,27 @@ __device__ __forceinline__ void load_slice(Staged<T>& s, KColumn& kc,
       }
       s.a[i][0] = v.x; s.a[i][1] = v.y; s.a[i][2] = v.z; s.a[i][3] = v.w;
     }
+    if constexpr (X::kAtt) {  // a run of 4 channels may cross a group
+      int gv = kc.grp, cv = kc.gc;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s.grp[j] = gv;
+        if (++cv == op.cg) {
+          cv = 0;
+          ++gv;
+        }
+      }
+      kc.gc += T::BK;
+      while (kc.gc >= op.cg) {
+        kc.gc -= op.cg;
+        ++kc.grp;
+      }
+    }
     kc.ci += T::BK;
     while (kc.ci >= g.cin) {
       kc.ci -= g.cin;
       ++kc.tap;
+      if constexpr (X::kAtt) kc.grp -= 8;  // g.cin = 8 groups of op.cg
     }
   } else {
 #pragma unroll
@@ -301,6 +382,7 @@ __device__ __forceinline__ void load_slice(Staged<T>& s, KColumn& kc,
       const int ci = valid ? k - tap * g.cin : 0;
       const int ty = tap / 3;
       const int tx = tap - ty * 3;
+      if constexpr (X::kAtt) s.grp[j] = ci / op.cg;
       const bool aff = X::kAffine && op.ab != nullptr;
       s.sa[j] = aff ? op.ab[ci] : 1.f;
       s.st[j] = aff ? op.tb[ci] : 0.f;
@@ -339,21 +421,35 @@ __device__ __forceinline__ void store_w_slice(const Staged<T>& s, float* Bs) {
 }
 
 template <class T, class X>
-__device__ __forceinline__ void store_slice(const Staged<T>& s, float* As,
+__device__ __forceinline__ void store_slice(const Staged<T>& s,
+                                            const Operands& op, float* As,
                                             float* Bs) {
   const int tid = threadIdx.x - T::NC;  // among the producers
   const int kg = tid % T::KG;
   const int am = tid / T::KG;
 #pragma unroll
   for (int i = 0; i < T::AI; ++i) {
+    float sc[4];  // AttScaled: one load where the run lies in one group
+    if constexpr (X::kAtt) {
+      const float* arow = op.ascale + (am + i * T::AROWS) * 8;
+      sc[0] = arow[s.grp[0]];
+      if (s.grp[3] == s.grp[0]) {
+        sc[1] = sc[2] = sc[3] = sc[0];
+      } else {
+#pragma unroll
+        for (int j = 1; j < 4; ++j) sc[j] = arow[s.grp[j]];
+      }
+    }
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       float v = 0.f;
       if ((s.mask >> (4 * i + j)) & 1u) {
-        if constexpr (X::kDz)
+        if constexpr (X::kDz) {
           v = s.dv[i] * s.a[i][j];
-        else
+        } else {
           v = X::apply(s.a[i][j], s.sa[j], s.st[j]);
+          if constexpr (X::kAtt) v *= sc[j];
+        }
       }
       As[(4 * kg + j) * T::SA + am + i * T::AROWS] = v;
     }
@@ -362,14 +458,15 @@ __device__ __forceinline__ void store_slice(const Staged<T>& s, float* As,
 }
 
 struct NoHook {
-  __device__ __forceinline__ void operator()() const {}
+  __device__ __forceinline__ void operator()(int) const {}
 };
 
 // The producers' side of the product: stages slice 0, then in iteration i stores
 // slice i + 1, loaded one iteration earlier, into stage (i + 1) % 2 and starts
 // the loads of slice i + 2 into the registers the store has freed, so that a
-// load has a whole iteration to arrive. hook() runs once, in iteration 0,
-// after the consumers have passed their first barrier of this product.
+// load has a whole iteration to arrive. hook(i) runs in every iteration i
+// before its barrier; in iteration 0 the consumers have passed their first
+// barrier of this product.
 template <class T, class X, class Hook = NoHook>
 __device__ __forceinline__ void produce(float* smem, const Operands& op,
                                         const Geom& g, int n0, int nk,
@@ -382,18 +479,22 @@ __device__ __forceinline__ void produce(float* smem, const Operands& op,
   KColumn kc;
   kc.tap = 4 * (pt % T::KG) / g.cin;
   kc.ci = 4 * (pt % T::KG) - kc.tap * g.cin;
+  if constexpr (X::kAtt) {
+    kc.grp = kc.ci / op.cg;
+    kc.gc = kc.ci - kc.grp * op.cg;
+  }
   Staged<T> s;
   load_slice<T, X>(s, kc, op, g, iy0, ix0, 0, n0);
-  store_slice<T, X>(s, As, Bs);
+  store_slice<T, X>(s, op, As, Bs);
   if (nk > 1) load_slice<T, X>(s, kc, op, g, iy0, ix0, T::BK, n0);
   block_sync<T::NT>();
   for (int i = 0; i < nk; ++i) {
     const int nxt = (i + 1) & 1;
     if (i + 1 < nk)
-      store_slice<T, X>(s, As + nxt * T::A_WORDS, Bs + nxt * T::B_WORDS);
+      store_slice<T, X>(s, op, As + nxt * T::A_WORDS, Bs + nxt * T::B_WORDS);
     if (i + 2 < nk)
       load_slice<T, X>(s, kc, op, g, iy0, ix0, (i + 2) * T::BK, n0);
-    if (i == 0) hook();
+    hook(i);
     block_sync<T::NT>();
   }
 }
@@ -430,8 +531,8 @@ __device__ __forceinline__ void grouped_produce(
     op.ncols = 8 * C;
     op.vec_a = vec_a;
     op.vec_w = true;
-    produce<T, Affine>(smem, op, g, n0, nk, [&] {
-      if (nt + 1 < nt1) st.tile(nt + 1);
+    produce<T, Affine>(smem, op, g, n0, nk, [&](int i) {
+      if (i == 0 && nt + 1 < nt1) st.tile(nt + 1);
     });
   }
 }
@@ -746,6 +847,7 @@ struct WgradArgs {
 
 // D[q][n..n+3] of the plain convolution: the cotangent itself.
 struct PlainD {
+  static constexpr bool kGroups = false;  // K6: one group, gw = N
   static __device__ __forceinline__ void load(float (&v)[4],
                                               const WgradArgs& w, int64_t q,
                                               int n) {
@@ -763,6 +865,7 @@ struct PlainD {
 // D[q][n..n+3] of the AKGM tail, rebuilt: dz[c * 8 + j] = do[c] * att[j]
 // (att already times attw), n % 4 == 0 so the four share channel c = n / 8.
 struct DzD {
+  static constexpr bool kGroups = true;  // K5: groups of gw = C of N = 8 C
   static __device__ __forceinline__ void load(float (&v)[4],
                                               const WgradArgs& w, int64_t q,
                                               int n) {
@@ -1075,12 +1178,35 @@ int launch_wgrad_tile(WgradArgs w, int splits, float* dw, float* dbias,
   return (int)cudaGetLastError();
 }
 
-// dW and dbias on the tile that the group's width selects (as launch_conv
-// selects by cout): 128 x 128 from 128 columns a group, 256 x 64 from 9
-// (64 x 64 where K <= 64, 96 x 64 where K <= 96), 128 x 8 below. w.x .. w.gw, w.npix and w.ws are
-// the caller's; splits is the number of chunks the caller's workspace holds
-// (S), of which the launch uses the ones that a whole number of BK pixels
-// fills.
+// 64 columns by 64 rows where K <= 64, 96 where K <= 96, else 256.
+template <class DL>
+int launch_wgrad_64(WgradArgs w, int splits, float* dw, float* dbias,
+                    cudaStream_t stream) {
+  if (w.g.K <= Short::BM)
+    return launch_wgrad_tile<Short, DL>(w, splits, dw, dbias, stream);
+  if (w.g.K <= Low::BM)
+    return launch_wgrad_tile<Low, DL>(w, splits, dw, dbias, stream);
+  return launch_wgrad_tile<Mid, DL>(w, splits, dw, dbias, stream);
+}
+
+// BN columns by 64 rows where K <= 64, else by 128.
+template <int BN, class DL>
+int launch_wgrad_narrow(WgradArgs w, int splits, float* dw, float* dbias,
+                        cudaStream_t stream) {
+  if (w.g.K <= ShortN<BN>::BM)
+    return launch_wgrad_tile<ShortN<BN>, DL>(w, splits, dw, dbias, stream);
+  return launch_wgrad_tile<Thin<BN>, DL>(w, splits, dw, dbias, stream);
+}
+
+// dW and dbias on the tile that the group's width selects. One group (K6,
+// gw = N): by width, as launch_conv selects by cout: 128 x 128 from 128
+// columns, the 64-column tiles from 9, 128 x 8 below. Several groups (K5, gw
+// = C of N = 8 C): the widest tile whose columns divide gw, so that no tile
+// straddles two groups: 128 x 128 where gw % 128 == 0, the 64-column tiles
+// where gw % 64 == 0, else 32, 16 or 8 columns. w.x .. w.gw, w.npix and w.ws
+// are the caller's; splits is the number of chunks the caller's workspace
+// holds (S), of which the launch uses the ones that a whole number of BK
+// pixels fills.
 template <class DL>
 int launch_wgrad(WgradArgs w, int splits, float* dw, float* dbias,
                  cudaStream_t stream) {
@@ -1089,15 +1215,22 @@ int launch_wgrad(WgradArgs w, int splits, float* dw, float* dbias,
   w.vec_a = w.g.cin % 4 == 0 && w.g.C % 4 == 0 && aligned(w.x, 16) &&
             affine_ok;
   w.vec_ws = w.N % 4 == 0 && aligned(w.ws, 16);
-  if (w.gw >= 128) return launch_wgrad_tile<Wide, DL>(w, splits, dw, dbias,
-                                                      stream);
-  if (w.gw > 8 && w.g.K <= Short::BM)
-    return launch_wgrad_tile<Short, DL>(w, splits, dw, dbias, stream);
-  if (w.gw > 8 && w.g.K <= Low::BM)
-    return launch_wgrad_tile<Low, DL>(w, splits, dw, dbias, stream);
-  if (w.gw > 8) return launch_wgrad_tile<Mid, DL>(w, splits, dw, dbias,
-                                                  stream);
-  return launch_wgrad_tile<Narrow, DL>(w, splits, dw, dbias, stream);
+  if constexpr (!DL::kGroups) {
+    if (w.gw >= 128)
+      return launch_wgrad_tile<Wide, DL>(w, splits, dw, dbias, stream);
+    if (w.gw > 8) return launch_wgrad_64<DL>(w, splits, dw, dbias, stream);
+    return launch_wgrad_tile<Narrow, DL>(w, splits, dw, dbias, stream);
+  } else {
+    if (w.gw % 128 == 0)
+      return launch_wgrad_tile<Wide, DL>(w, splits, dw, dbias, stream);
+    if (w.gw % 64 == 0)
+      return launch_wgrad_64<DL>(w, splits, dw, dbias, stream);
+    if (w.gw % 32 == 0)
+      return launch_wgrad_narrow<32, DL>(w, splits, dw, dbias, stream);
+    if (w.gw % 16 == 0)
+      return launch_wgrad_narrow<16, DL>(w, splits, dw, dbias, stream);
+    return launch_wgrad_narrow<8, DL>(w, splits, dw, dbias, stream);
+  }
 }
 
 }  // namespace pc

@@ -41,7 +41,7 @@ _SIGNATURES = {
     'conv3x3': [_P] * 8 + [_I] * 7 + [_P],
     'conv1x1': [_P] * 4 + [_I] * 6 + [_P],
     'gn1_stats': [_P] * 3 + [_I] * 3 + [_P],
-    'akgm_tail_bwd': [_P] * 17 + [_I] * 5 + [_P],
+    'akgm_tail_bwd': [_P] * 18 + [_I] * 5 + [_P],
     'conv3x3_bwd': [_P] * 12 + [_I] * 7 + [_P],
     'conv3x3_preact': [_P] * 6 + [_I] * 5 + [_P],
     'akgm_mix': [_P] * 5 + [_I] * 4 + [_P],

@@ -87,10 +87,6 @@ def _check_operands(kernel, h, att_sp, w, bias, nset, norm_scale, norm_shift,
     B, H, W, C = h.shape
     if nset != 8:
         raise ValueError('%s needs nset == 8, got nset=%d' % (kernel, nset))
-    if kernel == 'K5' and (C % 64 or (C > 64 and C % 128)):
-        # its 128-column tiles would straddle two groups at C = 192, 320, ..
-        raise ValueError('K5 (the AKGM tail backward) needs C == 64 or C a '
-                         'multiple of 128, got C=%d' % C)
     if C % 8:
         raise ValueError('%s needs C %% 8 == 0, got C=%d' % (kernel, C))
     dev = h.device
@@ -137,10 +133,10 @@ def akgm_block_tail_backward_plain(h, att_sp, w, bias, go, nset: int, *,
 
 def tail_tile(C):
     """(pixels, columns) of the tile of K1's and K8's product
-    (`csrc/akgm_tail.cu`), and of K5's z recompute, which takes C = 64 and
-    multiples of 128: 128 x 128 where C % 128 == 0, 256 x 64 where C % 64 ==
-    0, else 128 pixels by the widest of 32, 16 and 8 columns that divides C,
-    so that a tile lies in one group."""
+    (`csrc/akgm_tail.cu`) and of K5's z recompute (`csrc/akgm_tail_bwd.cu`):
+    128 x 128 where C % 128 == 0, 256 x 64 where C % 64 == 0, else 128
+    pixels by the widest of 32, 16 and 8 columns that divides C, so that a
+    tile lies in one group."""
     if C % 128 == 0:
         return 128, 128
     if C % 64 == 0:
@@ -151,7 +147,8 @@ def tail_tile(C):
 def stats_tiles(P, C):
     """Pixel tiles of an image of P pixels in K1's product: the rows of its
     (B, tiles, 2, C) statistics workspace, one partial sum and sum of
-    squares per tile and channel."""
+    squares per tile and channel, and of K5's (B, tiles, G) workspace of
+    dattw."""
     return -(-P // tail_tile(C)[0])
 
 
@@ -201,15 +198,20 @@ def akgm_block_tail_backward_kernel(h, att_sp, w, bias, go, nset,
     datt = torch.empty_like(att_sp)
     dw = torch.empty_like(w)
     dbias = torch.empty_like(bias)
-    dattw = None if attw is None else torch.zeros_like(attw)
+    dattw = wsa = None
+    if attw is not None:
+        dattw = torch.empty_like(attw)
+        # per pixel tile sums of dattw, added in a fixed order
+        wsa = torch.empty(B, stats_tiles(H * W, C), nset, device=dev,
+                          dtype=torch.float32)
     splits, ws = wgrad_workspace(9 * cg, C * nset, C, B * H * W, dev)
     _build.launch('akgm_tail_bwd', h.data_ptr(), go.data_ptr(),
                   att_sp.data_ptr(), _build.ptr(attw), wp.data_ptr(),
                   wf.data_ptr(), bp.data_ptr(), _build.ptr(norm_scale),
                   _build.ptr(norm_shift), do.data_ptr(), _build.ptr(aa),
                   dhh.data_ptr(), datt.data_ptr(), dw.data_ptr(),
-                  dbias.data_ptr(), _build.ptr(dattw), ws.data_ptr(), B, H,
-                  W, C, splits, _build.stream(h))
+                  dbias.data_ptr(), _build.ptr(dattw), ws.data_ptr(),
+                  _build.ptr(wsa), B, H, W, C, splits, _build.stream(h))
     return dhh, datt, dw, dbias, dattw
 
 
@@ -269,8 +271,8 @@ def akgm_block_tail(h, att_sp, w, bias, res, nset: int, *, norm_scale=None,
     h, res (B, H, W, C); att_sp (B, H, W, G); w (9 * C / G, C * G); bias
     (C * G); norm_scale, norm_shift (B, C) or None; attw (B, G) or None.
     With emit_stats, returns (out, (sum, sumsq)) of out per (batch, channel).
-    The kernels take G = 8; K1 takes C a multiple of 8, its backward K5 C =
-    64 or a multiple of 128 (the SID widths 64..512).
+    The kernels take G = 8 and C a multiple of 8, forward (K1) and backward
+    (K5).
     """
     if (norm_scale is None) != (norm_shift is None):
         raise ValueError('norm_scale and norm_shift come together')

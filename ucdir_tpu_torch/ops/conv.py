@@ -128,23 +128,36 @@ def conv3x3_backward_plain(x, w, bias, go, *, act=None, norm_scale=None,
 # The weight gradients of K5 and K6 (`csrc/igemm_pc.cuh`, wgrad_pc_kernel)
 # cut the batch's pixels into S chunks and reduce the S partial tiles in a
 # fixed order from a workspace of S x (K + 1) x N floats, which the wrapper
-# allocates. The plan below mirrors the kernel's tile rule (by the columns of
-# one group, as K2's by cout) and holds the workspace under WGRAD_CAP_BYTES.
+# allocates. The plan below mirrors the kernel's tile rule (launch_wgrad: by
+# width for one group, as K2's by cout; for K5's groups the widest tile whose
+# columns divide a group's) and holds the workspace under WGRAD_CAP_BYTES.
 WGRAD_CAP_BYTES = 64 * 2 ** 20
 WGRAD_MIN_CHUNK = 256        # pixels: 16 slices of 16 per block at least
 
 
-def wgrad_tile(group_cols, K):
-    """(BM, BN, blocks an SM holds) of the weight-gradient tile of K rows for
-    a group of `group_cols` columns, as the kernel chooses: 128 x 128,
-    64 x 64 (K <= 64), 96 x 64 (K <= 96), 256 x 64 or 128 x 8."""
-    if group_cols >= 128:
+def wgrad_tile(group_cols, K, N):
+    """(BM, BN, blocks an SM holds) of the weight-gradient tile of K rows and
+    N columns in groups of `group_cols`, as the kernel chooses (by its D
+    loader: K6's is one group, group_cols = N; K5's groups of C < N): one
+    group by width, 128 x 128, 64 x 64 (K <= 64), 96 x 64 (K <= 96), 256 x
+    64 or 128 x 8; several (K5) the widest of those whose columns divide a
+    group's, else 32, 16 or 8 columns by 64 rows (K <= 64) or 128, so that
+    no tile straddles two groups."""
+    one = group_cols >= N
+    if (group_cols >= 128 if one else group_cols % 128 == 0):
         return 128, 128, 1
-    if group_cols > 8:
+    if (group_cols > 8 if one else group_cols % 64 == 0):
         if K <= 64:
             return 64, 64, 4
         return (96, 64, 2) if K <= 96 else (256, 64, 1)
-    return 128, 8, 1
+    if one:
+        return 128, 8, 1
+    bn = next(bn for bn in (32, 16, 8) if group_cols % bn == 0)
+    if K <= 64:
+        return 64, bn, 4
+    # 128 x 32: 192 threads of up to 255 registers, one block an SM; 128 x
+    # 16 and 128 x 8 fit two
+    return 128, bn, 1 if bn == 32 else 2
 
 
 def wgrad_splits(K, N, group_cols, npix, sms=132):
@@ -153,7 +166,7 @@ def wgrad_splits(K, N, group_cols, npix, sms=132):
     SM holds) to 90% in its last wave and in all, within the workspace cap
     and the least chunk; the most that the cap and the chunk allow where
     none does."""
-    bm, bn, per_sm = wgrad_tile(group_cols, K)
+    bm, bn, per_sm = wgrad_tile(group_cols, K, N)
     tiles = -(-K // bm) * -(-N // bn)
     slots = sms * per_sm
     most = max(1, min(WGRAD_CAP_BYTES // (4 * (K + 1) * N),
