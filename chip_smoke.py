@@ -27,7 +27,17 @@ on any failure:
               statistics, K5's and K6's weight and bias gradients (and K5's
               attention gradients) must be equal bit for bit; K6's library
               time in the swish cases includes the F.conv2d that recomputes
-              z.
+              z. Then the bf16 forms of K1, K2, K3, K4 and K7 at the
+              validation shapes against their bf16 plain versions: outputs
+              within one bf16 ulp of max(1, largest), 2^-7 of it (both
+              round at the same places; a float32 sum in another order can
+              flip an output's last bit), statistics within 1e-4 of the
+              largest sum of squares; the library is the same PyTorch call
+              in bf16 (cuDNN, cuBLAS), the bound the larger of the counted
+              bytes at 2 a value and the counted FLOP at 989 TFLOP/s (bf16
+              on the tensor cores, dense), with the fp32 FMA product's issue
+              time at 67 TFLOP/s, which these forms run, printed beside
+              it.
   3. slice    the full-width SID model (random weights from --seed) restores
               a 96 x 96 input with 2 steps and injected noise on the card and
               on the host (plain versions); the outputs must agree.
@@ -38,6 +48,16 @@ on any failure:
               through the validation step with 10 DDPM steps: seconds for the
               frame, predictor + guide maps ms, ms per DY3h step, peak
               memory, launches.
+  5b. bf16    validation with --compute_dtype bf16 (the bf16 kernels): the
+              slice of phase 3 in bf16, card against host, mean abs within
+              1e-3 and the max printed, and the same for the `dropout: 0`
+              model (K7 in bf16); phase 4's Trainer.test in bf16 (every
+              bf16 kernel of the frame launched); then phase 5's frame in
+              bf16 (its draws
+              and generator): seconds, ms per DY3h step, peak memory,
+              launches, every bf16 kernel launched, and its distance from
+              phase 5's float32 frame, mean abs within 0.05 (the JAX
+              package's test of bf16 against fp32).
   6. train_slice  full width, crop 64, batch 2, dropout off, injected gammas
               and noise, 2 AdamW steps on the card and on the host: the loss
               of each step, every gradient of the first step and every
@@ -59,18 +79,21 @@ on any failure:
               those of the tail.
   9. fewstep  the 1424 x 2128 frame through the validation step of the
               `dropout: 0` model with ddim (5 steps), dpmpp (20) and
-              dpmpp_sde (20): seconds per frame, ms per step, PSNR against a
-              generated target; and ddim, 3 steps, 64 x 64, card against
-              host.
+              dpmpp_sde (20), in float32 and then in bf16: seconds per
+              frame, ms per step, PSNR against a generated target, the
+              launches of K1 and K7 (or their bf16 forms); and ddim, 3
+              steps, 64 x 64, card against host.
  10. hires    one 2848 x 4256 frame (the full-resolution Sony frame; 2976 x
               4384 after the pad, so it runs tiled: 24 tiles of 1024 x 1024
               per step) with ddim, 5 steps: seconds per frame and per step,
-              tiles per step, peak memory, K7 launches; and the tiled path
-              ({skip: 128, padding: 16}, 200 x 260 input, 2 DDPM steps) card
-              against host.
+              tiles per step, peak memory, K7 launches; the same frame in
+              bf16 with 2 steps, its peak below the float32 frame's; and the
+              tiled path ({skip: 128, padding: 16}, 200 x 260 input, 2 DDPM
+              steps) card against host.
 Then one JSON line of kernel results (each kernel's launches from the path
 that owns it: K1..K4 the main phase, K5 and K6 the train phase, K7 the
-fewstep phase, K8 and K9 their variants run; every path's counts beside them;
+fewstep phase, K8 and K9 their variants run, the bf16 forms the bf16 frame
+and K7's the bf16 `dropout: 0` slice; every path's counts beside them;
 errors the largest and times summed over phase 2's shapes), the card's
 `nvidia-smi` name and power limit, and last `{"ok": true, "device": {...}}`.
 
@@ -105,6 +128,7 @@ TRAIN_STEPS = 8
 KERNEL_BATCH = 8                  # batch of K5's and K6's phase-2 cases
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12          # H100 SXM bf16 on the tensor cores, dense
 
 # kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
@@ -127,11 +151,17 @@ KERNELS = {
     'akgm_packed': ('ucdir_tpu_torch/csrc/akgm_packed.cu',
                     'ucdir_tpu/ops/akgm_pallas.py:1012'),
 }
+# the bf16 forms: the same sources, the TPU kernels' bf16 instantiation
+BF16 = ('akgm_tail', 'conv3x3', 'conv1x1', 'gn1_stats', 'conv3x3_preact')
+KERNELS.update({k + '_bf16': KERNELS[k] for k in BF16})
 # the path whose run gives a kernel's `launches`
 OWNER = {'akgm_tail': 'main', 'conv3x3': 'main', 'conv1x1': 'main',
          'gn1_stats': 'main', 'akgm_tail_bwd': 'train',
          'conv3x3_bwd': 'train', 'conv3x3_preact': 'fewstep',
-         'akgm_mix': 'variants_mix', 'akgm_packed': 'variants_packed'}
+         'akgm_mix': 'variants_mix', 'akgm_packed': 'variants_packed',
+         'akgm_tail_bf16': 'bf16', 'conv3x3_bf16': 'bf16',
+         'conv1x1_bf16': 'bf16', 'gn1_stats_bf16': 'bf16',
+         'conv3x3_preact_bf16': 'bf16_head'}
 
 
 def say(phase, msg):
@@ -185,54 +215,77 @@ def kernel_cases(gen, dev):
     """One dict per case: the kernel's name, a label, the kernel call, the
     plain call, the library call (one PyTorch call computing the same
     function, or None), the FLOP and the bytes the function needs (each input
-    read once, each output written once), and how many trailing outputs are
-    (B, C) statistics. K1..K4 at the SID validation shapes (the padded frame
-    1568 x 2272 and its /2, /4, /8 levels); K5 and K6 at the SID train
-    shapes (288 x 288 and its levels) at batch KERNEL_BATCH."""
+    read once, each output written once), the peak rate of its operands' type
+    and how many trailing outputs are (B, C) statistics. K1..K4 at the SID
+    validation shapes (the padded frame 1568 x 2272 and its /2, /4, /8
+    levels); K5 and K6 at the SID train shapes (288 x 288 and its levels) at
+    batch KERNEL_BATCH; then, from the same builders on operands rounded to
+    bf16, the bf16 forms of K1, K2, K3, K4 and K7 at the validation shapes."""
     import torch
     import torch.nn.functional as F
     from ucdir_tpu_torch.ops import akgm, conv, stats
 
     H0, W0 = NET_FRAME
-    G = 8
+    G, f32 = 8, torch.float32
 
-    def rnd(*shape, scale=1.0, off=0.0, gen=gen):
-        return torch.randn(shape, generator=gen, device=dev) * scale + off
+    def rnd(*shape, scale=1.0, off=0.0, gen=gen, dtype=f32):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                + off).to(dtype)
 
     def nbytes(*tensors):
-        return 4 * sum(t.numel() for t in tensors if t is not None)
+        return sum(t.element_size() * t.numel() for t in tensors
+                   if t is not None)
 
     def nchw(t):
         return t.permute(0, 3, 1, 2)
 
+    def kind(name, dtype):
+        """A case's name, tolerance and peak rate (float32: phase_kernels'
+        defaults) for its operands' type: a bf16 form's outputs within one
+        bf16 ulp of max(1, largest), its statistics within 1e-4 of the
+        largest sum of squares."""
+        if dtype == f32:
+            return dict(name=name)
+        return dict(name=name + '_bf16', tol=(2. ** -7, 1e-4),
+                    flop_per_s=BF16_FLOP_PER_S)
+
     cases = []
 
-    def akgm_operands(B, H, W, C, gen=gen):
-        h = rnd(B, H, W, C, scale=0.5, gen=gen)
-        att = rnd(B, H, W, G, scale=0.5, gen=gen)
-        aw = rnd(B, G, scale=0.3, off=1.0, gen=gen)
-        w = rnd(9 * C // G, C * G, scale=(9 * C / G) ** -0.5, gen=gen)
-        b = rnd(C * G, scale=0.1, gen=gen)
-        kw = dict(norm_scale=rnd(B, C, scale=0.2, off=1.0, gen=gen),
-                  norm_shift=rnd(B, C, scale=0.2, gen=gen), attw=aw)
+    def akgm_operands(B, H, W, C, gen=gen, dtype=f32):
+        h = rnd(B, H, W, C, scale=0.5, gen=gen, dtype=dtype)
+        att = rnd(B, H, W, G, scale=0.5, gen=gen, dtype=dtype)
+        aw = rnd(B, G, scale=0.3, off=1.0, gen=gen, dtype=dtype)
+        w = rnd(9 * C // G, C * G, scale=(9 * C / G) ** -0.5, gen=gen,
+                dtype=dtype)
+        b = rnd(C * G, scale=0.1, gen=gen, dtype=dtype)
+        kw = dict(norm_scale=rnd(B, C, scale=0.2, off=1.0, gen=gen,
+                                 dtype=dtype),
+                  norm_shift=rnd(B, C, scale=0.2, gen=gen, dtype=dtype),
+                  attw=aw)
         # the grouped conv, then the 8-candidate mix per channel
         flop = B * H * W * C * G * (2 * 9 * C // G + 2)
         return h, att, w, b, kw, flop
 
-    for C, s in ((64, 1), (128, 2), (256, 4), (512, 8)):
-        H, W = H0 // s, W0 // s
-        h, att, w, b, kw, flop = akgm_operands(1, H, W, C)
-        res = rnd(1, H, W, C, scale=0.5)
+    def k1_case(C, H, W, gen=gen, dtype=f32):
+        """K1 with fold, attw and statistics; returns its operands."""
+        h, att, w, b, kw, flop = akgm_operands(1, H, W, C, gen=gen,
+                                               dtype=dtype)
+        res = rnd(1, H, W, C, scale=0.5, gen=gen, dtype=dtype)
         cases.append(dict(
-            name='akgm_tail', label='C=%d %dx%d fold+attw+stats' % (C, H, W),
-            kernel=lambda h=h, att=att, w=w, b=b, res=res, kw=kw:
-                akgm.akgm_block_tail(h, att, w, b, res, G, emit_stats=True,
-                                     **kw),
-            plain=lambda h=h, att=att, w=w, b=b, res=res, kw=kw:
-                akgm.akgm_block_tail_plain(h, att, w, b, res, G,
-                                           emit_stats=True, **kw),
+            **kind('akgm_tail', dtype),
+            label='C=%d %dx%d fold+attw+stats' % (C, H, W),
+            kernel=lambda: akgm.akgm_block_tail(h, att, w, b, res, G,
+                                                emit_stats=True, **kw),
+            plain=lambda: akgm.akgm_block_tail_plain(h, att, w, b, res, G,
+                                                     emit_stats=True, **kw),
             library=None, stats=2, fixed=(1, 2), flop=flop,
             bytes=nbytes(h, att, w, b, res, h, *kw.values()) + 8 * C))
+        return h, att, w, b, res, kw, flop
+
+    levels = ((64, 1), (128, 2), (256, 4), (512, 8))
+    for C, s in levels:
+        H, W = H0 // s, W0 // s
+        h, att, w, b, res, kw, flop = k1_case(C, H, W)
         cases.append(dict(
             name='akgm_mix', label='C=%d %dx%d' % (C, H, W),
             kernel=lambda h=h, att=att, w=w, b=b:
@@ -258,18 +311,7 @@ def kernel_cases(gen, dev):
     gen_narrow = torch.Generator(dev).manual_seed(gen.initial_seed() + 8)
     for C in (8, 16, 32):
         H, W = H0 // 8, W0 // 8
-        h, att, w, b, kw, flop = akgm_operands(1, H, W, C, gen=gen_narrow)
-        res = rnd(1, H, W, C, scale=0.5, gen=gen_narrow)
-        cases.append(dict(
-            name='akgm_tail', label='C=%d %dx%d fold+attw+stats' % (C, H, W),
-            kernel=lambda h=h, att=att, w=w, b=b, res=res, kw=kw:
-                akgm.akgm_block_tail(h, att, w, b, res, G, emit_stats=True,
-                                     **kw),
-            plain=lambda h=h, att=att, w=w, b=b, res=res, kw=kw:
-                akgm.akgm_block_tail_plain(h, att, w, b, res, G,
-                                           emit_stats=True, **kw),
-            library=None, stats=2, fixed=(1, 2), flop=flop,
-            bytes=nbytes(h, att, w, b, res, h, *kw.values()) + 8 * C))
+        h, att, w, b, res, kw, flop = k1_case(C, H, W, gen=gen_narrow)
         cases.append(dict(
             name='akgm_mix', label='C=%d %dx%d' % (C, H, W),
             kernel=lambda h=h, att=att, w=w, b=b:
@@ -279,13 +321,14 @@ def kernel_cases(gen, dev):
             library=None, stats=0, flop=flop, bytes=nbytes(h, att, w, b, h)))
 
     def conv_case(label, B, H, W, cin, cout, stride=1, fold=False, act=None,
-                  backward=False, gen=gen):
-        x = rnd(B, H, W, cin, scale=0.5, gen=gen)
-        w = rnd(9 * cin, cout, scale=(9 * cin) ** -0.5, gen=gen)
-        b = rnd(cout, scale=0.1, gen=gen)
+                  backward=False, gen=gen, dtype=f32):
+        x = rnd(B, H, W, cin, scale=0.5, gen=gen, dtype=dtype)
+        w = rnd(9 * cin, cout, scale=(9 * cin) ** -0.5, gen=gen, dtype=dtype)
+        b = rnd(cout, scale=0.1, gen=gen, dtype=dtype)
         k = w.reshape(3, 3, cin, cout).permute(3, 2, 0, 1).contiguous()
-        a = rnd(B, cin, scale=0.2, off=1.0, gen=gen) if fold else None
-        t = rnd(B, cin, scale=0.2, gen=gen) if fold else None
+        a = rnd(B, cin, scale=0.2, off=1.0, gen=gen, dtype=dtype) \
+            if fold else None
+        t = rnd(B, cin, scale=0.2, gen=gen, dtype=dtype) if fold else None
         Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
         flop = 2 * 9 * cin * cout * B * Ho * Wo
         n_out = B * Ho * Wo * cout
@@ -293,13 +336,14 @@ def kernel_cases(gen, dev):
             kw = dict(stride=stride, act=act, emit_stats=True, norm_scale=a,
                       norm_shift=t)
             cases.append(dict(
-                name='conv3x3', label=label,
+                **kind('conv3x3', dtype), label=label,
                 kernel=lambda: conv.conv3x3(x, w, b, **kw),
                 plain=lambda: conv.conv3x3_plain(x, w, b, **kw),
                 library=lambda: F.conv2d(nchw(x), k, b, stride=stride,
                                          padding=1),
                 stats=2, flop=flop,
-                bytes=nbytes(x, w, b, a, t) + 4 * n_out + 8 * B * cout))
+                bytes=(nbytes(x, w, b, a, t) + x.element_size() * n_out
+                       + 8 * B * cout)))
             return
         go = rnd(B, H, W, cout)
         kw = dict(act=act, norm_scale=a, norm_shift=t)
@@ -320,69 +364,79 @@ def kernel_cases(gen, dev):
             flop=flop * (3 if act else 2),
             bytes=nbytes(x, go, w, b, a, t, x, w, b)))
 
-    conv_case('downs_0 6->64 %dx%d stats' % (H0, W0), 1, H0, W0, 6, 64)
-    conv_case('conv1 192->64 %dx%d fold+swish+stats' % (H0, W0), 1, H0, W0,
-              192, 64, fold=True, act='swish')
-    conv_case('downsample 64->64 stride 2 %dx%d stats' % (H0, W0), 1, H0, W0,
-              64, 64, stride=2)
-    conv_case('upsample 128->4x128 packed %dx%d stats' % (H0 // 2, W0 // 2),
-              1, H0 // 2, W0 // 2, 128, 512)
+    # K2's validation shapes: (label, H, W, cin, cout, options)
+    h2, w2, h8, w8 = H0 // 2, W0 // 2, H0 // 8, W0 // 8
+    val_convs = (
+        ('downs_0 6->64 %dx%d stats' % (H0, W0), H0, W0, 6, 64, {}),
+        ('conv1 192->64 %dx%d fold+swish+stats' % (H0, W0), H0, W0, 192, 64,
+         dict(fold=True, act='swish')),
+        ('downsample 64->64 stride 2 %dx%d stats' % (H0, W0), H0, W0, 64, 64,
+         dict(stride=2)),
+        ('upsample 128->4x128 packed %dx%d stats' % (h2, w2), h2, w2, 128,
+         512, {}),
+        ('final 64->3 %dx%d stats' % (H0, W0), H0, W0, 64, 3, {}),
+        ('conv1 1024->512 %dx%d fold+swish+stats' % (h8, w8), h8, w8, 1024,
+         512, dict(fold=True, act='swish')))
+    for label, H, W, cin, cout, opts in val_convs[:4]:
+        conv_case(label, 1, H, W, cin, cout, **opts)
 
     # K7's operands come from a generator of their own, so the cases after
     # them draw what they drew before K7 was added
     gen7 = torch.Generator(dev).manual_seed(gen.initial_seed() + 7)
 
-    def preact_case(H, W, cin=64, cout=3):
-        x = rnd(1, H, W, cin, scale=0.5, gen=gen7)
-        w = rnd(9 * cin, cout, scale=(9 * cin) ** -0.5, gen=gen7)
-        b = rnd(cout, scale=0.1, gen=gen7)
+    def preact_case(H, W, cin=64, cout=3, gen=gen7, dtype=f32):
+        x = rnd(1, H, W, cin, scale=0.5, gen=gen, dtype=dtype)
+        w = rnd(9 * cin, cout, scale=(9 * cin) ** -0.5, gen=gen, dtype=dtype)
+        b = rnd(cout, scale=0.1, gen=gen, dtype=dtype)
         k = w.reshape(3, 3, cin, cout).permute(3, 2, 0, 1).contiguous()
-        a = rnd(1, cin, scale=0.2, off=1.0, gen=gen7)
-        t = rnd(1, cin, scale=0.2, gen=gen7)
+        a = rnd(1, cin, scale=0.2, off=1.0, gen=gen, dtype=dtype)
+        t = rnd(1, cin, scale=0.2, gen=gen, dtype=dtype)
         xa = conv.swish(x * a[:, None, None, :] + t[:, None, None, :])
         # library: the convolution alone, on an input activated beforehand:
         # it leaves the affine and the swish out
         cases.append(dict(
-            name='conv3x3_preact',
+            **kind('conv3x3_preact', dtype),
             label='head %d->%d %dx%d fold' % (cin, cout, H, W),
             kernel=lambda: conv.conv3x3_preact(x, w, b, a, t),
             plain=lambda: conv.conv3x3_preact_plain(x, w, b, a, t),
             library=lambda: F.conv2d(nchw(xa), k, b, padding=1),
             stats=0, flop=2 * 9 * cin * cout * H * W,
-            bytes=nbytes(x, w, b, a, t) + 4 * cout * H * W))
+            bytes=nbytes(x, w, b, a, t) + x.element_size() * cout * H * W))
 
     preact_case(H0, W0)
     preact_case(TILE, TILE)
 
-    def conv1x1_case(H, W, cin, cout, gen=gen):
-        x = rnd(1, H, W, cin, scale=0.5, gen=gen)
-        w1 = rnd(cin, cout, scale=cin ** -0.5, gen=gen)
-        b1 = rnd(cout, scale=0.1, gen=gen)
+    def conv1x1_case(H, W, cin, cout, gen=gen, dtype=f32):
+        x = rnd(1, H, W, cin, scale=0.5, gen=gen, dtype=dtype)
+        w1 = rnd(cin, cout, scale=cin ** -0.5, gen=gen, dtype=dtype)
+        b1 = rnd(cout, scale=0.1, gen=gen, dtype=dtype)
         cases.append(dict(
-            name='conv1x1', label='res_conv %d->%d %dx%d' % (cin, cout, H, W),
+            **kind('conv1x1', dtype),
+            label='res_conv %d->%d %dx%d' % (cin, cout, H, W),
             kernel=lambda: conv.conv1x1(x, w1, b1),
             plain=lambda: conv.conv1x1_plain(x, w1, b1),
             library=lambda: torch.addmm(b1, x.reshape(-1, cin), w1),
             stats=0, flop=2 * cin * cout * H * W,
-            bytes=nbytes(x, w1, b1) + 4 * cout * H * W))
+            bytes=nbytes(x, w1, b1) + x.element_size() * cout * H * W))
 
     conv1x1_case(H0, W0, 192, 64)
     # the shapes that pick K2's and K3's other tiles, from a generator of
     # their own like K7's
     gen_tiles = torch.Generator(dev).manual_seed(gen.initial_seed() + 4)
-    conv_case('final 64->3 %dx%d stats' % (H0, W0), 1, H0, W0, 64, 3,
-              gen=gen_tiles)
-    conv_case('conv1 1024->512 %dx%d fold+swish+stats' % (H0 // 8, W0 // 8),
-              1, H0 // 8, W0 // 8, 1024, 512, fold=True, act='swish',
-              gen=gen_tiles)
-    conv1x1_case(H0 // 8, W0 // 8, 1024, 512, gen=gen_tiles)
-    xs = rnd(1, H0 // 8, W0 // 8, 1024)
-    cases.append(dict(
-        name='gn1_stats', label='C=1024 %dx%d' % (H0 // 8, W0 // 8),
-        kernel=lambda: stats.gn1_stats(xs),
-        plain=lambda: stats.gn1_stats_plain(xs),
-        library=None, stats=2, flop=3 * xs.numel(),
-        bytes=nbytes(xs) + 8 * 1024))
+    for label, H, W, cin, cout, opts in val_convs[4:]:
+        conv_case(label, 1, H, W, cin, cout, gen=gen_tiles, **opts)
+    conv1x1_case(h8, w8, 1024, 512, gen=gen_tiles)
+
+    def k4_case(gen=gen, dtype=f32):
+        xs = rnd(1, h8, w8, 1024, gen=gen, dtype=dtype)
+        cases.append(dict(
+            **kind('gn1_stats', dtype), label='C=1024 %dx%d' % (h8, w8),
+            kernel=lambda: stats.gn1_stats(xs),
+            plain=lambda: stats.gn1_stats_plain(xs),
+            library=None, stats=2, flop=3 * xs.numel(),
+            bytes=nbytes(xs) + 8 * 1024))
+
+    k4_case()
 
     # the backward kernels at the train path's shapes
     B, T = KERNEL_BATCH, TRAIN_NET
@@ -421,6 +475,19 @@ def kernel_cases(gen, dev):
     conv_case('B=%d upsample 128->4x128 packed %dx%d' % (B, T // 2, T // 2),
               B, T // 2, T // 2, 128, 512, **bw)
     conv_case('B=%d final 64->3 %dx%d' % (B, T, T), B, T, T, 64, 3, **bw)
+
+    # the bf16 forms at the validation shapes, from a generator of their own
+    g16, bf = (torch.Generator(dev).manual_seed(gen.initial_seed() + 16),
+               torch.bfloat16)
+    for C, s in levels:
+        k1_case(C, H0 // s, W0 // s, gen=g16, dtype=bf)
+    for label, H, W, cin, cout, opts in val_convs:
+        conv_case(label, 1, H, W, cin, cout, gen=g16, dtype=bf, **opts)
+    conv1x1_case(H0, W0, 192, 64, gen=g16, dtype=bf)
+    conv1x1_case(h8, w8, 1024, 512, gen=g16, dtype=bf)
+    k4_case(gen=g16, dtype=bf)
+    preact_case(H0, W0, gen=g16, dtype=bf)
+    preact_case(TILE, TILE, gen=g16, dtype=bf)
     return cases
 
 
@@ -443,20 +510,23 @@ def phase_kernels(dev, seed, results):
         # of max(1, its largest magnitude); (B, C) sums and sums of squares
         # of up to 3.6 M values, added in another order (K1 per pixel tile,
         # then over the tiles; K2, K4 with atomics), within 1e-5 of the
-        # largest sum of squares
+        # largest sum of squares; a bf16 case's own `tol` (kernel_cases)
         n_out = len(got) - case['stats']
         if len(got) != len(want):
             fail('%s %s: %d results, plain gives %d'
                  % (name, label, len(got), len(want)))
         stat_scale = want[-1].abs().max().item()
+        out_rel, stat_rel = case.get('tol', (1e-4, 1e-5))
         errs, rels = [], []
         for i, (g, w) in enumerate(zip(got, want)):
-            if g.shape != w.shape:
-                fail('%s %s: result %d has shape %s, plain %s'
-                     % (name, label, i, tuple(g.shape), tuple(w.shape)))
-            errs.append((g - w).abs().max().item())
+            if g.shape != w.shape or g.dtype != w.dtype:
+                fail('%s %s: result %d has shape %s %s, plain %s %s'
+                     % (name, label, i, tuple(g.shape), g.dtype,
+                        tuple(w.shape), w.dtype))
+            errs.append((g.float() - w.float()).abs().max().item())
             big = w.abs().max().item()
-            tol = 1e-4 * max(1.0, big) if i < n_out else 1e-5 * stat_scale
+            tol = (out_rel * max(1.0, big) if i < n_out
+                   else stat_rel * stat_scale)
             if not errs[-1] <= tol:
                 fail('%s %s: result %d max abs err %.3e > tol %.3e'
                      % (name, label, i, errs[-1], tol))
@@ -477,7 +547,10 @@ def phase_kernels(dev, seed, results):
         plain_ms = timed(case['plain'], 5)
         lib_ms = timed(case['library'], 5) if case['library'] else None
         t_bytes = 1e3 * case['bytes'] / HBM_BYTES_PER_S
-        t_flop = 1e3 * case['flop'] / FP32_FLOP_PER_S
+        rate = case.get('flop_per_s', FP32_FLOP_PER_S)
+        t_flop = 1e3 * case['flop'] / rate
+        # a bf16 form's product runs as fp32 FMA: its issue time alone
+        t_fma = 1e3 * case['flop'] / FP32_FLOP_PER_S
         r = results.setdefault(name, {
             'max_abs_err': 0.0, 'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0,
             'bytes_ms': 0.0, 'flop_ms': 0.0, 'library_ms': None})
@@ -490,14 +563,16 @@ def phase_kernels(dev, seed, results):
         if lib_ms is not None:
             r['library_ms'] = (r['library_ms'] or 0.0) + lib_ms
         say('kernels', '%-13s %-44s max_abs_err %.3e (largest rel %s)  '
-            'kernel %.3f ms  plain %.3f ms  library %s  bound %.3f ms (%s)%s'
+            'kernel %.3f ms  plain %.3f ms  library %s  bound %.3f ms (%s)%s%s'
             % (name, label, err,
                ' '.join('%.1e' % v for v in rels) if case.get('fixed')
                else '%.1e' % max(rels), ms, plain_ms,
                'none' if lib_ms is None else '%.3f ms' % lib_ms,
                max(t_bytes, t_flop),
-               'bytes' if t_bytes > t_flop else
-               'operations at 67 TFLOP/s, fp32 FMA',
+               'bytes' if t_bytes > t_flop else 'operations at %.0f TFLOP/s'
+               % (rate / 1e12),
+               '' if t_fma == t_flop else
+               '  fp32 FMA issue %.3f ms at 67 TFLOP/s' % t_fma,
                '; results %s bit-identical in a second call'
                % (case['fixed'],)
                if case.get('fixed') else ''))
@@ -591,7 +666,10 @@ def phase_slice(dev, seed):
         % (outs['cuda_s'], outs['cpu_s']))
 
 
-def phase_main(dev, seed):
+def phase_main(dev, seed, compute_dtype=None, phase='main'):
+    """Trainer.test on a 96 x 96 pair, `compute_dtype` as the CLI's
+    --compute_dtype (None or 'bf16'); every kernel that `phase` owns must
+    launch. Returns the launches."""
     import numpy as np
     import torch
     from ucdir_tpu_torch.metrics import core as Metrics
@@ -599,7 +677,7 @@ def phase_main(dev, seed):
     from ucdir_tpu_torch.trainer import Trainer
 
     opt = {'phase': 'val', 'model': sid_model(),
-           'path': {'resume_state': None},
+           'path': {'resume_state': None}, 'compute_dtype': compute_dtype,
            'train': {'ema_scheduler': {'use': True}}}
     trainer = Trainer(opt, device=dev, seed=seed)
     hr, lq = pattern(96, 96, seed + 2)
@@ -615,25 +693,32 @@ def phase_main(dev, seed):
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     sr = trainer.get_current_visuals()['SR']
     if sr.shape != (11, 96, 96, 3) or not np.isfinite(sr).all():
-        fail('main: snapshots have shape %s or non-finite values'
-             % (sr.shape,))
+        fail('%s: snapshots have shape %s or non-finite values'
+             % (phase, sr.shape))
     psnr = Metrics.calculate_psnr(Metrics.tensor2img(sr[-1]),
                                   Metrics.tensor2img(hr[0]))
     if not math.isfinite(psnr):
-        fail('main: PSNR %r' % psnr)
+        fail('%s: PSNR %r' % (phase, psnr))
     missing = [k for k, n in launches.items()
-               if n == 0 and OWNER[k] == 'main']
+               if n == 0 and OWNER[k] == phase]
     if missing:
-        fail('main: kernels never launched on the main path: %s' % missing)
-    say('main', 'Trainer.test 50 steps, full width, 96x96: %.2f s, PSNR %.4f '
-        'dB (random weights; SSIM skipped: needs cv2), peak %.3f GiB, '
-        'launches %s' % (secs, psnr, peak, json.dumps(launches)))
+        fail('%s: kernels never launched on the main path: %s'
+             % (phase, missing))
+    say(phase, 'Trainer.test 50 steps%s, full width, 96x96: %.2f s, PSNR '
+        '%.4f dB (random weights; SSIM skipped: needs cv2), peak %.3f GiB, '
+        'launches %s' % ('' if compute_dtype is None else ' in ' +
+                         compute_dtype, secs, psnr, peak,
+                         json.dumps(launches)))
     return launches
 
 
-def phase_sid(dev, seed):
+def phase_sid(dev, seed, compute_dtype=None, phase='sid'):
+    """One SID frame through the validation step, the networks in
+    `compute_dtype` (None: float32). Returns (the restored frame on the
+    host, the launches of that run)."""
     import torch
     from ucdir_tpu_torch.configs import SID_VAL_SCHEDULE
+    from ucdir_tpu_torch.diffusion.sampler import cast_model
     from ucdir_tpu_torch.eval import eval_step
     from ucdir_tpu_torch.models.dy3h import compute_guide_maps
     from ucdir_tpu_torch.models.layers import pad_to_multiple, reflect_pad
@@ -648,31 +733,112 @@ def phase_sid(dev, seed):
                        device=dev) * 2 - 1
     with torch.no_grad():
         # the predictor and the guide maps alone, to split the frame's time
-        x = reflect_pad(frame, PAD, PAD, PAD, PAD)
+        net = model if compute_dtype is None else cast_model(model,
+                                                             compute_dtype)
+        x = reflect_pad(frame, PAD, PAD, PAD, PAD).to(
+            compute_dtype or frame.dtype)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        compute_guide_maps(model.denoise_fn,
-                           pad_to_multiple(model.predict_init(x), 32)[0])
+        compute_guide_maps(net.denoise_fn,
+                           pad_to_multiple(net.predict_init(x), 32)[0])
         torch.cuda.synchronize()
         t_pre = time.perf_counter() - t
-        del x
+        del x, net
     torch.cuda.reset_peak_memory_stats(dev)
     _build.reset_launches()
     t = time.perf_counter()
-    sr, _ = eval_step(model, sched, frame, pad=PAD, generator=gen)
+    sr, _ = eval_step(model, sched, frame, pad=PAD, generator=gen,
+                      compute_dtype=compute_dtype)
     torch.cuda.synchronize()
     t_frame = time.perf_counter() - t
     launches = dict(_build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    if sr.shape != frame.shape or not torch.isfinite(sr).all():
-        fail('sid: output has shape %s or non-finite values'
-             % (tuple(sr.shape),))
-    say('sid', 'frame %dx%d (network %dx%d), %d steps: %.3f s for the frame; '
-        'predictor + guide maps %.1f ms, %.1f ms per DY3h step, peak %.3f '
-        'GiB, launches %s'
-        % (SID_FRAME + NET_FRAME + (steps, t_frame, 1e3 * t_pre,
-                                    1e3 * (t_frame - t_pre) / steps, peak,
-                                    json.dumps(launches))))
+    if (sr.shape != frame.shape or sr.dtype != torch.float32
+            or not torch.isfinite(sr).all()):
+        fail('%s: output has shape %s, dtype %s or non-finite values'
+             % (phase, tuple(sr.shape), sr.dtype))
+    say(phase, 'frame %dx%d (network %dx%d), %d steps%s: %.3f s for the '
+        'frame; predictor + guide maps %.1f ms, %.1f ms per DY3h step, peak '
+        '%.3f GiB, launches %s'
+        % (SID_FRAME + NET_FRAME + (
+            steps, '' if compute_dtype is None else ' in %s' % compute_dtype,
+            t_frame, 1e3 * t_pre, 1e3 * (t_frame - t_pre) / steps, peak,
+            json.dumps(launches))))
+    return sr.cpu(), launches
+
+
+def bf16_slice(dev, seed, **unet):
+    """phase_slice's restoration in bf16, card against host: the mean abs
+    difference within 1e-3 (outputs in about [-2, 2]; both sides round at
+    the same places, but a float32 sum in another order flips a bf16
+    output's last bit, 2^-8 at 1, and the flip runs on through the network
+    and the steps), the max printed. Returns the card run's launches."""
+    import numpy as np
+    import torch
+    from ucdir_tpu_torch.configs import SID_VAL_SCHEDULE
+    from ucdir_tpu_torch.eval import eval_step
+    from ucdir_tpu_torch.ops import _build
+    from ucdir_tpu_torch.schedule import make_schedule
+
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1, 1, (1, 96, 96, 3)).astype(np.float32)
+    shape = (1, 96 + 2 * PAD, 96 + 2 * PAD, 3)
+    draws = [rng.standard_normal(shape).astype(np.float32) for _ in range(3)]
+    sched_opt = dict(SID_VAL_SCHEDULE, n_timestep=2)
+    host = build_model(seed, **unet)
+    card = copy.deepcopy(host).to(dev)
+    outs = {}
+    for name, model, d in (('cuda', card, dev), ('cpu', host, 'cpu')):
+        if name == 'cuda':
+            torch.cuda.synchronize()
+            _build.reset_launches()
+        outs[name] = eval_step(
+            model, make_schedule(sched_opt, d), torch.from_numpy(x).to(d),
+            noise=injected(draws, d), compute_dtype=torch.bfloat16)
+        if name == 'cuda':
+            torch.cuda.synchronize()
+            launches = dict(_build.LAUNCHES)
+    what = 'slice, %s' % (unet or 'the SID model')
+    for i, out in enumerate(('sr', 'initx')):
+        got, want = outs['cuda'][i].cpu(), outs['cpu'][i]
+        if (got.shape != want.shape or got.dtype != torch.float32
+                or not torch.isfinite(got).all()):
+            fail('bf16: %s %s has shape %s, dtype %s or non-finite values'
+                 % (what, out, tuple(got.shape), got.dtype))
+        d = (got - want).abs()
+        mean, big = d.mean().item(), d.max().item()
+        if not mean <= 1e-3:
+            fail('bf16: %s %s card vs host mean abs %.3e > 1e-3'
+                 % (what, out, mean))
+        say('bf16', '%s: %s card vs host mean abs %.3e (tol 1e-3), max abs '
+            '%.3e' % (what, out, mean, big))
+    return launches
+
+
+def phase_bf16(dev, seed, counts, sr32):
+    """Validation under --compute_dtype bf16: the slice, the `dropout: 0`
+    slice (K7's bf16 form), Trainer.test, and phase_sid's frame against its
+    float32 result `sr32`."""
+    import torch
+    bf = torch.bfloat16
+    bf16_slice(dev, seed)
+    counts['bf16_head'] = bf16_slice(dev, seed, dropout=0.0)
+    phase_main(dev, seed, 'bf16', phase='bf16')
+    sr, counts['bf16'] = phase_sid(dev, seed, bf, phase='bf16')
+    missing = [k for k, owner in OWNER.items()
+               if owner == 'bf16' and counts['bf16'][k] == 0]
+    if missing:
+        fail('bf16: bf16 kernels never launched on the bf16 frame: %s'
+             % missing)
+    if counts['bf16_head']['conv3x3_preact_bf16'] == 0:
+        fail('bf16: the dropout: 0 model never launched conv3x3_preact_bf16')
+    d = (sr - sr32).abs()
+    mean = d.mean().item()
+    if not mean <= 0.05:
+        fail('bf16: frame bf16 vs float32 mean abs %.3e > 0.05' % mean)
+    say('bf16', 'frame, bf16 against float32 (same draws): mean abs %.3e '
+        '(tol 0.05, the JAX test of bf16 sampling; CLAUDE.md states about '
+        '0.001 for the JAX rounds), max abs %.3e' % (mean, d.max().item()))
 
 
 # ------------------------------------------------------------- phases 6-7
@@ -962,13 +1128,17 @@ def phase_fewstep(dev, seed, counts):
     frame = torch.from_numpy(lq).to(dev)
     gen = torch.Generator(dev).manual_seed(seed)
     total = {}
-    for sampler, steps in (('ddim', 5), ('dpmpp', 20), ('dpmpp_sde', 20)):
+    runs = [(s, n, None) for s, n in (('ddim', 5), ('dpmpp', 20),
+                                      ('dpmpp_sde', 20))]
+    runs += [(s, n, torch.bfloat16) for s, n, _ in runs]
+    for sampler, steps, dtype in runs:
         torch.cuda.reset_peak_memory_stats(dev)
         torch.cuda.synchronize()
         _build.reset_launches()
         t = time.perf_counter()
         sr, _ = eval_step(model, sched, frame, pad=PAD, generator=gen,
-                          sampler=sampler, sampling_timesteps=steps)
+                          sampler=sampler, sampling_timesteps=steps,
+                          compute_dtype=dtype)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
         n = dict(_build.LAUNCHES)
@@ -976,18 +1146,23 @@ def phase_fewstep(dev, seed, counts):
         if sr.shape != frame.shape or not torch.isfinite(sr).all():
             fail('fewstep: %s output has shape %s or non-finite values'
                  % (sampler, tuple(sr.shape)))
-        if n['conv3x3_preact'] != steps or n['akgm_tail'] != BLOCKS * steps:
-            fail('fewstep: %s, %d steps, launched %s' % (sampler, steps, n))
+        sfx = '' if dtype is None else '_bf16'
+        if (n['conv3x3_preact' + sfx] != steps
+                or n['akgm_tail' + sfx] != BLOCKS * steps):
+            fail('fewstep: %s, %d steps, in %s, launched %s'
+                 % (sampler, steps, dtype, n))
         psnr = Metrics.calculate_psnr(Metrics.tensor2img(sr[0].cpu().numpy()),
                                       Metrics.tensor2img(hr[0]))
         if not math.isfinite(psnr):
             fail('fewstep: %s PSNR %r' % (sampler, psnr))
-        for k, v in n.items():
-            total[k] = total.get(k, 0) + v
-        say('fewstep', '%s, %d steps, frame %dx%d: %.3f s per frame, %.1f ms '
-            'per step (the predictor and the guide maps included), PSNR '
+        if dtype is None:
+            for k, v in n.items():
+                total[k] = total.get(k, 0) + v
+        say('fewstep', '%s, %d steps%s, frame %dx%d: %.3f s per frame, %.1f '
+            'ms per step (the predictor and the guide maps included), PSNR '
             '%.4f dB (random weights), peak %.3f GiB, launches %s'
-            % ((sampler, steps) + SID_FRAME
+            % ((sampler, steps, '' if dtype is None else ' in bf16')
+               + SID_FRAME
                + (secs, 1e3 * secs / steps, psnr, peak, json.dumps(n))))
         del sr
     counts['fewstep'] = total
@@ -1067,6 +1242,37 @@ def phase_hires(dev, seed, counts):
         'launches %s'
         % (FULL_FRAME + (h, w, steps, secs, secs / steps, tiles, TILE, TILE,
                          peak, json.dumps(n))))
+    del sr
+    torch.cuda.empty_cache()
+
+    # the same frame tiled in bf16, 2 steps: its peak must stay below the
+    # float32 frame's (attention's float32 scores of 16384 tokens a window
+    # are the same bytes in both; every other activation is half)
+    steps, peak32 = 2, peak
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t = time.perf_counter()
+    sr, _ = eval_step(model, sched, frame, pad=PAD, generator=gen,
+                      sampler='ddim', sampling_timesteps=steps,
+                      compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    n = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    if sr.shape != frame.shape or not torch.isfinite(sr).all():
+        fail('hires: bf16 output has shape %s or non-finite values'
+             % (tuple(sr.shape),))
+    if (n['conv3x3_preact_bf16'] != tiles * steps
+            or n['akgm_tail_bf16'] != BLOCKS * tiles * steps):
+        fail('hires: bf16, %d tiles, %d steps, launched %s'
+             % (tiles, steps, n))
+    if not peak < peak32:
+        fail('hires: bf16 peak %.3f GiB, not below float32\'s %.3f GiB'
+             % (peak, peak32))
+    say('hires', 'the same frame in bf16, ddim %d steps, tiled: %.3f s per '
+        'frame, %.3f s per step, peak %.3f GiB (float32 %.3f GiB), launches '
+        '%s' % (steps, secs, secs / steps, peak, peak32, json.dumps(n)))
     del sr, frame
     torch.cuda.empty_cache()
 
@@ -1120,7 +1326,9 @@ def main(argv=None):
     phase_kernels(dev, args.seed, results)
     phase_slice(dev, args.seed)
     counts = {'main': phase_main(dev, args.seed)}
-    phase_sid(dev, args.seed)
+    sr32, _ = phase_sid(dev, args.seed)
+    phase_bf16(dev, args.seed, counts, sr32)
+    del sr32
     phase_train_slice(dev, args.seed)
     phase_train_slice(dev, args.seed, inner_channel=24)
     counts['train'] = phase_train(dev, args.seed)

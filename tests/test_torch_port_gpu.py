@@ -29,6 +29,14 @@ without atomics: they are held to the same bits in a second call.
 K2 and K3 run on tiles of 128 pixels by 128 or 8 columns, or 256 by 64, in k
 slices of 16: their cases include cout 3, 8, 9 and 130, cin 4, 6 and 70, P
 one short of and one past a pixel tile, stride 2 on odd sizes and B = 3.
+The bf16 forms of K1, K2, K3, K4 and K7 (`_bf16` tests) take the same cases
+in bfloat16 against the bf16 plain versions, which round where the kernels
+do: every output within one bf16 ulp of max(1, |reference|), 2^-7 of it,
+and at least 99% of them the same bits (a float32 sum in another order
+next to a rounding boundary flips one ulp); statistics, each side's float32
+sums of its own rounded output, within the sum over the pixels of the two
+outputs' differences (of their squares' differences) and 1e-5 of the
+largest sum of squares.
 """
 import pytest
 import torch
@@ -137,14 +145,15 @@ def test_akgm_tail_statistics_repeat_bit_for_bit(dev, B, H, W, C):
         h, att, w, b, res, G, emit_stats=True, **kw), 2)
 
 
-@pytest.mark.parametrize('B,H,W,cin,cout,stride', [
+CONV3X3_SHAPES = [
     (2, 11, 17, 6, 64, 1), (1, 20, 33, 192, 64, 1), (1, 9, 15, 70, 3, 1),
     (2, 16, 24, 64, 64, 2), (1, 15, 9, 32, 100, 2), (1, 6, 10, 128, 512, 1),
     (1, 127, 1, 4, 8, 1), (1, 3, 43, 70, 9, 1), (3, 7, 9, 6, 130, 1),
     (3, 13, 17, 64, 3, 2), (1, 1, 129, 64, 130, 1), (2, 21, 25, 70, 130, 2),
-    (1, 16, 16, 1024, 512, 1)])
-@pytest.mark.parametrize('fold_act', [False, True])
-def test_conv3x3(dev, B, H, W, cin, cout, stride, fold_act):
+    (1, 16, 16, 1024, 512, 1)]
+
+
+def conv3x3_operands(dev, B, H, W, cin, cout, stride, fold_act):
     gen = torch.Generator(dev).manual_seed(1)
     x = rnd(gen, B, H, W, cin, scale=0.5)
     w = rnd(gen, 9 * cin, cout, scale=(9 * cin) ** -0.5)
@@ -153,6 +162,13 @@ def test_conv3x3(dev, B, H, W, cin, cout, stride, fold_act):
     if fold_act:
         kw.update(act='swish', norm_scale=rnd(gen, B, cin, off=1.0),
                   norm_shift=rnd(gen, B, cin, scale=0.2))
+    return x, w, b, kw
+
+
+@pytest.mark.parametrize('B,H,W,cin,cout,stride', CONV3X3_SHAPES)
+@pytest.mark.parametrize('fold_act', [False, True])
+def test_conv3x3(dev, B, H, W, cin, cout, stride, fold_act):
+    x, w, b, kw = conv3x3_operands(dev, B, H, W, cin, cout, stride, fold_act)
     check(conv.conv3x3(x, w, b, **kw), conv.conv3x3_plain(x, w, b, **kw), 2)
 
 
@@ -169,9 +185,12 @@ def test_upconv2x_is_upsample_then_conv(dev):
                                   emit_stats=True), 2)
 
 
-@pytest.mark.parametrize('B,H,W,cin,cout', [
+CONV1X1_SHAPES = [
     (2, 9, 31, 192, 64), (1, 4, 5, 1024, 512), (3, 1, 127, 4, 3),
-    (1, 3, 43, 70, 9), (1, 8, 16, 6, 130), (2, 127, 1, 64, 8)])
+    (1, 3, 43, 70, 9), (1, 8, 16, 6, 130), (2, 127, 1, 64, 8)]
+
+
+@pytest.mark.parametrize('B,H,W,cin,cout', CONV1X1_SHAPES)
 @pytest.mark.parametrize('act', [None, 'swish'])
 def test_conv1x1(dev, B, H, W, cin, cout, act):
     gen = torch.Generator(dev).manual_seed(3)
@@ -295,9 +314,12 @@ def test_backward_weight_gradients_repeat_bit_for_bit(dev, kind, shape):
 FRAME = (1568, 2272)
 
 
-@pytest.mark.parametrize('B,H,W,cin,cout', [
+PREACT_SHAPES = [
     (1, 18, 18, 64, 3), (2, 11, 17, 64, 3), (1, 9, 15, 70, 24),
-    (1, 6, 10, 128, 100), (1, 1024, 1024, 64, 3), (1,) + FRAME + (64, 3)])
+    (1, 6, 10, 128, 100), (1, 1024, 1024, 64, 3), (1,) + FRAME + (64, 3)]
+
+
+@pytest.mark.parametrize('B,H,W,cin,cout', PREACT_SHAPES)
 def test_conv3x3_preact(dev, B, H, W, cin, cout):
     gen = torch.Generator(dev).manual_seed(8)
     x = rnd(gen, B, H, W, cin, scale=0.5)
@@ -494,3 +516,131 @@ def test_wrappers_raise_on_bad_operands(dev):
         conv.conv3x3(x.transpose(1, 2), w, b)
     with pytest.raises(ValueError, match='CUDA'):
         conv.conv3x3(x, w.cpu(), b)
+
+
+# ---- the bf16 forms of K1, K2, K3, K4 and K7
+BF = torch.bfloat16
+
+
+def check_bf16(got, want, n_stats):
+    got, want = flat(got), flat(want)
+    assert len(got) == len(want)
+    qmax = want[-1].abs().max().item() if n_stats else 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        if i >= len(got) - n_stats:
+            # each side's float32 sums of its own rounded output: they
+            # differ by what the outputs do (a flipped last bit is a whole
+            # bf16 ulp in a sum of a few pixels), summed over the pixels
+            assert g.dtype == torch.float32
+            slack = 0.
+            if len(got) > n_stats:
+                o, p = got[0].float(), want[0].float()
+                k = i - (len(got) - n_stats)   # 0: sums, 1: sums of squares
+                slack = ((o - p) if k == 0 else (o * o - p * p)).abs().sum(
+                    dim=(1, 2))
+            assert ((g - w).abs() <= slack + 1e-5 * qmax).all(), (i, qmax)
+            continue
+        assert g.dtype == w.dtype == BF
+        g, w = g.float(), w.float()
+        err, tol = (g - w).abs().max().item(), 2. ** -7 * max(
+            1.0, w.abs().max().item())
+        assert err <= tol, (i, err, tol)
+        assert (g == w).float().mean().item() >= 0.99
+
+
+def bf16(*ts):
+    return [None if t is None else t.to(BF) for t in ts]
+
+
+def launched(name, fn):
+    n = dict(_build.LAUNCHES)
+    out = fn()
+    assert _build.LAUNCHES[name + '_bf16'] == n[name + '_bf16'] + 1
+    assert _build.LAUNCHES[name] == n[name]
+    return out
+
+
+@pytest.mark.parametrize('B,H,W,C', [(2, 13, 21, 64), (1, 9, 130, 128),
+                                     (1, 5, 7, 512)] + NARROW)
+@pytest.mark.parametrize('fold', [False, True])
+def test_akgm_tail_bf16(dev, B, H, W, C, fold):
+    gen, G = torch.Generator(dev).manual_seed(15), 8
+    h, att, w, b, res, kw = tail_operands(gen, B, H, W, C, fold)
+    h, att, w, b, res = bf16(h, att, w, b, res)
+    kw = {k: v.to(BF) for k, v in kw.items()}
+    got = launched('akgm_tail', lambda: akgm.akgm_block_tail(
+        h, att, w, b, res, G, emit_stats=True, **kw))
+    check_bf16(got, akgm.akgm_block_tail_plain(h, att, w, b, res, G,
+                                               emit_stats=True, **kw), 2)
+
+
+@pytest.mark.parametrize('B,H,W,cin,cout,stride', CONV3X3_SHAPES)
+@pytest.mark.parametrize('fold_act', [False, True])
+def test_conv3x3_bf16(dev, B, H, W, cin, cout, stride, fold_act):
+    x, w, b, kw = conv3x3_operands(dev, B, H, W, cin, cout, stride, fold_act)
+    x, w, b = bf16(x, w, b)
+    kw = {k: v.to(BF) if torch.is_tensor(v) else v for k, v in kw.items()}
+    got = launched('conv3x3', lambda: conv.conv3x3(x, w, b, **kw))
+    check_bf16(got, conv.conv3x3_plain(x, w, b, **kw), 2)
+
+
+def test_upconv2x_bf16(dev):
+    gen = torch.Generator(dev).manual_seed(2)
+    cin, cout = 64, 64
+    x = rnd(gen, 1, 7, 12, cin, scale=0.5).to(BF)
+    k = rnd(gen, 3, 3, cin, cout, scale=(9 * cin) ** -0.5).to(BF)
+    b = rnd(gen, cout, scale=0.1).to(BF)
+    wp = conv.pack_up_kernel(k).reshape(9 * cin, 4 * cout).contiguous()
+    bp = b.repeat(4)
+    check_bf16(launched('conv3x3', lambda: conv.upconv2x(x, wp, bp)),
+               conv.depth_to_space2(conv.conv3x3_plain(x, wp, bp)), 0)
+
+
+@pytest.mark.parametrize('B,H,W,cin,cout', CONV1X1_SHAPES)
+@pytest.mark.parametrize('act', [None, 'swish'])
+def test_conv1x1_bf16(dev, B, H, W, cin, cout, act):
+    gen = torch.Generator(dev).manual_seed(3)
+    x = rnd(gen, B, H, W, cin, scale=0.5)
+    w, b = rnd(gen, cin, cout, scale=cin ** -0.5), rnd(gen, cout, scale=0.1)
+    x, w, b = bf16(x, w, b)
+    check_bf16(launched('conv1x1', lambda: conv.conv1x1(x, w, b, act=act)),
+               conv.conv1x1_plain(x, w, b, act=act), 0)
+
+
+@pytest.mark.parametrize('shape', [(2, 17, 19, 40), (1, 33, 65, 1024)])
+def test_gn1_stats_bf16(dev, shape):
+    gen = torch.Generator(dev).manual_seed(4)
+    x = rnd(gen, *shape, off=0.3).to(BF)
+    check_bf16(launched('gn1_stats', lambda: stats.gn1_stats(x)),
+               stats.gn1_stats_plain(x), 2)
+
+
+@pytest.mark.parametrize('B,H,W,cin,cout', PREACT_SHAPES)
+def test_conv3x3_preact_bf16(dev, B, H, W, cin, cout):
+    gen = torch.Generator(dev).manual_seed(8)
+    x = rnd(gen, B, H, W, cin, scale=0.5)
+    w = rnd(gen, 9 * cin, cout, scale=(9 * cin) ** -0.5)
+    b = rnd(gen, cout, scale=0.1)
+    a, t = rnd(gen, B, cin, off=1.0), rnd(gen, B, cin, scale=2.0)
+    x, w, b, a, t = bf16(x, w, b, a, t)
+    check_bf16(launched('conv3x3_preact', lambda: conv.conv3x3_preact(
+        x, w, b, a, t)), conv.conv3x3_preact_plain(x, w, b, a, t), 0)
+
+
+def test_kernels_without_a_bf16_form_refuse_bf16(dev):
+    """K5, K6, K8 and K9 take float32: a bf16 operand raises, it is never
+    cast."""
+    gen, G, C = torch.Generator(dev).manual_seed(16), 8, 16
+    h, att, w, b = bf16(*akgm_operands(gen, 1, 5, 6, C))
+    with pytest.raises(TypeError, match='float32'):
+        akgm.akgm_mix(h, att, w, b, G)
+    with pytest.raises(TypeError, match='float32'):
+        akgm.akgm_block_tail_packed(h, att, akgm.pack_grouped_weight(w, G),
+                                    b, h, G)
+    with pytest.raises(TypeError, match='float32'):
+        akgm.akgm_block_tail_backward_kernel(h, att, w, b, h, G, None, None,
+                                             None)
+    x, wc, bc = bf16(rnd(gen, 1, 5, 6, 8), rnd(gen, 72, 8), rnd(gen, 8))
+    with pytest.raises(TypeError, match='float32'):
+        conv.conv3x3_backward_kernel(x, wc, bc, x, None, None, None)

@@ -175,10 +175,21 @@ def test_wrappers_refuse_other_devices():
 
 
 def test_check_refuses_host_and_half_tensors():
-    # the kernels' argument check: CUDA, float32, shape, contiguity
+    # the kernels' argument check: CUDA, the entry's dtype, shape,
+    # contiguity; float16 has no entry point, bfloat16 only K1..K4 and K7's
     with pytest.raises(ValueError, match='CUDA'):
         _build.check('x', torch.zeros(2, 3))
-    assert _build.LAUNCHES.keys() == {'akgm_tail', 'conv3x3', 'conv1x1',
-                                      'gn1_stats', 'akgm_tail_bwd',
-                                      'conv3x3_bwd', 'conv3x3_preact',
-                                      'akgm_mix', 'akgm_packed'}
+    with pytest.raises(TypeError, match='float32'):
+        _build.entry('conv3x3', torch.zeros(2, 3, dtype=torch.float16))
+    with pytest.raises(TypeError, match='ROADMAP'):
+        _build.entry('akgm_mix', torch.zeros(2, 3, dtype=torch.bfloat16))
+    assert _build.entry('conv3x3', torch.zeros(1)) == 'conv3x3'
+    assert _build.entry('akgm_tail', torch.zeros(1, dtype=torch.bfloat16)
+                        ) == 'akgm_tail_bf16'
+    kernels = {'akgm_tail', 'conv3x3', 'conv1x1', 'gn1_stats',
+               'akgm_tail_bwd', 'conv3x3_bwd', 'conv3x3_preact', 'akgm_mix',
+               'akgm_packed'}
+    assert _build.LAUNCHES.keys() == kernels | {
+        k + '_bf16' for k in _build.BF16_KERNELS}
+    assert set(_build.BF16_KERNELS) == {'akgm_tail', 'conv3x3', 'conv1x1',
+                                        'gn1_stats', 'conv3x3_preact'}

@@ -166,14 +166,16 @@ def test_cli_val_on_cpu(tmp_path):
 
 def test_cli_refuses_what_is_not_ported():
     from ucdir_tpu_torch import sr
-    for extra in (['--compute_dtype', 'bf16'], ['--val_batch', '2']):
+    for argv in (['-p', 'val', '--val_batch', '2'],
+                 ['-p', 'train', '--compute_dtype', 'bf16']):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
-            sr.main(['-p', 'val', '--device', 'cpu'] + extra)
+            sr.main(argv + ['--device', 'cpu'])
     # what the port carries by now is refused no longer
     args = sr._parser().parse_args(
         ['--sampler', 'dpmpp_sde', '--sampling_timesteps', '4', '--val_patch',
          '--patch_skip', '64', '--patch_padding', '8', '--search_params',
-         '--search_steps', '2,3', '--search_ends', '0.2'])
+         '--search_steps', '2,3', '--search_ends', '0.2',
+         '--compute_dtype', 'bf16'])
     sr._refuse(args)
 
 

@@ -341,6 +341,10 @@ def test_factory_reads_the_tail_switches(monkeypatch, env, want):
 
 
 def test_every_kernel_has_a_launch_count():
-    assert set(_build.LAUNCHES) == set(_build._SIGNATURES) == {
-        'akgm_tail', 'conv3x3', 'conv1x1', 'gn1_stats', 'akgm_tail_bwd',
-        'conv3x3_bwd', 'conv3x3_preact', 'akgm_mix', 'akgm_packed'}
+    # every entry point, the bf16 forms of K1, K2, K3, K4 and K7 among them
+    kernels = {'akgm_tail', 'conv3x3', 'conv1x1', 'gn1_stats',
+               'akgm_tail_bwd', 'conv3x3_bwd', 'conv3x3_preact', 'akgm_mix',
+               'akgm_packed'}
+    assert set(_build.LAUNCHES) == set(_build._SIGNATURES) == kernels | {
+        'akgm_tail_bf16', 'conv3x3_bf16', 'conv1x1_bf16', 'gn1_stats_bf16',
+        'conv3x3_preact_bf16'}

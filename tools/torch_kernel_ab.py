@@ -31,8 +31,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def digest(t):
-    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()
-                          ).hexdigest()[:16]
+    import torch
+    return hashlib.sha256(t.detach().contiguous().cpu().view(torch.uint8)
+                          .numpy().tobytes()).hexdigest()[:16]
 
 
 def worker(kernels, seed, ddim):
@@ -57,7 +58,8 @@ def worker(kernels, seed, ddim):
         label = '%s %s' % (case['name'], case['label'])
         try:
             got = chip_smoke.flat(case['kernel']())
-        except ValueError as e:   # a width this tree's kernel does not take
+        except (ValueError, TypeError) as e:
+            # a width or a dtype this tree's kernel does not take
             print('CASE ' + json.dumps({'case': label, 'refused': str(e)}),
                   flush=True)
             continue

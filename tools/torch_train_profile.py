@@ -5,6 +5,7 @@ port goes on the card.
     python3 tools/torch_train_profile.py [--batch 32] [--crop 256] [--seed 0]
     python3 tools/torch_train_profile.py --val [--steps 2] [--seed 0]
                                          [--tail fused|mix|packed]
+                                         [--compute_dtype bf16]
 
 Builds the Trainer of `ucdir_tpu_torch` in its train phase at the full SID
 width (random weights from --seed, one seeded batch), takes two warm-up steps,
@@ -17,8 +18,9 @@ recompute, weight gradient and its reduction, input gradient) and the
 launches of K1..K6 in that step. With --val it restores one 1424 x 2128 frame (1568 x 2272 in the
 network) with --steps DDPM steps instead, once to warm up and once traced:
 the same lines for that frame, whose time is one predictor pass plus --steps
-DY3h steps, and with --tail the denoiser's AKGM tail (`DY3h(tail=...)`: K1,
-K8 or K9). Needs a CUDA card; prints the card's name and power limit first.
+DY3h steps, with --tail the denoiser's AKGM tail (`DY3h(tail=...)`: K1,
+K8 or K9), and with --compute_dtype bf16 the networks in bfloat16 (the bf16
+kernels). Needs a CUDA card; prints the card's name and power limit first.
 """
 import argparse
 import copy
@@ -43,6 +45,8 @@ def main(argv=None):
     ap.add_argument('--tail', default='fused',
                     choices=('fused', 'mix', 'packed'),
                     help="the validation denoiser's AKGM tail")
+    ap.add_argument('--compute_dtype', default=None, choices=('bf16',),
+                    help="the validation networks' dtype")
     args = ap.parse_args(argv)
 
     import torch
@@ -59,7 +63,8 @@ def main(argv=None):
                          text=True, check=True).stdout.strip())
     dev = torch.device('cuda', 0)
     if args.val:
-        step = val_frame(dev, args.seed, args.steps, args.tail)
+        step = val_frame(dev, args.seed, args.steps, args.tail,
+                         args.compute_dtype)
     else:
         step = train_step(dev, args)
     _build.reset_launches()
@@ -123,7 +128,7 @@ def launch_part(name):
     return None
 
 
-def val_frame(dev, seed, steps, tail='fused'):
+def val_frame(dev, seed, steps, tail='fused', compute_dtype=None):
     """Warms up and returns a call that restores one SID frame."""
     import torch
     from ucdir_tpu_torch.configs import SID_MODEL, SID_VAL_SCHEDULE
@@ -140,16 +145,20 @@ def val_frame(dev, seed, steps, tail='fused'):
     gen = torch.Generator(dev).manual_seed(seed)
     frame = torch.rand((1, 1424, 2128, 3), generator=gen, device=dev) * 2 - 1
 
+    dtype = {'bf16': torch.bfloat16}.get(compute_dtype)
+
     def step():
-        eval_step(model, sched, frame, pad=64, generator=gen)
+        eval_step(model, sched, frame, pad=64, generator=gen,
+                  compute_dtype=dtype)
 
     step()
     torch.cuda.synchronize()
     t = time.perf_counter()
     step()
     torch.cuda.synchronize()
-    print("frame 1424x2128 (network 1568x2272), tail '%s', %d DDPM steps: "
-          '%.3f s' % (tail, steps, time.perf_counter() - t))
+    print("frame 1424x2128 (network 1568x2272), tail '%s', %d DDPM steps, "
+          '%s: %.3f s' % (tail, steps, compute_dtype or 'float32',
+                          time.perf_counter() - t))
     return step
 
 

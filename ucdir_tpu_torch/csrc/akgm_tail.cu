@@ -51,31 +51,42 @@
 //   and stored plainly into a (B, pixel tiles, 2, C) workspace;
 //   stats_reduce_kernel adds the tiles in a fixed order. The sums have the
 //   same bits from call to call.
+// - K1 in bf16 (the TPU kernel's bf16 instantiation, validation under
+//   --compute_dtype bf16): the operands are bf16 in device memory and
+//   converted to float as the producers stage them; the product is the same
+//   fp32 FMA. It rounds where B1 rounds in bf16: the staged h * a, then + t;
+//   att * attw; each candidate z = acc + b_j, then z * (att * attw); the
+//   mix of the 8 rounded terms, swish and the residual in float, the output
+//   rounded once (to nearest even), and its statistics the float sums of
+//   the rounded values. K8 takes float only.
 // Bound: fp32 FMA issue at 2 * 9 * C/G * C * G FLOP per pixel.
 #include "igemm_pc.cuh"
 
 namespace {
 
 namespace pc = ucdir::pc;
+using ucdir::Elem;
 constexpr int G = 8;       // candidates per channel; a consumer thread's TN
 constexpr int MAX_CW = 8;  // column tiles a block walks, at most
 
+// E: the operands' element type (float, or bf16 for K1).
+template <class E>
 struct TailArgs {
-  const float* h;     // (B, H, W, C)
-  const float* att;   // (B, H, W, G)
-  const float* attw;  // (B, G) or null
-  const float* w;     // (9 * C / G, C * G), columns permuted in each tile
-  const float* bias;  // (C * G), in its own order
-  const float* res;   // (B, H, W, C); K8: null
-  const float* a;     // (B, C) or null
-  const float* t;
-  float* out;         // (B, H, W, C)
+  const E* h;         // (B, H, W, C)
+  const E* att;       // (B, H, W, G)
+  const E* attw;      // (B, G) or null
+  const E* w;         // (9 * C / G, C * G), columns permuted in each tile
+  const E* bias;      // (C * G), in its own order
+  const E* res;       // (B, H, W, C); K8: null
+  const E* a;         // (B, C) or null
+  const E* t;
+  E* out;             // (B, H, W, C)
   float* ws;          // (B, ntp, 2, C) per-tile sums, or null
   ucdir::Geom g;      // g.C = C, g.cin = C / G, g.K = 9 * C / G
   int ncw;            // column tiles per block; blockIdx.y * ncw is the first
   int ntp;            // pixel tiles of an image
   bool vec_a;
-  bool vec_res;       // 16-byte loads of the residual's channels
+  bool vec_res;       // 4-wide loads of the residual's channels
 };
 
 // Shared memory past the tile's own, in words: red, the (MAX_CW, warps,
@@ -99,34 +110,36 @@ struct Layout {
 };
 
 // The producers' staging for the epilogues (pc::grouped_produce's Stage):
-// att * attw of the block's pixels, and a column tile's bias and residual.
-// (Loading the residual in one iteration of the product and storing it in
-// the next measured no faster: PERF.md §6.)
-template <class T, bool TAIL>
+// att * attw of the block's pixels (rounded to E), and a column tile's bias
+// and residual, as float. (Loading the residual in one iteration of the
+// product and storing it in the next measured no faster: PERF.md §6.)
+template <class T, bool TAIL, class E>
 struct TailStage {
   using L = Layout<T>;
-  const TailArgs* c;
+  const TailArgs<E>* c;
   float* smem;
   int b, m0, nt0, P;
 
   __device__ __forceinline__ void block(int nt) const {
     const int tid = threadIdx.x - T::NC;
-    const float* att = c->att + ((int64_t)b * P + m0) * G;
+    const E* att = c->att + ((int64_t)b * P + m0) * G;
     float* as = smem + L::ATT;
-    float4 aw0 = make_float4(1.f, 1.f, 1.f, 1.f), aw1 = aw0;
+    float aw[2][4] = {{1.f, 1.f, 1.f, 1.f}, {1.f, 1.f, 1.f, 1.f}};
     if (TAIL && c->attw) {
-      aw0 = __ldg(reinterpret_cast<const float4*>(c->attw + b * G));
-      aw1 = __ldg(reinterpret_cast<const float4*>(c->attw + b * G + 4));
+      Elem<E>::ld4(aw[0], c->attw + b * G);
+      Elem<E>::ld4(aw[1], c->attw + b * G + 4);
     }
     for (int u = tid; u < 2 * T::BM; u += T::NP) {
       const int m = u / 2;
-      const float4 aw = u % 2 ? aw1 : aw0;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
       if (m0 + m < P) {
-        v = __ldg(reinterpret_cast<const float4*>(att + 4 * u));
-        v = make_float4(v.x * aw.x, v.y * aw.y, v.z * aw.z, v.w * aw.w);
+        Elem<E>::ld4(v, att + 4 * u);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          v[j] = Elem<E>::rnd(__fmul_rn(v[j], aw[u % 2][j]));
       }
-      *reinterpret_cast<float4*>(as + 4 * u) = v;
+      *reinterpret_cast<float4*>(as + 4 * u) =
+          make_float4(v[0], v[1], v[2], v[3]);
     }
     tile(nt);
   }
@@ -135,28 +148,28 @@ struct TailStage {
     const int tid = threadIdx.x - T::NC;
     float* buf = smem + L::BUF + ((nt - nt0) & 1) * L::BUF_WORDS;
     for (int u = tid; u < T::BN / 4; u += T::NP) {
+      float v[4];
+      Elem<E>::ld4(v, c->bias + nt * T::BN + 4 * u);
       reinterpret_cast<float4*>(buf + T::BM * L::RS)[u] =
-          __ldg(reinterpret_cast<const float4*>(c->bias + nt * T::BN) + u);
+          make_float4(v[0], v[1], v[2], v[3]);
     }
     if (!TAIL) return;
     const int C = c->g.C;
-    const float* res = c->res + ((int64_t)b * P + m0) * C + nt * T::NCX;
+    const E* res = c->res + ((int64_t)b * P + m0) * C + nt * T::NCX;
     if (T::NCX % 4 == 0 && c->vec_res) {
-      constexpr int Q = T::NCX / 4;  // 16-byte loads a pixel
+      constexpr int Q = T::NCX / 4;  // 4-wide loads a pixel
       for (int u = tid; u < T::BM * Q; u += T::NP) {
         const int m = u / Q, q = u % Q;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (m0 + m < P)
-          v = __ldg(reinterpret_cast<const float4*>(res + (int64_t)m * C) +
-                    q);
+        float v[4] = {0.f, 0.f, 0.f, 0.f};
+        if (m0 + m < P) Elem<E>::ld4(v, res + (int64_t)m * C + 4 * q);
         float* r = buf + m * L::RS + 4 * q;
-        r[0] = v.x; r[1] = v.y; r[2] = v.z; r[3] = v.w;
+        r[0] = v[0]; r[1] = v[1]; r[2] = v[2]; r[3] = v[3];
       }
     } else {
       for (int e = tid; e < T::BM * T::NCX; e += T::NP) {
         const int m = e / T::NCX, l = e % T::NCX;
         buf[m * L::RS + l] =
-            m0 + m < P ? __ldg(res + (int64_t)m * C + l) : 0.f;
+            m0 + m < P ? Elem<E>::ld(res + (int64_t)m * C + l) : 0.f;
       }
     }
   }
@@ -165,9 +178,9 @@ struct TailStage {
 // The consumers' epilogue of column tile n0 / BN, the block's it-th: a
 // thread's TM rows of channel n0 / G + tn. TAIL: K1's (swish, residual, and
 // with red the warp's per-channel sums into red (warps, NCX, 2)); else K8's.
-template <class T, bool TAIL>
+template <class T, bool TAIL, class E>
 __device__ __forceinline__ void tail_epilogue(const float (&acc)[T::TM][T::TN],
-                                              const TailArgs& c,
+                                              const TailArgs<E>& c,
                                               const float* smem, int it,
                                               int b, int m0, int n0,
                                               float* red) {
@@ -201,13 +214,21 @@ __device__ __forceinline__ void tail_epilogue(const float (&acc)[T::TM][T::TN],
     // ap[j] is att * attw, rounded as the product the mix takes
     float mix = 0.f;
 #pragma unroll
-    for (int j = 0; j < G; ++j) mix += (acc[i][j] + bj[j]) * ap[j];
+    for (int j = 0; j < G; ++j) {
+      if constexpr (Elem<E>::kLow) {
+        // z rounded, then z * att rounded, as B1 mixes in bf16
+        mix += Elem<E>::rnd(
+            __fmul_rn(Elem<E>::rnd(__fadd_rn(acc[i][j], bj[j])), ap[j]));
+      } else {
+        mix += (acc[i][j] + bj[j]) * ap[j];
+      }
+    }
     if (!TAIL) {
-      c.out[pix * C + ch] = mix;
+      Elem<E>::st(c.out + pix * C + ch, mix);
       continue;
     }
-    const float v = ucdir::swishf(mix) + buf[m * L::RS + tn];
-    c.out[pix * C + ch] = v;
+    const float v = Elem<E>::rnd(ucdir::swishf(mix) + buf[m * L::RS + tn]);
+    Elem<E>::st(c.out + pix * C + ch, v);
     s += v;
     q += v * v;
   }
@@ -227,8 +248,8 @@ __device__ __forceinline__ void tail_epilogue(const float (&acc)[T::TM][T::TN],
 
 // One pixel tile (blockIdx.x) of image blockIdx.z by column tiles
 // blockIdx.y * ncw .. + ncw - 1, one pipeline across them.
-template <class T, bool TAIL>
-__global__ void __launch_bounds__(T::NT) akgm_tail_kernel(TailArgs c) {
+template <class T, bool TAIL, class E>
+__global__ void __launch_bounds__(T::NT) akgm_tail_kernel(TailArgs<E> c) {
   using L = Layout<T>;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -240,14 +261,14 @@ __global__ void __launch_bounds__(T::NT) akgm_tail_kernel(TailArgs c) {
   const bool stats = TAIL && c.ws != nullptr;
   const int nk = pc::igemm_setup<T>(smem, c.g, m0);
   if (threadIdx.x >= T::NC) {
-    const TailStage<T, TAIL> st = {&c, smem, b, m0, nt0, c.g.H * c.g.W};
+    const TailStage<T, TAIL, E> st = {&c, smem, b, m0, nt0, c.g.H * c.g.W};
     pc::grouped_produce<T>(smem, c.h, c.a, c.t, c.w, c.g, b, nt0,
                            nt0 + c.ncw, nk, c.vec_a, st);
   } else {
     for (int i = 0; i < c.ncw; ++i) {
       float acc[T::TM][T::TN];
       pc::consume<T>(acc, smem, nk);
-      tail_epilogue<T, TAIL>(acc, c, smem, i, b, m0, (nt0 + i) * T::BN,
+      tail_epilogue<T, TAIL, E>(acc, c, smem, i, b, m0, (nt0 + i) * T::BN,
                              stats ? red + i * L::NW * T::NCX * 2 : nullptr);
     }
   }
@@ -305,14 +326,14 @@ __global__ void __launch_bounds__(1024)
   ssq[(int64_t)b * C + ch] = Q;
 }
 
-template <class T, bool TAIL>
-int launch_tile(TailArgs c, float* ssum, float* ssq, int B,
+template <class T, bool TAIL, class E>
+int launch_tile(TailArgs<E> c, float* ssum, float* ssq, int B,
                 cudaStream_t st) {
   constexpr int bytes = Layout<T>::BYTES;
   if (bytes > 48 * 1024) {
     const int err = (int)cudaFuncSetAttribute(
-        akgm_tail_kernel<T, TAIL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
+        akgm_tail_kernel<T, TAIL, E>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err) return err;
   }
   const int P = c.g.H * c.g.W;
@@ -326,7 +347,7 @@ int launch_tile(TailArgs c, float* ssum, float* ssq, int B,
   c.ncw = MAX_CW;
   while (c.ncw > 1 && (int64_t)B * c.ntp * (ntn / c.ncw) < 4 * sms)
     c.ncw /= 2;
-  akgm_tail_kernel<T, TAIL>
+  akgm_tail_kernel<T, TAIL, E>
       <<<dim3(c.ntp, ntn / c.ncw, B), T::NT, bytes, st>>>(c);
   if (TAIL && c.ws != nullptr) {
     const int err = (int)cudaGetLastError();
@@ -337,8 +358,8 @@ int launch_tile(TailArgs c, float* ssum, float* ssq, int B,
   return (int)cudaGetLastError();
 }
 
-template <bool TAIL>
-int launch(TailArgs c, float* ssum, float* ssq, int B, int H, int W, int C,
+template <bool TAIL, class E>
+int launch(TailArgs<E> c, float* ssum, float* ssq, int B, int H, int W, int C,
            cudaStream_t st) {
   c.g.H = H;
   c.g.W = W;
@@ -349,9 +370,11 @@ int launch(TailArgs c, float* ssum, float* ssq, int B, int H, int W, int C,
   c.g.stride = 1;
   c.g.cin = C / G;
   c.g.K = 9 * (C / G);
-  c.vec_a = c.g.cin % 4 == 0 && pc::aligned(c.h, 16) &&
-            (c.a == nullptr || (pc::aligned(c.a, 16) && pc::aligned(c.t, 16)));
-  c.vec_res = c.res != nullptr && pc::aligned(c.res, 16);
+  constexpr uintptr_t run = 4 * sizeof(E);  // a 4-wide load
+  c.vec_a = c.g.cin % 4 == 0 && pc::aligned(c.h, run) &&
+            (c.a == nullptr ||
+             (pc::aligned(c.a, run) && pc::aligned(c.t, run)));
+  c.vec_res = c.res != nullptr && pc::aligned(c.res, run);
   if (C % 128 == 0) return launch_tile<pc::Wide, TAIL>(c, ssum, ssq, B, st);
   if (C % 64 == 0) return launch_tile<pc::Mid, TAIL>(c, ssum, ssq, B, st);
   if (C % 32 == 0)
@@ -359,6 +382,24 @@ int launch(TailArgs c, float* ssum, float* ssq, int B, int H, int W, int C,
   if (C % 16 == 0)
     return launch_tile<pc::Thin<16>, TAIL>(c, ssum, ssq, B, st);
   return launch_tile<pc::Thin<8>, TAIL>(c, ssum, ssq, B, st);
+}
+
+template <class E>
+int tail(const E* h, const E* att, const E* attw, const E* w, const E* bias,
+         const E* res, const E* a, const E* t, E* out, float* ssum,
+         float* ssq, float* ws, int B, int H, int W, int C, void* stream) {
+  TailArgs<E> c = {};
+  c.h = h;
+  c.att = att;
+  c.attw = attw;
+  c.w = w;
+  c.bias = bias;
+  c.res = res;
+  c.a = a;
+  c.t = t;
+  c.out = out;
+  c.ws = ws;
+  return launch<true>(c, ssum, ssq, B, H, W, C, (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -378,18 +419,23 @@ extern "C" int ucdir_akgm_tail(const float* h, const float* att,
                                const float* a, const float* t, float* out,
                                float* ssum, float* ssq, float* ws, int B,
                                int H, int W, int C, void* stream) {
-  TailArgs c = {};
-  c.h = h;
-  c.att = att;
-  c.attw = attw;
-  c.w = w;
-  c.bias = bias;
-  c.res = res;
-  c.a = a;
-  c.t = t;
-  c.out = out;
-  c.ws = ws;
-  return launch<true>(c, ssum, ssq, B, H, W, C, (cudaStream_t)stream);
+  return tail(h, att, attw, w, bias, res, a, t, out, ssum, ssq, ws, B, H, W,
+              C, stream);
+}
+
+// K1 in bf16: every operand and out bf16; ssum, ssq and ws float, as above.
+extern "C" int ucdir_akgm_tail_bf16(const ucdir::bf16* h,
+                                    const ucdir::bf16* att,
+                                    const ucdir::bf16* attw,
+                                    const ucdir::bf16* w,
+                                    const ucdir::bf16* bias,
+                                    const ucdir::bf16* res,
+                                    const ucdir::bf16* a,
+                                    const ucdir::bf16* t, ucdir::bf16* out,
+                                    float* ssum, float* ssq, float* ws, int B,
+                                    int H, int W, int C, void* stream) {
+  return tail(h, att, attw, w, bias, res, a, t, out, ssum, ssq, ws, B, H, W,
+              C, stream);
 }
 
 // K8: out (B, H, W, C) = the mix of h's candidates under att; operands as
@@ -397,7 +443,7 @@ extern "C" int ucdir_akgm_tail(const float* h, const float* att,
 extern "C" int ucdir_akgm_mix(const float* h, const float* att, const float* w,
                               const float* bias, float* out, int B, int H,
                               int W, int C, void* stream) {
-  TailArgs c = {};
+  TailArgs<float> c = {};
   c.h = h;
   c.att = att;
   c.w = w;

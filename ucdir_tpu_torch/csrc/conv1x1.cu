@@ -14,14 +14,17 @@
 // What the design does about it: every input value is read once, 16 bytes a
 // thread, the next slices' loads are in flight while the current one is
 // multiplied, and the warps that multiply do nothing else.
+// The _bf16 entry point is the same kernel on bf16 operands and output (the
+// TPU kernel's bf16 instantiation): half the bytes, the same fp32 FMA
+// product, the output rounded once to nearest even.
 #include "igemm_pc.cuh"
 
-// x (B, H, W, cin) NHWC; w (cin, cout); bias (cout); out (B, H, W, cout).
-// Returns the launch's cudaError_t.
-extern "C" int ucdir_conv1x1(const float* x, const float* w, const float* bias,
-                             float* out, int B, int H, int W, int cin,
-                             int cout, int act, void* stream) {
-  ucdir::pc::ConvArgs c = {};
+namespace {
+
+template <class E>
+int conv1x1(const E* x, const E* w, const E* bias, E* out, int B, int H,
+            int W, int cin, int cout, int act, void* stream) {
+  ucdir::pc::ConvArgsT<E> c = {};
   c.x = x;
   c.w = w;
   c.bias = bias;
@@ -38,4 +41,22 @@ extern "C" int ucdir_conv1x1(const float* x, const float* w, const float* bias,
   c.cout = cout;
   c.act = act;
   return ucdir::pc::launch_conv<ucdir::pc::Raw>(c, B, (cudaStream_t)stream);
+}
+
+}  // namespace
+
+// x (B, H, W, cin) NHWC; w (cin, cout); bias (cout); out (B, H, W, cout).
+// Returns the launch's cudaError_t.
+extern "C" int ucdir_conv1x1(const float* x, const float* w, const float* bias,
+                             float* out, int B, int H, int W, int cin,
+                             int cout, int act, void* stream) {
+  return conv1x1(x, w, bias, out, B, H, W, cin, cout, act, stream);
+}
+
+// K3 in bf16: x, w, bias and out bf16.
+extern "C" int ucdir_conv1x1_bf16(const ucdir::bf16* x, const ucdir::bf16* w,
+                                  const ucdir::bf16* bias, ucdir::bf16* out,
+                                  int B, int H, int W, int cin, int cout,
+                                  int act, void* stream) {
+  return conv1x1(x, w, bias, out, B, H, W, cin, cout, act, stream);
 }

@@ -24,16 +24,23 @@
 // statistics through warp shuffles. K7 at the head (64 -> 3) takes the 8-wide
 // tile; it still evaluates one expf per staged element, nine per input value,
 // so the staging bounds it.
+// The _bf16 entry points are the same kernels on bf16 operands and outputs
+// (the TPU kernels' bf16 instantiation): half the bytes, the same fp32 FMA
+// product, the roundings of igemm_pc.cuh's Elem<bf16>. Bound, in counted
+// bytes at 2 a value over 3.35 TB/s and counted FLOP over 67 TFLOP/s: the
+// operations still, except at the 64 -> 3 head.
 #include "igemm_pc.cuh"
 
 namespace {
 
-ucdir::pc::ConvArgs conv_args(const float* x, const float* w,
-                              const float* bias, const float* a,
-                              const float* t, float* out, float* ssum,
-                              float* ssq, int H, int W, int cin, int cout,
-                              int stride, int act) {
-  ucdir::pc::ConvArgs c = {};
+using ucdir::bf16;
+
+template <class E>
+ucdir::pc::ConvArgsT<E> conv_args(const E* x, const E* w, const E* bias,
+                                  const E* a, const E* t, E* out, float* ssum,
+                                  float* ssq, int H, int W, int cin, int cout,
+                                  int stride, int act) {
+  ucdir::pc::ConvArgsT<E> c = {};
   c.x = x;
   c.w = w;
   c.bias = bias;
@@ -78,6 +85,30 @@ extern "C" int ucdir_conv3x3_preact(const float* x, const float* w,
                                     const float* bias, const float* a,
                                     const float* t, float* out, int B, int H,
                                     int W, int cin, int cout, void* stream) {
+  return ucdir::pc::launch_conv<ucdir::pc::Preact>(
+      conv_args(x, w, bias, a, t, out, nullptr, nullptr, H, W, cin, cout, 1,
+                0),
+      B, (cudaStream_t)stream);
+}
+
+// K2 and K7 in bf16: x, w, bias, a, t and out bf16; ssum, ssq float.
+extern "C" int ucdir_conv3x3_bf16(const bf16* x, const bf16* w,
+                                  const bf16* bias, const bf16* a,
+                                  const bf16* t, bf16* out, float* ssum,
+                                  float* ssq, int B, int H, int W, int cin,
+                                  int cout, int stride, int act,
+                                  void* stream) {
+  return ucdir::pc::launch_conv<ucdir::pc::Affine>(
+      conv_args(x, w, bias, a, t, out, ssum, ssq, H, W, cin, cout, stride,
+                act),
+      B, (cudaStream_t)stream);
+}
+
+extern "C" int ucdir_conv3x3_preact_bf16(const bf16* x, const bf16* w,
+                                         const bf16* bias, const bf16* a,
+                                         const bf16* t, bf16* out, int B,
+                                         int H, int W, int cin, int cout,
+                                         void* stream) {
   return ucdir::pc::launch_conv<ucdir::pc::Preact>(
       conv_args(x, w, bias, a, t, out, nullptr, nullptr, H, W, cin, cout, 1,
                 0),

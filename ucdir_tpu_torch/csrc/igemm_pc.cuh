@@ -67,8 +67,19 @@
 // A consumer thread's TN columns are NG groups of GW, BN / NG apart, and its
 // TM rows MG groups of 4, BM / MG apart: with 8 consecutive columns a thread
 // the loads of a quarter warp would hit every bank twice.
+//
+// Element type E of the operands in device memory (Elem<E> below): float,
+// or bf16 for the forward kernels K1, K2, K3 and K7 (the TPU kernels' bf16
+// instantiation, validation under --compute_dtype bf16). The producers load
+// bf16 (a 4-wide run is 8 bytes, half the bytes of float) and convert it to
+// float as they stage it, so shared memory, the consumers and their fp32 FMA
+// product are the same for both; the epilogue rounds each output once to
+// nearest even and takes the statistics of the rounded values, which is what
+// the next layer reads. The staging rounds where the TPU kernel's bf16
+// arithmetic rounds: x * a and then + t (and K7's swish) each to bf16.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -93,6 +104,116 @@ __device__ __forceinline__ float dswishf(float v) {
   const float sig = 1.f / (1.f + expf(-v));
   return sig * (1.f + v * (1.f - sig));
 }
+
+using bf16 = __nv_bfloat16;
+
+// Loads and stores of an element type as float: ld one value, ld4 four
+// consecutive ones (one 16-byte load of float, one 8-byte load of bf16;
+// aligned to 4 elements), st, st2 and st4 their stores, and rnd a float
+// rounded to the type and back (to nearest even; the identity for float).
+// The producers load a slice two iterations before they store it, so their
+// 4-wide loads are ld4raw: the loaded words as they are, turned into four
+// floats by unpack4 only where the slice is stored (bf16: two words of two
+// values each in v[0] and v[1]; a conversion next to the load would wait
+// for it), with one4 and zero4 the packed 1s and 0s. bf16's mul2 and add2
+// multiply and add two packed pairs in bf16 arithmetic (sm_90), each result
+// rounded to nearest even.
+template <class E>
+struct Elem;
+
+template <>
+struct Elem<float> {
+  static constexpr bool kLow = false;
+  static __device__ __forceinline__ float rnd(float v) { return v; }
+  static __device__ __forceinline__ float ld(const float* p) { return *p; }
+  static __device__ __forceinline__ void ld4(float (&v)[4], const float* p) {
+    const float4 u = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+  }
+  static __device__ __forceinline__ void ld4raw(float (&v)[4],
+                                                const float* p) {
+    ld4(v, p);
+  }
+  static __device__ __forceinline__ void unpack4(float (&)[4]) {}
+  static __device__ __forceinline__ void one4(float (&v)[4]) {
+    v[0] = v[1] = v[2] = v[3] = 1.f;
+  }
+  static __device__ __forceinline__ void zero4(float (&v)[4]) {
+    v[0] = v[1] = v[2] = v[3] = 0.f;
+  }
+  static __device__ __forceinline__ void st(float* p, float v) { *p = v; }
+  static __device__ __forceinline__ void st2(float* p, float a, float b) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  }
+  static __device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+
+template <>
+struct Elem<bf16> {
+  static constexpr bool kLow = true;
+  static __device__ __forceinline__ uint32_t bits(float v) {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  }
+  static __device__ __forceinline__ float rnd(float v) {
+    return __uint_as_float(bits(v) << 16);
+  }
+  // the first of two bf16 in a word is its low half
+  static __device__ __forceinline__ float lo(uint32_t u) {
+    return __uint_as_float(u << 16);
+  }
+  static __device__ __forceinline__ float hi(uint32_t u) {
+    return __uint_as_float(u & 0xffff0000u);
+  }
+  static __device__ __forceinline__ float ld(const bf16* p) {
+    return lo(*reinterpret_cast<const unsigned short*>(p));
+  }
+  static __device__ __forceinline__ void ld4(float (&v)[4], const bf16* p) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+    v[0] = lo(u.x); v[1] = hi(u.x); v[2] = lo(u.y); v[3] = hi(u.y);
+  }
+  static __device__ __forceinline__ void ld4raw(float (&v)[4],
+                                                const bf16* p) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+    v[0] = __uint_as_float(u.x);
+    v[1] = __uint_as_float(u.y);
+  }
+  static __device__ __forceinline__ void unpack4(float (&v)[4]) {
+    const uint32_t u0 = __float_as_uint(v[0]), u1 = __float_as_uint(v[1]);
+    v[0] = lo(u0); v[1] = hi(u0); v[2] = lo(u1); v[3] = hi(u1);
+  }
+  static __device__ __forceinline__ void one4(float (&v)[4]) {
+    v[0] = v[1] = __uint_as_float(0x3f803f80u);  // two bf16 1.0
+  }
+  static __device__ __forceinline__ void zero4(float (&v)[4]) {
+    v[0] = v[1] = 0.f;
+  }
+  static __device__ __forceinline__ float mul2(float a, float b) {
+    uint32_t d;
+    asm("mul.rn.bf16x2 %0, %1, %2;"
+        : "=r"(d)
+        : "r"(__float_as_uint(a)), "r"(__float_as_uint(b)));
+    return __uint_as_float(d);
+  }
+  static __device__ __forceinline__ float add2(float a, float b) {
+    uint32_t d;
+    asm("add.rn.bf16x2 %0, %1, %2;"
+        : "=r"(d)
+        : "r"(__float_as_uint(a)), "r"(__float_as_uint(b)));
+    return __uint_as_float(d);
+  }
+  static __device__ __forceinline__ void st(bf16* p, float v) {
+    *reinterpret_cast<unsigned short*>(p) = (unsigned short)bits(v);
+  }
+  static __device__ __forceinline__ void st2(bf16* p, float a, float b) {
+    *reinterpret_cast<uint32_t*>(p) = bits(a) | bits(b) << 16;
+  }
+  static __device__ __forceinline__ void st4(bf16* p, const float (&v)[4]) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(bits(v[0]) | bits(v[1]) << 16,
+                                              bits(v[2]) | bits(v[3]) << 16);
+  }
+};
 
 namespace pc {
 
@@ -155,22 +276,60 @@ using Thin = Tile<128, BN, 4, 8, 16, 2>;
 template <int BN>
 using ShortN = Tile<64, BN, BN == 8 ? 4 : 8, BN == 32 ? 4 : 2, 16, 2>;
 
-// What the staging does to a loaded value: x * a + t, or swish of it (the
-// border stays 0 = swish(0)).
+// What the staging does to a loaded value of type E: x * a + t, or swish of
+// it (the border stays 0 = swish(0)). In bf16 the product, the sum and the
+// swish's sigmoid and product are each rounded to bf16, as the TPU kernel's
+// bf16 staging computes them (_stage_padfree of
+// ucdir_tpu/ops/akgm_pallas.py). pairs: the same on 4 bf16 values loaded
+// 4-wide, x, a and t as packed pairs (Elem::ld4raw), into 4 floats in x: the
+// fold two values at a time in bf16 arithmetic (its sum rounded once, where
+// apply adds in float and then rounds: they differ only where that float sum
+// is inexact and lands on a bf16 midpoint).
 struct Affine {
   static constexpr bool kDz = false;
   static constexpr bool kAffine = true;
   static constexpr bool kAtt = false;
+  template <class E>
   static __device__ __forceinline__ float apply(float v, float a, float t) {
-    return fmaf(v, a, t);
+    if constexpr (Elem<E>::kLow) {
+      return Elem<E>::rnd(__fadd_rn(Elem<E>::rnd(__fmul_rn(v, a)), t));
+    } else {
+      return fmaf(v, a, t);
+    }
+  }
+  template <class E>
+  static __device__ __forceinline__ void pairs(float (&x)[4],
+                                               const float (&a)[4],
+                                               const float (&t)[4]) {
+    x[0] = Elem<E>::add2(Elem<E>::mul2(x[0], a[0]), t[0]);
+    x[1] = Elem<E>::add2(Elem<E>::mul2(x[1], a[1]), t[1]);
+    Elem<E>::unpack4(x);
   }
 };
 struct Preact {
   static constexpr bool kDz = false;
   static constexpr bool kAffine = true;
   static constexpr bool kAtt = false;
+  template <class E>
+  static __device__ __forceinline__ float swish(float u) {
+    const float sig = Elem<E>::rnd(1.f / (1.f + expf(-u)));
+    return Elem<E>::rnd(__fmul_rn(u, sig));
+  }
+  template <class E>
   static __device__ __forceinline__ float apply(float v, float a, float t) {
-    return swishf(fmaf(v, a, t));
+    if constexpr (Elem<E>::kLow) {
+      return swish<E>(Affine::apply<E>(v, a, t));
+    } else {
+      return swishf(fmaf(v, a, t));
+    }
+  }
+  template <class E>
+  static __device__ __forceinline__ void pairs(float (&x)[4],
+                                               const float (&a)[4],
+                                               const float (&t)[4]) {
+    Affine::pairs<E>(x, a, t);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) x[j] = swish<E>(x[j]);
   }
 };
 
@@ -178,8 +337,15 @@ struct Raw {
   static constexpr bool kDz = false;
   static constexpr bool kAffine = false;
   static constexpr bool kAtt = false;
+  template <class E>
   static __device__ __forceinline__ float apply(float v, float, float) {
     return v;
+  }
+  template <class E>
+  static __device__ __forceinline__ void pairs(float (&x)[4],
+                                               const float (&)[4],
+                                               const float (&)[4]) {
+    Elem<E>::unpack4(x);
   }
 };
 // The backward's input gradient: Raw's staging, an instance of its own so
@@ -248,22 +414,27 @@ struct KColumn {
   int grp, gc;
 };
 
-struct Operands {
-  const float* xb;  // image b's (H, W, C) input
-  const float* ab;  // image b's (C) scale or null
-  const float* tb;  // image b's (C) shift or null
+// The operands of a product, E their element type in device memory (Dz and
+// AttScaled: float).
+template <class E>
+struct OperandsT {
+  const E* xb;      // image b's (H, W, C) input
+  const E* ab;      // image b's (C) scale or null
+  const E* tb;      // image b's (C) shift or null
   const float* att; // Dz: image b's (H, W, 8) attention times attw
   const float* ascale;  // AttScaled: the block's (BM, 8) scales, shared
-  const float* w;   // (K, ncols) weights
+  const E* w;       // (K, ncols) weights
   int ncols;
   int cg;           // AttScaled: channels per input group
-  bool vec_a;       // cin % 4 == 0 and xb, ab, tb 16-byte aligned
-  bool vec_w;       // ncols % 4 == 0 and w 16-byte aligned
+  bool vec_a;       // cin % 4 == 0 and xb, ab, tb aligned to 4 elements
+  bool vec_w;       // ncols % 4 == 0 and w aligned to 4 elements
 };
+using Operands = OperandsT<float>;
 
 // The Wt half of a slice: rows k0 .. k0 + BK - 1, columns n0 .. n0 + BN - 1.
-template <class T>
-__device__ __forceinline__ void load_w_slice(Staged<T>& s, const Operands& op,
+template <class T, class E>
+__device__ __forceinline__ void load_w_slice(Staged<T>& s,
+                                             const OperandsT<E>& op,
                                              const Geom& g, int k0, int n0) {
   const int tid = threadIdx.x - T::NC;  // among the producers
 #pragma unroll
@@ -273,26 +444,28 @@ __device__ __forceinline__ void load_w_slice(Staged<T>& s, const Operands& op,
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int k = k0 + 2 * (u / T::CG) + r;
-      const float* wr = op.w + (int64_t)k * op.ncols + n;
+      const E* wr = op.w + (int64_t)k * op.ncols + n;
       const bool row = (T::BU % T::NP == 0 || u < T::BU) && k < g.K;
       if (op.vec_w) {
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (row && n < op.ncols)
-          v = __ldg(reinterpret_cast<const float4*>(wr));
-        s.b[i][r][0] = v.x; s.b[i][r][1] = v.y;
-        s.b[i][r][2] = v.z; s.b[i][r][3] = v.w;
+        if (row && n < op.ncols) {
+          Elem<E>::ld4raw(s.b[i][r], wr);
+        } else {
+          Elem<E>::zero4(s.b[i][r]);
+        }
       } else {
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          s.b[i][r][j] = (row && n + j < op.ncols) ? wr[j] : 0.f;
+          s.b[i][r][j] =
+              (row && n + j < op.ncols) ? Elem<E>::ld(wr + j) : 0.f;
       }
     }
   }
 }
 
-template <class T, class X>
+template <class T, class X, class E>
 __device__ __forceinline__ void load_slice(Staged<T>& s, KColumn& kc,
-                                           const Operands& op, const Geom& g,
+                                           const OperandsT<E>& op,
+                                           const Geom& g,
                                            const int* iy0, const int* ix0,
                                            int k0, int n0) {
   const int tid = threadIdx.x - T::NC;  // among the producers
@@ -329,27 +502,26 @@ __device__ __forceinline__ void load_slice(Staged<T>& s, KColumn& kc,
     const bool valid = kc.tap < ntaps;
     const int ty = kc.tap / 3;
     const int tx = kc.tap - ty * 3;
-    float4 sa = make_float4(1.f, 1.f, 1.f, 1.f);
-    float4 st = make_float4(0.f, 0.f, 0.f, 0.f);
     if (X::kAffine && valid && op.ab != nullptr) {
-      sa = __ldg(reinterpret_cast<const float4*>(op.ab + kc.ci));
-      st = __ldg(reinterpret_cast<const float4*>(op.tb + kc.ci));
+      Elem<E>::ld4raw(s.sa, op.ab + kc.ci);
+      Elem<E>::ld4raw(s.st, op.tb + kc.ci);
+    } else {
+      Elem<E>::one4(s.sa);
+      Elem<E>::zero4(s.st);
     }
-    s.sa[0] = sa.x; s.sa[1] = sa.y; s.sa[2] = sa.z; s.sa[3] = sa.w;
-    s.st[0] = st.x; s.st[1] = st.y; s.st[2] = st.z; s.st[3] = st.w;
 #pragma unroll
     for (int i = 0; i < T::AI; ++i) {
       const int m = am + i * T::AROWS;
       const int iy = iy0[m] + ty;
       const int ix = ix0[m] + tx;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
       if (valid && (unsigned)iy < (unsigned)g.H &&
           (unsigned)ix < (unsigned)g.W) {
-        v = __ldg(reinterpret_cast<const float4*>(
-            op.xb + ((int64_t)iy * g.W + ix) * g.C + kc.ci));
+        Elem<E>::ld4raw(s.a[i],
+                        op.xb + ((int64_t)iy * g.W + ix) * g.C + kc.ci);
         s.mask |= 0xfu << (4 * i);
+      } else {
+        Elem<E>::zero4(s.a[i]);
       }
-      s.a[i][0] = v.x; s.a[i][1] = v.y; s.a[i][2] = v.z; s.a[i][3] = v.w;
     }
     if constexpr (X::kAtt) {  // a run of 4 channels may cross a group
       int gv = kc.grp, cv = kc.gc;
@@ -384,8 +556,8 @@ __device__ __forceinline__ void load_slice(Staged<T>& s, KColumn& kc,
       const int tx = tap - ty * 3;
       if constexpr (X::kAtt) s.grp[j] = ci / op.cg;
       const bool aff = X::kAffine && op.ab != nullptr;
-      s.sa[j] = aff ? op.ab[ci] : 1.f;
-      s.st[j] = aff ? op.tb[ci] : 0.f;
+      s.sa[j] = aff ? Elem<E>::ld(op.ab + ci) : 1.f;
+      s.st[j] = aff ? Elem<E>::ld(op.tb + ci) : 0.f;
 #pragma unroll
       for (int i = 0; i < T::AI; ++i) {
         const int m = am + i * T::AROWS;
@@ -394,18 +566,20 @@ __device__ __forceinline__ void load_slice(Staged<T>& s, KColumn& kc,
         float v = 0.f;
         if (valid && (unsigned)iy < (unsigned)g.H &&
             (unsigned)ix < (unsigned)g.W) {
-          v = op.xb[((int64_t)iy * g.W + ix) * g.C + ci];
+          v = Elem<E>::ld(op.xb + ((int64_t)iy * g.W + ix) * g.C + ci);
           s.mask |= 1u << (4 * i + j);
         }
         s.a[i][j] = v;
       }
     }
   }
-  load_w_slice<T>(s, op, g, k0, n0);
+  load_w_slice<T, E>(s, op, g, k0, n0);
 }
 
-template <class T>
-__device__ __forceinline__ void store_w_slice(const Staged<T>& s, float* Bs) {
+template <class T, class E>
+__device__ __forceinline__ void store_w_slice(const Staged<T>& s,
+                                              const OperandsT<E>& op,
+                                              float* Bs) {
   const int tid = threadIdx.x - T::NC;  // among the producers
 #pragma unroll
   for (int i = 0; i < T::BI; ++i) {
@@ -413,22 +587,31 @@ __device__ __forceinline__ void store_w_slice(const Staged<T>& s, float* Bs) {
     if (T::BU % T::NP != 0 && u >= T::BU) break;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
+      float b[4] = {s.b[i][r][0], s.b[i][r][1], s.b[i][r][2], s.b[i][r][3]};
+      if (op.vec_w) Elem<E>::unpack4(b);
       *reinterpret_cast<float4*>(Bs + (2 * (u / T::CG) + r) * T::SB +
                                  4 * (u % T::CG)) =
-          make_float4(s.b[i][r][0], s.b[i][r][1], s.b[i][r][2], s.b[i][r][3]);
+          make_float4(b[0], b[1], b[2], b[3]);
     }
   }
 }
 
-template <class T, class X>
+template <class T, class X, class E>
 __device__ __forceinline__ void store_slice(const Staged<T>& s,
-                                            const Operands& op, float* As,
+                                            const OperandsT<E>& op, float* As,
                                             float* Bs) {
   const int tid = threadIdx.x - T::NC;  // among the producers
   const int kg = tid % T::KG;
   const int am = tid / T::KG;
+  // bf16 loaded 4-wide: packed pairs, staged by X::pairs
+  constexpr bool kPairs = Elem<E>::kLow && !X::kDz;
+  const bool pairs = kPairs && op.vec_a;
 #pragma unroll
   for (int i = 0; i < T::AI; ++i) {
+    float a[4] = {s.a[i][0], s.a[i][1], s.a[i][2], s.a[i][3]};
+    if constexpr (kPairs) {
+      if (pairs) X::template pairs<E>(a, s.sa, s.st);
+    }
     float sc[4];  // AttScaled: one load where the run lies in one group
     if constexpr (X::kAtt) {
       const float* arow = op.ascale + (am + i * T::AROWS) * 8;
@@ -445,16 +628,18 @@ __device__ __forceinline__ void store_slice(const Staged<T>& s,
       float v = 0.f;
       if ((s.mask >> (4 * i + j)) & 1u) {
         if constexpr (X::kDz) {
-          v = s.dv[i] * s.a[i][j];
+          v = s.dv[i] * a[j];
+        } else if constexpr (kPairs) {
+          v = pairs ? a[j] : X::template apply<E>(a[j], s.sa[j], s.st[j]);
         } else {
-          v = X::apply(s.a[i][j], s.sa[j], s.st[j]);
+          v = X::template apply<E>(a[j], s.sa[j], s.st[j]);
           if constexpr (X::kAtt) v *= sc[j];
         }
       }
       As[(4 * kg + j) * T::SA + am + i * T::AROWS] = v;
     }
   }
-  store_w_slice<T>(s, Bs);
+  store_w_slice<T, E>(s, op, Bs);
 }
 
 struct NoHook {
@@ -467,8 +652,8 @@ struct NoHook {
 // load has a whole iteration to arrive. hook(i) runs in every iteration i
 // before its barrier; in iteration 0 the consumers have passed their first
 // barrier of this product.
-template <class T, class X, class Hook = NoHook>
-__device__ __forceinline__ void produce(float* smem, const Operands& op,
+template <class T, class X, class E, class Hook = NoHook>
+__device__ __forceinline__ void produce(float* smem, const OperandsT<E>& op,
                                         const Geom& g, int n0, int nk,
                                         const Hook& hook = Hook()) {
   const int pt = threadIdx.x - T::NC;
@@ -484,16 +669,17 @@ __device__ __forceinline__ void produce(float* smem, const Operands& op,
     kc.gc = kc.ci - kc.grp * op.cg;
   }
   Staged<T> s;
-  load_slice<T, X>(s, kc, op, g, iy0, ix0, 0, n0);
-  store_slice<T, X>(s, op, As, Bs);
-  if (nk > 1) load_slice<T, X>(s, kc, op, g, iy0, ix0, T::BK, n0);
+  load_slice<T, X, E>(s, kc, op, g, iy0, ix0, 0, n0);
+  store_slice<T, X, E>(s, op, As, Bs);
+  if (nk > 1) load_slice<T, X, E>(s, kc, op, g, iy0, ix0, T::BK, n0);
   block_sync<T::NT>();
   for (int i = 0; i < nk; ++i) {
     const int nxt = (i + 1) & 1;
     if (i + 1 < nk)
-      store_slice<T, X>(s, op, As + nxt * T::A_WORDS, Bs + nxt * T::B_WORDS);
+      store_slice<T, X, E>(s, op, As + nxt * T::A_WORDS,
+                           Bs + nxt * T::B_WORDS);
     if (i + 2 < nk)
-      load_slice<T, X>(s, kc, op, g, iy0, ix0, (i + 2) * T::BK, n0);
+      load_slice<T, X, E>(s, kc, op, g, iy0, ix0, (i + 2) * T::BK, n0);
     hook(i);
     block_sync<T::NT>();
   }
@@ -511,10 +697,10 @@ struct NoStage {
 // x * a + t (a, t null: x); a tile's first two slices are loaded and stored
 // while the consumers run the epilogue of the tile before. st.block(nt0)
 // runs first; st.tile(nt + 1) runs while the consumers multiply tile nt.
-template <class T, class Stage = NoStage>
+template <class T, class E, class Stage = NoStage>
 __device__ __forceinline__ void grouped_produce(
-    float* smem, const float* __restrict__ x, const float* __restrict__ a,
-    const float* __restrict__ t, const float* __restrict__ w, const Geom& g,
+    float* smem, const E* __restrict__ x, const E* __restrict__ a,
+    const E* __restrict__ t, const E* __restrict__ w, const Geom& g,
     int b, int nt0, int nt1, int nk, bool vec_a,
     const Stage& st = Stage()) {
   const int C = g.C;
@@ -522,7 +708,7 @@ __device__ __forceinline__ void grouped_produce(
   for (int nt = nt0; nt < nt1; ++nt) {
     const int n0 = nt * T::BN;
     const int cin0 = (n0 / C) * g.cin;
-    Operands op;
+    OperandsT<E> op;
     op.xb = x + (int64_t)b * g.H * g.W * C + cin0;
     op.ab = a ? a + (int64_t)b * C + cin0 : nullptr;
     op.tb = t ? t + (int64_t)b * C + cin0 : nullptr;
@@ -621,17 +807,17 @@ __device__ __forceinline__ int igemm_setup(float* smem, const Geom& g,
 }
 
 // Plain convolution epilogue of a consumer thread: + bias (null: none),
-// optional swish, store, and with stats the tile's per-column sum and sum of
-// squares of the stored values added into the buffer at smem + T::RED.
-// vec: N % GW == 0 and out aligned to a group of GW columns.
-// DZ: the backward's dz = go * swish'(acc + bias) in place of the output,
-// go (B, P, N) read as the output is stored, no statistics.
-template <class T, bool DZ = false>
+// optional swish, rounded to E, store, and with stats the tile's per-column
+// sum and sum of squares of the stored values added into the buffer at
+// smem + T::RED. vec: N % GW == 0 and out aligned to a group of GW columns.
+// DZ (E float): the backward's dz = go * swish'(acc + bias) in place of the
+// output, go (B, P, N) read as the output is stored, no statistics.
+template <class T, bool DZ, class E>
 __device__ __forceinline__ void conv_epilogue_pc(
     const float (&acc)[T::TM][T::TN], float* smem,
-    const float* __restrict__ bias, float* __restrict__ out, bool stats,
+    const E* __restrict__ bias, E* __restrict__ out, bool stats,
     int act, bool vec, int P, int N, int b, int m0, int n0,
-    const float* __restrict__ go = nullptr) {
+    const float* __restrict__ go) {
   const int tn = threadIdx.x % T::NCX;
   const int tm = threadIdx.x / T::NCX;
   float* red = smem + T::RED;
@@ -639,7 +825,7 @@ __device__ __forceinline__ void conv_epilogue_pc(
 #pragma unroll
   for (int j = 0; j < T::TN; ++j) {
     const int n = n0 + tile_col<T>(tn, j);
-    bj[j] = (bias != nullptr && n < N) ? bias[n] : 0.f;
+    bj[j] = (bias != nullptr && n < N) ? Elem<E>::ld(bias + n) : 0.f;
     s[j] = 0.f;
     q[j] = 0.f;
   }
@@ -647,7 +833,7 @@ __device__ __forceinline__ void conv_epilogue_pc(
   for (int i = 0; i < T::TM; ++i) {
     const int p = m0 + tile_row<T>(tm, i);
     if (p >= P) continue;
-    float* orow = out + ((int64_t)b * P + p) * N;
+    E* orow = out + ((int64_t)b * P + p) * N;
 #pragma unroll
     for (int g = 0; g < T::NG; ++g) {
       const int n = n0 + tile_col<T>(tn, T::GW * g);
@@ -675,19 +861,19 @@ __device__ __forceinline__ void conv_epilogue_pc(
         for (int j = 0; j < T::GW; ++j) {
           v[j] = acc[i][T::GW * g + j] + bj[T::GW * g + j];
           if (act) v[j] = swishf(v[j]);
+          v[j] = Elem<E>::rnd(v[j]);
         }
       }
       if (vec && n + T::GW <= N) {
         if constexpr (T::GW == 4) {
-          *reinterpret_cast<float4*>(orow + n) =
-              make_float4(v[0], v[1], v[2], v[3]);
+          Elem<E>::st4(orow + n, v);
         } else {
-          *reinterpret_cast<float2*>(orow + n) = make_float2(v[0], v[1]);
+          Elem<E>::st2(orow + n, v[0], v[1]);
         }
       } else {
 #pragma unroll
         for (int j = 0; j < T::GW; ++j) {
-          if (n + j < N) orow[n + j] = v[j];
+          if (n + j < N) Elem<E>::st(orow + n + j, v[j]);
         }
       }
 #pragma unroll
@@ -729,13 +915,14 @@ __device__ __forceinline__ void flush_stats(const float* smem,
   }
 }
 
-struct ConvArgs {
-  const float* x;     // (B, H, W, cin) NHWC
-  const float* w;     // (K, cout), row tap * cin + ci
-  const float* bias;  // (cout) or null
-  const float* a;     // (B, cin) or null
-  const float* t;     // (B, cin) or null
-  float* out;         // (B, Ho, Wo, cout)
+template <class E>
+struct ConvArgsT {
+  const E* x;         // (B, H, W, cin) NHWC
+  const E* w;         // (K, cout), row tap * cin + ci
+  const E* bias;      // (cout) or null
+  const E* a;         // (B, cin) or null
+  const E* t;         // (B, cin) or null
+  E* out;             // (B, Ho, Wo, cout)
   float* ssum;        // zeroed (B, cout) or null
   float* ssq;
   const float* go;    // DZ: (B, Ho, Wo, cout) output cotangent
@@ -744,18 +931,19 @@ struct ConvArgs {
   int ntn;            // column tiles; blockIdx.x = pixel tile * ntn + column tile
   bool vec_a, vec_w, vec_out;
 };
+using ConvArgs = ConvArgsT<float>;
 
 // out = act(conv(X(x * a + t)) + bias) and its statistics: one BM x BN tile
 // of one image per block. DZ: out = go * swish'(conv(X(x * a + t)) + bias).
-template <class T, class X, bool DZ = false>
-__global__ void __launch_bounds__(T::NT) conv_pc_kernel(ConvArgs c) {
+template <class T, class X, bool DZ, class E>
+__global__ void __launch_bounds__(T::NT) conv_pc_kernel(ConvArgsT<E> c) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int b = blockIdx.z;
   const int mt = blockIdx.x / c.ntn;
   const int m0 = mt * T::BM;
   const int n0 = (blockIdx.x - mt * c.ntn) * T::BN;
-  Operands op;
+  OperandsT<E> op;
   op.xb = c.x + (int64_t)b * c.g.H * c.g.W * c.g.C;
   op.ab = c.a ? c.a + (int64_t)b * c.g.C : nullptr;
   op.tb = c.t ? c.t + (int64_t)b * c.g.C : nullptr;
@@ -771,7 +959,7 @@ __global__ void __launch_bounds__(T::NT) conv_pc_kernel(ConvArgs c) {
   } else {
     float acc[T::TM][T::TN];
     consume<T>(acc, smem, nk);
-    conv_epilogue_pc<T, DZ>(acc, smem, c.bias, c.out, c.ssum != nullptr,
+    conv_epilogue_pc<T, DZ, E>(acc, smem, c.bias, c.out, c.ssum != nullptr,
                             c.act, c.vec_out, c.g.Ho * c.g.Wo, c.cout, b, m0,
                             n0, c.go);
   }
@@ -782,26 +970,27 @@ inline bool aligned(const void* p, uintptr_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-template <class T, class X, bool DZ>
-int launch_tile(ConvArgs c, int B, cudaStream_t stream) {
+template <class T, class X, bool DZ, class E>
+int launch_tile(ConvArgsT<E> c, int B, cudaStream_t stream) {
   const int P = c.g.Ho * c.g.Wo;
-  c.vec_out = c.cout % T::GW == 0 && aligned(c.out, 4 * T::GW) &&
+  c.vec_out = c.cout % T::GW == 0 && aligned(c.out, sizeof(E) * T::GW) &&
               (!DZ || aligned(c.go, 4 * T::GW));
   c.ntn = (c.cout + T::BN - 1) / T::BN;
   const dim3 grid((unsigned)((P + T::BM - 1) / T::BM) * c.ntn, 1, B);
-  conv_pc_kernel<T, X, DZ><<<grid, T::NT, T::SMEM_BYTES, stream>>>(c);
+  conv_pc_kernel<T, X, DZ, E><<<grid, T::NT, T::SMEM_BYTES, stream>>>(c);
   return (int)cudaGetLastError();
 }
 
 // Launches the convolution on the tile that cout selects. c.g, the pointers,
 // cout and act are the caller's; the rest is filled here.
-template <class X, bool DZ = false>
-int launch_conv(ConvArgs c, int B, cudaStream_t stream) {
+template <class X, bool DZ = false, class E>
+int launch_conv(ConvArgsT<E> c, int B, cudaStream_t stream) {
+  constexpr uintptr_t run = 4 * sizeof(E);  // a 4-wide load
   const bool affine_ok =
-      (c.a == nullptr || (aligned(c.a, 16) && aligned(c.t, 16)));
-  c.vec_a = c.g.cin % 4 == 0 && c.g.C % 4 == 0 && aligned(c.x, 16) &&
+      (c.a == nullptr || (aligned(c.a, run) && aligned(c.t, run)));
+  c.vec_a = c.g.cin % 4 == 0 && c.g.C % 4 == 0 && aligned(c.x, run) &&
             affine_ok;
-  c.vec_w = c.cout % 4 == 0 && aligned(c.w, 16);
+  c.vec_w = c.cout % 4 == 0 && aligned(c.w, run);
   if (c.cout >= 128) return launch_tile<Wide, X, DZ>(c, B, stream);
   if (c.cout > 8) return launch_tile<Mid, X, DZ>(c, B, stream);
   return launch_tile<Narrow, X, DZ>(c, B, stream);

@@ -13,9 +13,16 @@ Noise is injectable: `noise(shape)` is called once for the initial draw and
 then once per step (DDPM: t = T-1 down to 0, the t = 0 draw multiplied by 0,
 as in the JAX scan; DDIM: every step, the last one's unused). The default
 draws from a `torch.Generator`.
+
+Mixed precision (`compute_dtype`, as the JAX package's): the networks run on
+a copy of the weights in that dtype, made once per call, on the input, the
+guide and each step's image and noise level in that dtype; initx and every
+eps come back as float32, and the sampler state, the draws and the posterior
+math stay float32.
 """
 from __future__ import annotations
 
+import copy
 from typing import Callable, Optional
 
 import numpy as np
@@ -149,13 +156,23 @@ def ddim_sample(denoise: Callable, x_cond: torch.Tensor,
 UNTILED_MAX_PX = 4_300_000
 
 
+def cast_model(model: torch.nn.Module, dtype: torch.dtype):
+    """A copy of `model` with every parameter in `dtype`; `model` keeps its
+    weights. The copy starts without the kernel-layout weights that `model`
+    caches (models/layers.py `cached`): it builds its own."""
+    memo = {id(m.__dict__['_kernel_layout']): {} for m in model.modules()
+            if '_kernel_layout' in m.__dict__}
+    return copy.deepcopy(model, memo).to(dtype)
+
+
 @torch.no_grad()
 def super_resolution(model, sched: NoiseSchedule, x_in: torch.Tensor,
                      noise: Optional[Noise] = None,
                      generator: Optional[torch.Generator] = None,
                      continous: bool = False, sampler: str = 'ddpm',
                      sampling_timesteps: int = 5, eta: float = 1.0,
-                     tile_opts: Optional[dict] = None):
+                     tile_opts: Optional[dict] = None,
+                     compute_dtype: Optional[torch.dtype] = None):
     """Restoration for ResiGaussianGuideDY: initx = predictor(x_in); the
     reverse loop conditioned on x_in with initx guiding AKGM (its guide maps
     computed once); result + initx. Returns (sr, initx) or (sr, initx,
@@ -164,30 +181,42 @@ def super_resolution(model, sched: NoiseSchedule, x_in: torch.Tensor,
     sampler: 'ddpm' | 'ddim' | 'dpmpp' | 'dpmpp_sde'; the last three take
     `sampling_timesteps` steps, ddim also `eta`. tile_opts: {skip, padding,
     tile_chunk} runs every denoiser call tiled (parallel/tiled.py); None
-    tiles, with the defaults, only inputs above UNTILED_MAX_PX."""
+    tiles, with the defaults, only inputs above UNTILED_MAX_PX.
+    compute_dtype: e.g. torch.bfloat16 runs the networks in that dtype (the
+    module docstring); the results stay float32."""
     if noise is None:
         if generator is None:
             raise ValueError('super_resolution needs noise= or generator=')
         noise = generator_noise(generator)
-    initx = model.predict_init(x_in)
+    net, x_net = model, x_in
+    if compute_dtype is not None:
+        net, x_net = cast_model(model, compute_dtype), x_in.to(compute_dtype)
+    dt = x_net.dtype
+    initx = net.predict_init(x_net).to(x_in.dtype)
     guide = {'initx': initx, 'degraded': x_in}[model.guide_in_sample]
+    guide_net = guide.to(dt)
 
     h, w = x_in.shape[1], x_in.shape[2]
     if tile_opts is None and h * w > UNTILED_MAX_PX:
         tile_opts = {}
     if tile_opts is not None:
         from ucdir_tpu_torch.parallel.tiled import tiled_denoise_fn
-        denoise = tiled_denoise_fn(
-            model.denoise_fn, x_in, guide, skip=tile_opts.get('skip', 1024),
+        tiled = tiled_denoise_fn(
+            net.denoise_fn, x_net, guide_net,
+            skip=tile_opts.get('skip', 1024),
             padding=tile_opts.get('padding', 64),
             tile_chunk=tile_opts.get('tile_chunk', 1))
-    else:
-        gmaps = compute_guide_maps(model.denoise_fn,
-                                   pad_to_multiple(guide, 32)[0])
 
         def denoise(img, noise_level):
-            return model.denoise(torch.cat([x_in, img], dim=-1), noise_level,
-                                 guide, guide_maps=gmaps)
+            return tiled(img.to(dt), noise_level.to(dt)).to(img.dtype)
+    else:
+        gmaps = compute_guide_maps(net.denoise_fn,
+                                   pad_to_multiple(guide_net, 32)[0])
+
+        def denoise(img, noise_level):
+            return net.denoise(torch.cat([x_net, img.to(dt)], dim=-1),
+                               noise_level.to(dt), guide_net,
+                               guide_maps=gmaps).to(img.dtype)
 
     if sampler == 'ddpm':
         out = p_sample_loop(denoise, x_in, sched, noise, continous=continous)

@@ -30,10 +30,13 @@ def eval_step(model, sched: NoiseSchedule, sr_img: torch.Tensor, *,
               noise: Optional[Noise] = None,
               generator: Optional[torch.Generator] = None,
               sampler: str = 'ddpm', sampling_timesteps: int = 5,
-              tile: Optional[dict] = None):
+              tile: Optional[dict] = None,
+              compute_dtype: Optional[torch.dtype] = None):
     """sr_img (B, H, W, 3) in [-1, 1] -> (sr, initx) or (sr, initx,
     snapshots), each cropped back to H x W. tile: {skip, padding,
-    tile_chunk} for the tiled path (defaults 1024, 64, 1)."""
+    tile_chunk} for the tiled path (defaults 1024, 64, 1). compute_dtype:
+    the networks' dtype (None: the weights', float32), as
+    `super_resolution` takes it; the results are float32."""
     x = reflect_pad(sr_img, pad, pad, pad, pad) if pad else sr_img
     tile_opts = None
     if should_tile(x.shape[1], x.shape[2], tile):
@@ -42,7 +45,7 @@ def eval_step(model, sched: NoiseSchedule, sr_img: torch.Tensor, *,
     out = super_resolution(model, sched, x, noise=noise, generator=generator,
                            continous=continous, sampler=sampler,
                            sampling_timesteps=sampling_timesteps,
-                           tile_opts=tile_opts)
+                           tile_opts=tile_opts, compute_dtype=compute_dtype)
     if pad:
         out = tuple(o[..., pad:-pad, pad:-pad, :] for o in out)
     return out

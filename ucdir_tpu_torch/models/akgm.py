@@ -15,6 +15,10 @@ Both GroupNorm(1) layers fold into the following kernel as a per-(batch,
 channel) affine x * a + t; their statistics come chained from the producer of
 x and h (`in_stats`, conv1's emitted sums) or, where the chain is void, from
 kernel K4.
+
+The block computes in the dtype of its parameters and input: float32, or
+bfloat16 (validation under `--compute_dtype bf16`), where only the 'fused'
+tail has its kernel's bf16 form (K8 and K9 take float32).
 """
 from __future__ import annotations
 
@@ -38,19 +42,34 @@ def totals(stats):
     return s.sum(dim=1), q.sum(dim=1)
 
 
-def norm1_affine(x, scale, bias, totals_=None, eps: float = 1e-5):
+def norm1_affine_f32(x, scale, bias, totals_=None, eps: float = 1e-5):
     """GroupNorm(num_groups=1) as a per-(batch, channel) affine: returns
-    (a, t) with norm(x) == x * a + t. totals_: the chained ((B,) sum, (B,)
-    sumsq) of x, or None to take them with one pass of K4. One-pass variance
-    E[x^2] - mean^2, as the JAX package computes it."""
+    float32 (a, t) with norm(x) == x * a + t. totals_: the chained ((B,)
+    sum, (B,) sumsq) of x, or None to take them with one pass of K4. One-pass
+    variance E[x^2] - mean^2 in float32, as the JAX package computes it."""
     n = x.shape[1] * x.shape[2] * x.shape[3]
     s_tot, q_tot = totals_ if totals_ is not None else totals(gn1_stats(x))
     mean = s_tot / n
     var = q_tot / n - mean * mean
     rstd = torch.rsqrt(var + eps)
+    scale, bias = scale.float(), bias.float()
     a = scale[None, :] * rstd[:, None]
     t = bias[None, :] - mean[:, None] * rstd[:, None] * scale[None, :]
     return a.contiguous(), t.contiguous()
+
+
+def norm1_affine(x, scale, bias, totals_=None, eps: float = 1e-5):
+    """`norm1_affine_f32` rounded to x's dtype: the affine that a kernel
+    folds (`_norm1_affine` of ucdir_tpu/models/akgm.py)."""
+    a, t = norm1_affine_f32(x, scale, bias, totals_, eps)
+    return a.to(x.dtype), t.to(x.dtype)
+
+
+def group_norm1(x, a, t):
+    """x * a + t in float32 for float32 (a, t) of `norm1_affine_f32`,
+    rounded to x's dtype: GroupNorm(1) applied outside a kernel, as flax's
+    GroupNorm normalizes a bfloat16 input."""
+    return (x.float() * a[:, None, None, :] + t[:, None, None, :]).to(x.dtype)
 
 
 def guide_maps(block: 'ResnetBlockDY3h', guide, size):
@@ -102,6 +121,10 @@ class ResnetBlockDY3h(nn.Module):
     def forward(self, x, time_emb, guide, g_maps=None, in_stats=None):
         """x (B, H, W, dim) NHWC; in_stats: chained ((B,) sum, (B,) sumsq) of
         x or None. Returns (out, ((B,) sum, (B,) sumsq) of out)."""
+        if x.dtype != torch.float32 and self.tail != 'fused':
+            raise NotImplementedError(
+                "tail=%r in %s: the kernel of this tail takes float32 only; "
+                "see ROADMAP.md" % (self.tail, x.dtype))
         attw = self.noise_func(time_emb)                        # (B, nset)
         a1, t1 = norm1_affine(x, self.norm1.weight, self.norm1.bias, in_stats)
         h, h_stats = self.conv1(x, act='swish', norm_scale=a1, norm_shift=t1,

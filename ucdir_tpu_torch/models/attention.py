@@ -2,6 +2,11 @@
 and softmax). Counterpart of `ucdir_tpu/models/attention.py`, which has no
 Pallas kernel (reference: model/ucdir.py:155-182).
 
+In bfloat16, as the JAX package: the scores and the softmax in float32 (q and
+k upcast, their products exact), the probabilities rounded to bfloat16, the
+PV product accumulated in float32 and its output rounded to bfloat16; the
+projections in bfloat16.
+
 The scale is 1 / sqrt(C), the full channel count, as in the reference.
 Above `_STREAM_TOKENS` tokens the softmax runs over query chunks of `_CHUNK`
 (the same math in O(N * chunk) memory); above `_WINDOW_TOKENS` tokens it runs
@@ -16,7 +21,7 @@ import math
 import torch
 from torch import nn
 
-from ucdir_tpu_torch.models.akgm import norm1_affine
+from ucdir_tpu_torch.models.akgm import group_norm1, norm1_affine_f32
 
 _STREAM_TOKENS = 4096
 _CHUNK = 1024
@@ -26,18 +31,20 @@ _WINDOW_TARGET = 144
 
 def _dense_attention(q, k, v, scale):
     """softmax(q k^T * scale) v for (b, n_head, N, d) operands."""
-    p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * scale, dim=-1)
-    return torch.matmul(p, v)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.matmul(p.float(), v.float()).to(q.dtype)
 
 
 def _streaming_attention(q, k, v, scale):
     """_dense_attention over query chunks of _CHUNK rows."""
-    kt = k.transpose(-1, -2)
+    kt, vf = k.float().transpose(-1, -2), v.float()
     out = []
     for qi in torch.split(q, _CHUNK, dim=2):
-        s = torch.matmul(qi, kt) * scale
+        s = torch.matmul(qi.float(), kt) * scale
         p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-        out.append(torch.matmul(p, v) / p.sum(dim=-1, keepdim=True))
+        num = torch.matmul(p.to(v.dtype).float(), vf)
+        out.append((num / p.sum(dim=-1, keepdim=True)).to(q.dtype))
     return torch.cat(out, dim=2)
 
 
@@ -89,8 +96,8 @@ class SelfAttention(nn.Module):
         nh, hd = self.n_head, c // self.n_head
         # one K4 pass and an affine: PyTorch's group_norm reduces each
         # (batch, group) in one thread block, one block for GroupNorm(1)
-        a, t = norm1_affine(x, self.norm.weight, self.norm.bias)
-        norm = (x * a[:, None, None, :] + t[:, None, None, :]).reshape(-1, c)
+        a, t = norm1_affine_f32(x, self.norm.weight, self.norm.bias)
+        norm = group_norm1(x, a, t).reshape(-1, c)
         qkv = torch.matmul(norm, self.qkv.weight.reshape(3 * c, c).t())
         # channels are (n_head, 3 * head_dim), chunked into q, k, v
         qkv = qkv.reshape(b, h, w, nh, 3 * hd)

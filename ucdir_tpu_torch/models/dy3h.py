@@ -20,8 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ucdir_tpu_torch.models.akgm import (ResnetBlockDY3h, guide_maps,
-                                         norm1_affine, totals)
+from ucdir_tpu_torch.models.akgm import (ResnetBlockDY3h, group_norm1,
+                                         guide_maps, norm1_affine_f32, totals)
 from ucdir_tpu_torch.models.attention import SelfAttention
 from ucdir_tpu_torch.models.layers import (Conv3, Downsample,
                                            PositionalEncoding, Upsample,
@@ -186,10 +186,11 @@ class DY3h(nn.Module):
         # activated tensor is written. Dropout in between forces K2 on the
         # activated tensor.
         norm, _, drop, conv = self.final_conv
-        a, t_ = norm1_affine(x, norm.weight, norm.bias, xs)
+        a, t_ = norm1_affine_f32(x, norm.weight, norm.bias, xs)
         if drop.p == 0:
-            return conv3x3_preact(x, conv.kernel_weight(), conv.bias, a, t_)
-        x = swish(x * a[:, None, None, :] + t_[:, None, None, :])
+            return conv3x3_preact(x, conv.kernel_weight(), conv.bias,
+                                  a.to(x.dtype), t_.to(x.dtype))
+        x = swish(group_norm1(x, a, t_))
         if self.training and drop.p > 0:
             x = x * dropout_mask(x, drop.p, dropout_generator)
         return conv(x.contiguous())

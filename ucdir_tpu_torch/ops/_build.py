@@ -9,7 +9,9 @@ CPU tests import every module, and only a CUDA tensor reaches `library()`.
 
 Every C entry point launches on the stream it is given, allocates nothing,
 does not synchronise, and returns `cudaGetLastError()`; `launch` raises when
-that is not 0 and counts the launch in `LAUNCHES`.
+that is not 0 and counts the launch in `LAUNCHES`. K1, K2, K3, K4 and K7
+have a second entry point for bfloat16 operands, `ucdir_<kernel>_bf16`
+(`entry`), counted under its own name; every other kernel takes float32.
 """
 from __future__ import annotations
 
@@ -32,7 +34,12 @@ GENCODE = 'arch=compute_90a,code=sm_90a'
 # wrapper launches its kernel and nowhere else.
 LAUNCHES = {'akgm_tail': 0, 'conv3x3': 0, 'conv1x1': 0, 'gn1_stats': 0,
             'akgm_tail_bwd': 0, 'conv3x3_bwd': 0, 'conv3x3_preact': 0,
-            'akgm_mix': 0, 'akgm_packed': 0}
+            'akgm_mix': 0, 'akgm_packed': 0,
+            'akgm_tail_bf16': 0, 'conv3x3_bf16': 0, 'conv1x1_bf16': 0,
+            'gn1_stats_bf16': 0, 'conv3x3_preact_bf16': 0}
+# the kernels with a bfloat16 entry point, `<kernel>_bf16`
+BF16_KERNELS = ('akgm_tail', 'conv3x3', 'conv1x1', 'gn1_stats',
+                'conv3x3_preact')
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: pointers and the stream as void*, sizes and flags as int.
@@ -47,6 +54,7 @@ _SIGNATURES = {
     'akgm_mix': [_P] * 5 + [_I] * 4 + [_P],
     'akgm_packed': [_P] * 9 + [_I] * 4 + [_P],
 }
+_SIGNATURES.update({k + '_bf16': _SIGNATURES[k] for k in BF16_KERNELS})
 
 
 def reset_launches():
@@ -131,9 +139,23 @@ def ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def check(name: str, t, shape=None, *, device=None):
-    """Raises unless `t` is a contiguous float32 CUDA tensor of `shape` (on
-    `device`, when given). None passes: it stands for an absent operand."""
+def entry(kernel: str, t: torch.Tensor) -> str:
+    """The entry point of `kernel` for the dtype of `t`: `kernel` for
+    float32, `kernel_bf16` for bfloat16 where the kernel has that form. A
+    tensor of another dtype raises; nothing is cast."""
+    if t.dtype == torch.float32:
+        return kernel
+    if t.dtype == torch.bfloat16 and kernel in BF16_KERNELS:
+        return kernel + '_bf16'
+    raise TypeError('%s takes float32%s, got %s; see ROADMAP.md'
+                    % (kernel, ' or bfloat16' if kernel in BF16_KERNELS
+                       else '', t.dtype))
+
+
+def check(name: str, t, shape=None, *, device=None, dtype=torch.float32):
+    """Raises unless `t` is a contiguous CUDA tensor of `dtype` and `shape`
+    (on `device`, when given). None passes: it stands for an absent
+    operand."""
     if t is None:
         return
     if t.device.type != 'cuda':
@@ -141,9 +163,8 @@ def check(name: str, t, shape=None, *, device=None):
                          % (name, t.device))
     if device is not None and t.device != device:
         raise ValueError('%s: on %s, expected %s' % (name, t.device, device))
-    if t.dtype != torch.float32:
-        raise TypeError('%s: the kernels take float32 in this version, got %s'
-                        % (name, t.dtype))
+    if t.dtype != dtype:
+        raise TypeError('%s: expected %s, got %s' % (name, dtype, t.dtype))
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError('%s: shape %s, expected %s'
                          % (name, tuple(t.shape), tuple(shape)))

@@ -10,6 +10,10 @@ Conv output o = c * G + j belongs to group o // C, so all G candidates of
 channel c read input group c // (C / G) (the reference's `.view(b, C, G, H,
 W)` of the grouped conv). The kernel-layout weights are the grouped HWIO
 kernel (3, 3, C / G, C * G) reshaped to (9 * C / G, C * G).
+
+K1 also takes bfloat16 operands, all of one dtype, and returns bfloat16 (its
+statistics float32): the TPU kernel's bf16 instantiation, with its roundings
+(`akgm_block_tail_plain`). K5, K8 and K9 take float32.
 """
 from __future__ import annotations
 
@@ -19,8 +23,8 @@ import torch
 import torch.nn.functional as F
 
 from ucdir_tpu_torch.ops import _build
-from ucdir_tpu_torch.ops.conv import (dswish, swish, vjp_of_plain,
-                                     wgrad_workspace)
+from ucdir_tpu_torch.ops.conv import (dswish, rounded, staged_affine, swish,
+                                     vjp_of_plain, wgrad_workspace)
 from ucdir_tpu_torch.ops.stats import fold_stats_grad, gn1_stats_plain
 
 
@@ -39,7 +43,26 @@ def akgm_block_tail_plain(h, att_sp, w, bias, res, nset: int, *,
                           norm_scale=None, norm_shift=None, attw=None,
                           emit_stats=False):
     """The plain version of K1 (`_block_ref` of
-    ucdir_tpu/ops/akgm_pallas.py)."""
+    ucdir_tpu/ops/akgm_pallas.py). bfloat16: as B1 computes in bf16
+    (`_akgm_block_kernel_padfree`), on the operands' values in float32: the
+    affine as `staged_affine`, att * attw rounded, each candidate z = conv +
+    bias rounded, z * att rounded, the G terms added, swish and the residual
+    in float32, the output rounded once."""
+    if h.dtype == torch.bfloat16:
+        dt = h.dtype
+        B, H, W, C = h.shape
+        hs = (h.float() if norm_scale is None
+              else staged_affine(h, norm_scale, norm_shift))
+        A = att_sp.float()
+        if attw is not None:
+            A = rounded(A * attw.float()[:, None, None, :], dt)
+        k = w.float().reshape(3, 3, C // nset, C * nset).permute(3, 2, 0, 1)
+        z = F.conv2d(hs.permute(0, 3, 1, 2), k, bias.float(), padding=1,
+                     groups=nset)
+        z = rounded(z.permute(0, 2, 3, 1).reshape(B, H, W, C, nset), dt)
+        y = rounded(z * A[:, :, :, None, :], dt).sum(dim=-1)
+        out = (swish(y) + res.float()).to(dt)
+        return (out, gn1_stats_plain(out)) if emit_stats else out
     if norm_scale is not None:
         h = h * norm_scale[:, None, None, :] + norm_shift[:, None, None, :]
     if attw is not None:
@@ -59,9 +82,10 @@ def _akgm_block_tail_forward(h, att_sp, w, bias, res, nset, norm_scale,
             norm_shift=norm_shift, attw=attw, emit_stats=emit_stats)
         return (y[0], *y[1]) if emit_stats else (y, None, None)
     B, H, W, C = h.shape
+    kernel = _build.entry('akgm_tail', h)
     dev = _check_operands('K1', h, att_sp, w, bias, nset, norm_scale,
-                          norm_shift, attw)
-    _build.check('res', res, (B, H, W, C), device=dev)
+                          norm_shift, attw, dtype=h.dtype)
+    _build.check('res', res, (B, H, W, C), device=dev, dtype=h.dtype)
     out = torch.empty_like(h)
     wp = permuted_columns(w)
     s = q = ws = None
@@ -70,7 +94,7 @@ def _akgm_block_tail_forward(h, att_sp, w, bias, res, nset, norm_scale,
         q = torch.empty_like(s)
         ws = torch.empty(B, stats_tiles(H * W, C), 2, C, device=dev,
                          dtype=torch.float32)
-    _build.launch('akgm_tail', h.data_ptr(), att_sp.data_ptr(),
+    _build.launch(kernel, h.data_ptr(), att_sp.data_ptr(),
                   _build.ptr(attw), wp.data_ptr(), bias.data_ptr(),
                   res.data_ptr(), _build.ptr(norm_scale),
                   _build.ptr(norm_shift), out.data_ptr(), _build.ptr(s),
@@ -80,24 +104,24 @@ def _akgm_block_tail_forward(h, att_sp, w, bias, res, nset, norm_scale,
 
 
 def _check_operands(kernel, h, att_sp, w, bias, nset, norm_scale, norm_shift,
-                    attw):
+                    attw, dtype=torch.float32):
     """Raises on what AKGM kernel `kernel` ('K1', 'K5', 'K8' or 'K9') does
     not take; w is the grouped kernel (9 * C / G, C * G), for K9 the dense
-    (9 * C, C)."""
+    (9 * C, C); every operand of `dtype`."""
     B, H, W, C = h.shape
     if nset != 8:
         raise ValueError('%s needs nset == 8, got nset=%d' % (kernel, nset))
     if C % 8:
         raise ValueError('%s needs C %% 8 == 0, got C=%d' % (kernel, C))
     dev = h.device
-    _build.check('h', h)
-    _build.check('att_sp', att_sp, (B, H, W, nset), device=dev)
+    _build.check('h', h, dtype=dtype)
+    _build.check('att_sp', att_sp, (B, H, W, nset), device=dev, dtype=dtype)
     _build.check('w', w, (9 * C, C) if kernel == 'K9'
-                 else (9 * C // nset, C * nset), device=dev)
-    _build.check('bias', bias, (C * nset,), device=dev)
-    _build.check('norm_scale', norm_scale, (B, C), device=dev)
-    _build.check('norm_shift', norm_shift, (B, C), device=dev)
-    _build.check('attw', attw, (B, nset), device=dev)
+                 else (9 * C // nset, C * nset), device=dev, dtype=dtype)
+    _build.check('bias', bias, (C * nset,), device=dev, dtype=dtype)
+    _build.check('norm_scale', norm_scale, (B, C), device=dev, dtype=dtype)
+    _build.check('norm_shift', norm_shift, (B, C), device=dev, dtype=dtype)
+    _build.check('attw', attw, (B, nset), device=dev, dtype=dtype)
     return dev
 
 

@@ -12,6 +12,13 @@ tap * Cin + ci (the HWIO kernel reshaped), a 1x1 kernel as (Cin, Cout).
 With `emit_stats=True` a function returns `(out, (sum, sumsq))`, the
 per-(batch, channel) float32 sums of `out` — the producer half of the chained
 GroupNorm(1) statistics (ucdir_tpu_torch/models/dy3h.py).
+
+The forward ops (K2, K3, K7) also take bfloat16 operands, all of one dtype,
+and return bfloat16: the TPU kernels' bf16 instantiation, which validation
+runs under `--compute_dtype bf16`. The kernel and the plain version alike
+compute in float32 on the operands' values and round where the TPU kernel's
+bf16 arithmetic rounds (`staged_affine`; the output once, to nearest even);
+the statistics are float32 sums of the rounded output.
 """
 from __future__ import annotations
 
@@ -35,10 +42,38 @@ def _nhwc(y):
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def _f32(t):
+    return None if t is None else t.float()
+
+
+def rounded(v, dtype):
+    """float32 `v` rounded to `dtype` (to nearest even) and back to float32:
+    a value the TPU kernel's bf16 arithmetic rounds, which a bf16 kernel here
+    keeps in float32 as it computes."""
+    return v.to(dtype).float()
+
+
+def staged_affine(x, a, t):
+    """`x * a + t` of NHWC x and (B, C) a, t of one low-precision dtype, as
+    the TPU kernels' staging computes it in that dtype (`_stage_padfree` of
+    ucdir_tpu/ops/akgm_pallas.py): the product rounded, then the sum
+    rounded. Returns float32."""
+    dt = x.dtype
+    p = rounded(x.float() * a.float()[:, None, None, :], dt)
+    return rounded(p + t.float()[:, None, None, :], dt)
+
+
 def conv3x3_plain(x, w, bias, *, stride=1, act=None, norm_scale=None,
                   norm_shift=None, emit_stats=False):
     """The plain version of K2: `conv3x3(x * a + t)` with SAME padding 1 of
-    the affine's output, + bias, optional swish."""
+    the affine's output, + bias, optional swish. bfloat16: the affine as
+    `staged_affine`, the float32 convolution, the output rounded once."""
+    if x.dtype == torch.bfloat16:
+        xs = (x.float() if norm_scale is None
+              else staged_affine(x, norm_scale, norm_shift))
+        y = conv3x3_plain(xs, w.float(), _f32(bias), stride=stride,
+                          act=act).to(x.dtype)
+        return (y, gn1_stats_plain(y)) if emit_stats else y
     cin, cout = x.shape[-1], w.shape[1]
     if norm_scale is not None:
         x = x * norm_scale[:, None, None, :] + norm_shift[:, None, None, :]
@@ -88,19 +123,20 @@ def _conv3x3_forward(x, w, bias, stride, act, norm_scale, norm_shift,
         return (y[0], *y[1]) if emit_stats else (y, None, None)
     B, H, W, cin = x.shape
     cout = w.shape[1]
-    dev = x.device
-    _build.check('x', x)
-    _build.check('w', w, (9 * cin, cout), device=dev)
-    _build.check('bias', bias, (cout,), device=dev)
-    _build.check('norm_scale', norm_scale, (B, cin), device=dev)
-    _build.check('norm_shift', norm_shift, (B, cin), device=dev)
+    dev, dt = x.device, x.dtype
+    kernel = _build.entry('conv3x3', x)
+    _build.check('x', x, dtype=dt)
+    _build.check('w', w, (9 * cin, cout), device=dev, dtype=dt)
+    _build.check('bias', bias, (cout,), device=dev, dtype=dt)
+    _build.check('norm_scale', norm_scale, (B, cin), device=dev, dtype=dt)
+    _build.check('norm_shift', norm_shift, (B, cin), device=dev, dtype=dt)
     Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
-    out = torch.empty(B, Ho, Wo, cout, device=dev, dtype=torch.float32)
+    out = torch.empty(B, Ho, Wo, cout, device=dev, dtype=dt)
     s = q = None
     if emit_stats:
         s = torch.zeros(B, cout, device=dev, dtype=torch.float32)
         q = torch.zeros_like(s)
-    _build.launch('conv3x3', x.data_ptr(), w.data_ptr(), bias.data_ptr(),
+    _build.launch(kernel, x.data_ptr(), w.data_ptr(), bias.data_ptr(),
                   _build.ptr(norm_scale), _build.ptr(norm_shift),
                   out.data_ptr(), _build.ptr(s), _build.ptr(q),
                   B, H, W, cin, cout, stride, int(act == 'swish'),
@@ -286,7 +322,15 @@ def conv3x3(x, w, bias, *, stride=1, act=None, norm_scale=None,
 def conv3x3_preact_plain(x, w, bias, norm_scale, norm_shift):
     """The plain version of K7 (`_c3p_ref` of ucdir_tpu/ops/conv_pallas.py):
     `conv3x3(swish(x * a + t)) + bias`, SAME padding 1 of the activated
-    tensor."""
+    tensor. bfloat16: u = `staged_affine`, the swish staged as the TPU
+    kernel's bf16 staging computes it, u * sigmoid(u) with the sigmoid and
+    the product each rounded, then the float32 convolution, the output
+    rounded once."""
+    if x.dtype == torch.bfloat16:
+        dt = x.dtype
+        u = staged_affine(x, norm_scale, norm_shift)
+        xs = rounded(u * rounded(torch.sigmoid(u), dt), dt)
+        return conv3x3_plain(xs, w.float(), _f32(bias)).to(dt)
     xh = x * norm_scale[:, None, None, :] + norm_shift[:, None, None, :]
     return conv3x3_plain(swish(xh), w, bias)
 
@@ -302,14 +346,15 @@ class _Conv3x3Preact(torch.autograd.Function):
             return conv3x3_preact_plain(x, w, bias, norm_scale, norm_shift)
         B, H, W, cin = x.shape
         cout = w.shape[1]
-        dev = x.device
-        _build.check('x', x)
-        _build.check('w', w, (9 * cin, cout), device=dev)
-        _build.check('bias', bias, (cout,), device=dev)
-        _build.check('norm_scale', norm_scale, (B, cin), device=dev)
-        _build.check('norm_shift', norm_shift, (B, cin), device=dev)
-        out = torch.empty(B, H, W, cout, device=dev, dtype=torch.float32)
-        _build.launch('conv3x3_preact', x.data_ptr(), w.data_ptr(),
+        dev, dt = x.device, x.dtype
+        kernel = _build.entry('conv3x3_preact', x)
+        _build.check('x', x, dtype=dt)
+        _build.check('w', w, (9 * cin, cout), device=dev, dtype=dt)
+        _build.check('bias', bias, (cout,), device=dev, dtype=dt)
+        _build.check('norm_scale', norm_scale, (B, cin), device=dev, dtype=dt)
+        _build.check('norm_shift', norm_shift, (B, cin), device=dev, dtype=dt)
+        out = torch.empty(B, H, W, cout, device=dev, dtype=dt)
+        _build.launch(kernel, x.data_ptr(), w.data_ptr(),
                       bias.data_ptr(), norm_scale.data_ptr(),
                       norm_shift.data_ptr(), out.data_ptr(), B, H, W, cin,
                       cout, _build.stream(x))
@@ -330,7 +375,11 @@ def conv3x3_preact(x, w, bias, norm_scale, norm_shift):
 
 
 def conv1x1_plain(x, w, bias, *, act=None):
-    """The plain version of K3: a per-pixel (Cin -> Cout) product + bias."""
+    """The plain version of K3: a per-pixel (Cin -> Cout) product + bias.
+    bfloat16: the float32 product, the output rounded once."""
+    if x.dtype == torch.bfloat16:
+        return conv1x1_plain(x.float(), w.float(), bias.float(),
+                             act=act).to(x.dtype)
     y = (x.reshape(-1, x.shape[-1]) @ w + bias).reshape(
         *x.shape[:-1], w.shape[1])
     return swish(y) if act == 'swish' else y
@@ -341,12 +390,13 @@ def _conv1x1_forward(x, w, bias, act):
         return conv1x1_plain(x, w, bias, act=act)
     B, H, W, cin = x.shape
     cout = w.shape[1]
-    dev = x.device
-    _build.check('x', x)
-    _build.check('w', w, (cin, cout), device=dev)
-    _build.check('bias', bias, (cout,), device=dev)
-    out = torch.empty(B, H, W, cout, device=dev, dtype=torch.float32)
-    _build.launch('conv1x1', x.data_ptr(), w.data_ptr(), bias.data_ptr(),
+    dev, dt = x.device, x.dtype
+    kernel = _build.entry('conv1x1', x)
+    _build.check('x', x, dtype=dt)
+    _build.check('w', w, (cin, cout), device=dev, dtype=dt)
+    _build.check('bias', bias, (cout,), device=dev, dtype=dt)
+    out = torch.empty(B, H, W, cout, device=dev, dtype=dt)
+    _build.launch(kernel, x.data_ptr(), w.data_ptr(), bias.data_ptr(),
                   out.data_ptr(), B, H, W, cin, cout, int(act == 'swish'),
                   _build.stream(x))
     return out
@@ -386,10 +436,18 @@ _PHASE_M = np.array([[[1, 0, 0], [0, 1, 1], [0, 0, 0]],     # py/px == 0
 
 def pack_up_kernel(kernel_hwio: torch.Tensor) -> torch.Tensor:
     """(3, 3, Cin, Cout) -> (3, 3, Cin, 4 * Cout), packed output channel
-    (py * 2 + px) * Cout + o."""
-    m = torch.as_tensor(_PHASE_M, dtype=kernel_hwio.dtype,
-                        device=kernel_hwio.device)
-    k = torch.einsum('pay,yxio,qbx->abipqo', m, kernel_hwio, m)
+    (py * 2 + px) * Cout + o. bfloat16: as the TPU package's einsum in that
+    dtype computes it, two products each rounded, the row taps that land on
+    one source row added first, then the column taps."""
+    dt = kernel_hwio.dtype
+    m = torch.as_tensor(_PHASE_M, device=kernel_hwio.device)
+    if dt == torch.bfloat16:
+        rows = rounded(torch.einsum('pay,yxio->paxio', m,
+                                    kernel_hwio.float()), dt)
+        k = torch.einsum('paxio,qbx->abipqo', rows, m).to(dt)
+    else:
+        m = m.to(dt)
+        k = torch.einsum('pay,yxio,qbx->abipqo', m, kernel_hwio, m)
     return k.reshape(3, 3, kernel_hwio.shape[2], 4 * kernel_hwio.shape[3])
 
 

@@ -1,5 +1,6 @@
 """One-pass GroupNorm(1) statistics: kernel K4 (`csrc/gn1_stats.cu`) and its
-plain version. Counterpart of `ucdir_tpu/ops/stats_pallas.py`."""
+plain version. Counterpart of `ucdir_tpu/ops/stats_pallas.py`. x may be
+float32 or bfloat16; the sums are float32 either way."""
 from __future__ import annotations
 
 import torch
@@ -8,7 +9,8 @@ from ucdir_tpu_torch.ops import _build
 
 
 def gn1_stats_plain(x: torch.Tensor):
-    """Per-(batch, channel) float32 sum and sum of squares of NHWC `x`."""
+    """Per-(batch, channel) float32 sum and sum of squares of NHWC `x` (of
+    its values as float32, whatever its dtype)."""
     xf = x.float()
     return xf.sum(dim=(1, 2)), (xf * xf).sum(dim=(1, 2))
 
@@ -17,10 +19,11 @@ def _gn1_stats_forward(x):
     if _build.on_host(x):
         return gn1_stats_plain(x)
     B, H, W, C = x.shape
-    _build.check('x', x)
+    kernel = _build.entry('gn1_stats', x)
+    _build.check('x', x, dtype=x.dtype)
     s = torch.zeros(B, C, device=x.device, dtype=torch.float32)
     q = torch.zeros_like(s)
-    _build.launch('gn1_stats', x.data_ptr(), s.data_ptr(), q.data_ptr(),
+    _build.launch(kernel, x.data_ptr(), s.data_ptr(), q.data_ptr(),
                   B, H * W, C, _build.stream(x))
     return s, q
 

@@ -8,16 +8,19 @@ and result files of the repo's `sr.py`:
         [--sampler ddpm|ddim|dpmpp|dpmpp_sde] [--sampling_timesteps N] \\
         [--val_patch [--patch_skip 1024] [--patch_padding 64]] \\
         [--search_params [--search_steps 25,50,100] \\
-                         [--search_ends 0.2,0.4,0.6]]
+                         [--search_ends 0.2,0.4,0.6]] [--compute_dtype bf16]
 
 Training saves the reference's checkpoint triple
 `I{iter}_E{epoch}_{gen,gen_ema,opt}.pth` and resumes from the prefix in the
 config's `path.resume_state`; `-p val --checkpoint <prefix>` validates a
 triple's EMA weights. Without a checkpoint the model starts from the random
-weights of --seed. One process, one card, fp32. Validation inputs above
-4.3 M px after the 64-px pad are restored tiled (1024-px tiles, 64-px halos)
-inside every denoising step; `--val_patch` instead runs a whole reverse
-process per tile, and `--search_params` sweeps the validation schedule.
+weights of --seed. One process, one card; float32, and for validation
+`--compute_dtype bf16` (the networks in bfloat16 on a copy of the weights,
+the sampler in float32; training in bf16 is not ported). Validation inputs
+above 4.3 M px after the 64-px pad are restored tiled (1024-px tiles, 64-px
+halos) inside every denoising step; `--val_patch` instead runs a whole
+reverse process per tile, and `--search_params` sweeps the validation
+schedule.
 """
 from __future__ import annotations
 
@@ -69,7 +72,8 @@ def _parser():
 
 def _refuse(args):
     """NotImplementedError for every option the port does not carry yet."""
-    todo = [(args.compute_dtype is not None, '--compute_dtype'),
+    todo = [(args.compute_dtype is not None and args.phase == 'train',
+             '--compute_dtype with -p train'),
             (args.val_batch > 1, '--val_batch > 1')]
     for hit, what in todo:
         if hit:

@@ -31,6 +31,11 @@ SCHEDULE_BUFFERS = (
     'posterior_mean_coef1', 'posterior_mean_coef2')
 
 
+# opt['compute_dtype'] (sr.py's --compute_dtype) -> the networks' dtype in
+# validation
+COMPUTE_DTYPES = {None: None, 'bf16': torch.bfloat16}
+
+
 def _unsupported(what: str):
     return NotImplementedError('%s is not ported yet; see ROADMAP.md' % what)
 
@@ -39,11 +44,18 @@ class Trainer:
     """phase 'train': optimizer steps on fed batches, validation with the
     live weights, checkpoints as the reference's triple. phase 'val':
     validation with the EMA (or live) weights of a checkpoint, or with the
-    random weights the model is built with."""
+    random weights the model is built with, in opt['compute_dtype'] ('bf16':
+    the networks in bfloat16 on a copy of the weights; None: float32)."""
 
     def __init__(self, opt, device, seed: int = 0):
-        if opt.get('compute_dtype'):
-            raise _unsupported('--compute_dtype %s' % opt['compute_dtype'])
+        name = opt.get('compute_dtype')
+        if name not in COMPUTE_DTYPES:
+            raise ValueError('compute_dtype %r: expected bf16 or None'
+                             % (name,))
+        if name and opt['phase'] == 'train':
+            # bf16 training needs the bf16 forms of K5 and K6
+            raise _unsupported('training with --compute_dtype %s' % name)
+        self.compute_dtype = COMPUTE_DTYPES[name]
         self.opt = opt
         self.device = torch.device(device)
         self.seed = seed
@@ -119,7 +131,8 @@ class Trainer:
         """Restores self.data['SR'] under the current schedule with noise from
         this trainer's generator; in the train phase with the live weights.
         opt['sampler'], opt['sampling_timesteps'] (default 20 for dpmpp,
-        else 5) and opt['tile'] choose the sampler and the tiled path."""
+        else 5) and opt['tile'] choose the sampler and the tiled path, and
+        opt['compute_dtype'] the networks' dtype."""
         sr = self.to_device(self.data['SR'])
         sampler = self.opt.get('sampler') or 'ddpm'
         steps = int(self.opt.get('sampling_timesteps')
@@ -130,7 +143,8 @@ class Trainer:
             out = eval_step(self.model, self.schedules[self.schedule_phase],
                             sr, continous=continous, generator=self.generator,
                             sampler=sampler, sampling_timesteps=steps,
-                            tile=self.opt.get('tile'))
+                            tile=self.opt.get('tile'),
+                            compute_dtype=self.compute_dtype)
         finally:
             self.model.train(was_training)
         if continous:
