@@ -37,7 +37,10 @@ on any failure:
               bytes at 2 a value and the counted FLOP at 989 TFLOP/s (bf16
               on the tensor cores, dense), with the fp32 FMA product's issue
               time at 67 TFLOP/s, which these forms run, printed beside
-              it.
+              it; and the bf16 forms of K5 and K6 at the train shapes of
+              their fp32 cases, held alike (their dW, dbias and K5's
+              attention gradients bit-identical in a second call), the
+              library `aten.convolution_backward` in bf16.
   3. slice    the full-width SID model (random weights from --seed) restores
               a 96 x 96 input with 2 steps and injected noise on the card and
               on the host (plain versions); the outputs must agree.
@@ -63,7 +66,12 @@ on any failure:
               of each step, every gradient of the first step and every
               parameter after the second must agree; then the same for the
               model with inner_channel 24 (C = 24, 48, 96, 192: K1's and
-              K5's narrow and 64-column tiles on the train path).
+              K5's narrow and 64-column tiles on the train path); then the
+              SID model in bf16 on float32 masters (--compute_dtype bf16):
+              each loss within 1e-3 rel, the parameters within 2 * lr a
+              step, the gradients' distance printed, only the bf16 kernels
+              launched on the card, masters, gradients and AdamW state
+              float32.
   7. train    the Trainer in its train phase at full width: crop 256 (288 x
               288 in the network), batch 32 (halved while it does not fit),
               8 optimize_parameters on one seeded batch with dropout on:
@@ -71,6 +79,10 @@ on any failure:
               peak memory, launches of K1..K6; then save_network, a reload
               of the EMA weights by a validation Trainer and one test on a
               96 x 96 input.
+  7b. train_bf16  the same steps with --compute_dtype bf16 (5, the first a
+              warm-up): seconds per step, peak memory, only the bf16 forms
+              of K1..K6 launched, masters, gradients, AdamW state, EMA and
+              the saved weights float32.
   8. variants the full-width model with `dropout: 0` (folded head, K7) and
               each AKGM tail ('fused' K1, 'mix' K8, 'packed' K9) restores a
               256 x 256 input with 2 DDPM steps and injected noise on the
@@ -92,8 +104,9 @@ on any failure:
               steps) card against host.
 Then one JSON line of kernel results (each kernel's launches from the path
 that owns it: K1..K4 the main phase, K5 and K6 the train phase, K7 the
-fewstep phase, K8 and K9 their variants run, the bf16 forms the bf16 frame
-and K7's the bf16 `dropout: 0` slice; every path's counts beside them;
+fewstep phase, K8 and K9 their variants run, the bf16 forms the bf16 frame,
+K7's the bf16 `dropout: 0` slice and K5's and K6's the bf16 train steps;
+every path's counts beside them;
 errors the largest and times summed over phase 2's shapes), the card's
 `nvidia-smi` name and power limit, and last `{"ok": true, "device": {...}}`.
 
@@ -125,6 +138,7 @@ TRAIN_CROP = 256                  # the SID train crop
 TRAIN_NET = (TRAIN_CROP // 32 + 1) * 32   # 288: as DY3h pads the crop
 TRAIN_BATCH = 32                  # the SID train batch
 TRAIN_STEPS = 8
+BF16_TRAIN_STEPS = 5              # bf16 train steps, the first a warm-up
 KERNEL_BATCH = 8                  # batch of K5's and K6's phase-2 cases
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
@@ -152,7 +166,8 @@ KERNELS = {
                     'ucdir_tpu/ops/akgm_pallas.py:1012'),
 }
 # the bf16 forms: the same sources, the TPU kernels' bf16 instantiation
-BF16 = ('akgm_tail', 'conv3x3', 'conv1x1', 'gn1_stats', 'conv3x3_preact')
+BF16 = ('akgm_tail', 'conv3x3', 'conv1x1', 'gn1_stats', 'conv3x3_preact',
+        'akgm_tail_bwd', 'conv3x3_bwd')
 KERNELS.update({k + '_bf16': KERNELS[k] for k in BF16})
 # the path whose run gives a kernel's `launches`
 OWNER = {'akgm_tail': 'main', 'conv3x3': 'main', 'conv1x1': 'main',
@@ -161,7 +176,8 @@ OWNER = {'akgm_tail': 'main', 'conv3x3': 'main', 'conv1x1': 'main',
          'akgm_mix': 'variants_mix', 'akgm_packed': 'variants_packed',
          'akgm_tail_bf16': 'bf16', 'conv3x3_bf16': 'bf16',
          'conv1x1_bf16': 'bf16', 'gn1_stats_bf16': 'bf16',
-         'conv3x3_preact_bf16': 'bf16_head'}
+         'conv3x3_preact_bf16': 'bf16_head',
+         'akgm_tail_bwd_bf16': 'train_bf16', 'conv3x3_bwd_bf16': 'train_bf16'}
 
 
 def say(phase, msg):
@@ -321,7 +337,7 @@ def kernel_cases(gen, dev):
             library=None, stats=0, flop=flop, bytes=nbytes(h, att, w, b, h)))
 
     def conv_case(label, B, H, W, cin, cout, stride=1, fold=False, act=None,
-                  backward=False, gen=gen, dtype=f32):
+                  backward=False, gen=gen, dtype=f32, gen_go=gen):
         x = rnd(B, H, W, cin, scale=0.5, gen=gen, dtype=dtype)
         w = rnd(9 * cin, cout, scale=(9 * cin) ** -0.5, gen=gen, dtype=dtype)
         b = rnd(cout, scale=0.1, gen=gen, dtype=dtype)
@@ -345,7 +361,7 @@ def kernel_cases(gen, dev):
                 bytes=(nbytes(x, w, b, a, t) + x.element_size() * n_out
                        + 8 * B * cout)))
             return
-        go = rnd(B, H, W, cout)
+        go = rnd(B, H, W, cout, gen=gen_go, dtype=dtype)
         kw = dict(act=act, norm_scale=a, norm_shift=t)
 
         def library():
@@ -356,7 +372,7 @@ def kernel_cases(gen, dev):
                 [0, 0], 1, [True, True, True])
             return (out, F.conv2d(nchw(x), k, b, padding=1)) if act else out
         cases.append(dict(
-            name='conv3x3_bwd', label=label,
+            **kind('conv3x3_bwd', dtype), label=label,
             kernel=lambda: conv.conv3x3_backward_kernel(x, w, b, go, act, a,
                                                         t),
             plain=lambda: conv.conv3x3_backward_plain(x, w, b, go, **kw),
@@ -441,11 +457,12 @@ def kernel_cases(gen, dev):
     # the backward kernels at the train path's shapes
     B, T = KERNEL_BATCH, TRAIN_NET
 
-    def k5_case(C, H, gen=gen):
-        h, att, w, b, kw, flop = akgm_operands(B, H, H, C, gen=gen)
-        go = rnd(B, H, H, C, gen=gen)
+    def k5_case(C, H, gen=gen, dtype=f32):
+        h, att, w, b, kw, flop = akgm_operands(B, H, H, C, gen=gen,
+                                               dtype=dtype)
+        go = rnd(B, H, H, C, gen=gen, dtype=dtype)
         cases.append(dict(
-            name='akgm_tail_bwd',
+            **kind('akgm_tail_bwd', dtype),
             label='B=%d C=%d %dx%d fold+attw' % (B, C, H, H),
             kernel=lambda: akgm.akgm_block_tail_backward_kernel(
                 h, att, w, b, go, G, kw['norm_scale'], kw['norm_shift'],
@@ -456,7 +473,8 @@ def kernel_cases(gen, dev):
             bytes=nbytes(h, go, att, w, b, *kw.values(), h, att, w, b,
                          kw['attw'])))
 
-    for C, s in ((64, 1), (128, 2), (256, 4), (512, 8), (512, 16)):
+    k5_levels = ((64, 1), (128, 2), (256, 4), (512, 8), (512, 16))
+    for C, s in k5_levels:
         k5_case(C, T // s)
     # K5 at the widths of narrower models: C = 32 on the narrow tiles (inner
     # channel 32, level 0) and C = 192 on 256 x 64 (inner channel 24, /8),
@@ -464,17 +482,20 @@ def kernel_cases(gen, dev):
     gen_k5 = torch.Generator(dev).manual_seed(gen.initial_seed() + 5)
     k5_case(32, T, gen=gen_k5)
     k5_case(192, T // 8, gen=gen_k5)
-    bw = dict(backward=True)
-    conv_case('B=%d downs_0 6->64 %dx%d' % (B, T, T), B, T, T, 6, 64, **bw)
-    conv_case('B=%d conv1 192->64 %dx%d fold+swish' % (B, T, T), B, T, T,
-              192, 64, fold=True, act='swish', **bw)
-    conv_case('B=%d conv1 384->128 %dx%d fold+swish' % (B, T // 2, T // 2),
-              B, T // 2, T // 2, 384, 128, fold=True, act='swish', **bw)
-    conv_case('B=%d conv1 1024->512 %dx%d fold+swish' % (B, T // 8, T // 8),
-              B, T // 8, T // 8, 1024, 512, fold=True, act='swish', **bw)
-    conv_case('B=%d upsample 128->4x128 packed %dx%d' % (B, T // 2, T // 2),
-              B, T // 2, T // 2, 128, 512, **bw)
-    conv_case('B=%d final 64->3 %dx%d' % (B, T, T), B, T, T, 64, 3, **bw)
+    # K6's train shapes: (label, H, cin, cout, options)
+    k6_shapes = (
+        ('B=%d downs_0 6->64 %dx%d' % (B, T, T), T, 6, 64, {}),
+        ('B=%d conv1 192->64 %dx%d fold+swish' % (B, T, T), T, 192, 64,
+         dict(fold=True, act='swish')),
+        ('B=%d conv1 384->128 %dx%d fold+swish' % (B, T // 2, T // 2),
+         T // 2, 384, 128, dict(fold=True, act='swish')),
+        ('B=%d conv1 1024->512 %dx%d fold+swish' % (B, T // 8, T // 8),
+         T // 8, 1024, 512, dict(fold=True, act='swish')),
+        ('B=%d upsample 128->4x128 packed %dx%d' % (B, T // 2, T // 2),
+         T // 2, 128, 512, {}),
+        ('B=%d final 64->3 %dx%d' % (B, T, T), T, 64, 3, {}))
+    for label, H, cin, cout, opts in k6_shapes:
+        conv_case(label, B, H, H, cin, cout, backward=True, **opts)
 
     # the bf16 forms at the validation shapes, from a generator of their own
     g16, bf = (torch.Generator(dev).manual_seed(gen.initial_seed() + 16),
@@ -488,6 +509,14 @@ def kernel_cases(gen, dev):
     k4_case(gen=g16, dtype=bf)
     preact_case(H0, W0, gen=g16, dtype=bf)
     preact_case(TILE, TILE, gen=g16, dtype=bf)
+    # the bf16 forms of the backward kernels at the train shapes, from a
+    # generator of their own
+    g17 = torch.Generator(dev).manual_seed(gen.initial_seed() + 17)
+    for C, s in k5_levels + ((32, 1), (192, 8)):
+        k5_case(C, T // s, gen=g17, dtype=bf)
+    for label, H, cin, cout, opts in k6_shapes:
+        conv_case(label, B, H, H, cin, cout, backward=True, gen=g17,
+                  gen_go=g17, dtype=bf, **opts)
     return cases
 
 
@@ -842,10 +871,13 @@ def phase_bf16(dev, seed, counts, sr32):
 
 
 # ------------------------------------------------------------- phases 6-7
-def phase_train_slice(dev, seed, **unet):
+def phase_train_slice(dev, seed, compute_dtype=None, **unet):
     """Two AdamW steps of the full-width model (`unet` overrides) on a 64 x
     64 batch of 2 with dropout off and injected draws, on the card (kernels
-    K1..K6) and on the host (their plain versions)."""
+    K1..K6) and on the host (their plain versions), the networks in
+    `compute_dtype` (None: float32; bf16 on float32 masters: the bf16 forms
+    of K1..K6, and no float32 kernel, on the card). Returns the card run's
+    launches."""
     import numpy as np
     import torch
     from ucdir_tpu_torch.configs import SID_MODEL
@@ -864,8 +896,11 @@ def phase_train_slice(dev, seed, **unet):
     host = build_model(seed, **unet)   # eval(): dropout off, autograd on
     card = copy.deepcopy(host).to(dev)
     run = {}
-    _build.reset_launches()
+    dtype = {None: None, 'bf16': torch.bfloat16}[compute_dtype]
     for name, model, d in (('cuda', card, dev), ('cpu', host, 'cpu')):
+        if name == 'cuda':
+            torch.cuda.synchronize()
+            _build.reset_launches()
         state = create_train_state(
             model, make_optimizer(model.parameters(), {'type': 'adamw',
                                                        'lr': 1e-4}))
@@ -876,19 +911,35 @@ def phase_train_slice(dev, seed, **unet):
         losses, grads = [], None
         for step_draws in draws:
             losses.append(train_step(state, sched, on(batch),
-                                     draws=on(step_draws)).item())
+                                     draws=on(step_draws),
+                                     compute_dtype=dtype).item())
             if grads is None:
                 grads = {k: p.grad.detach().cpu().clone()
                          for k, p in model.named_parameters()}
+        if name == 'cuda':
+            torch.cuda.synchronize()
+            launches = dict(_build.LAUNCHES)
+        masters = [p.dtype for p in model.parameters()] + [
+            v.dtype for st in state.optimizer.state.values()
+            for v in st.values() if torch.is_tensor(v)] + [
+            g.dtype for g in grads.values()]
+        if any(dt != torch.float32 for dt in masters):
+            fail('train_slice: a master weight, gradient or optimizer state '
+                 'is not float32')
         run[name] = (losses, grads,
                      {k: v.detach().cpu() for k, v in
                       model.state_dict().items()}, time.perf_counter() - t)
     (l_c, g_c, p_c, s_c), (l_h, g_h, p_h, s_h) = run['cuda'], run['cpu']
-    launches = dict(_build.LAUNCHES)
-    missing = [k for k in ('akgm_tail', 'akgm_tail_bwd', 'conv3x3_bwd')
-               if launches[k] == 0]
+    suffix = '' if dtype is None else '_bf16'
+    path = ('akgm_tail', 'conv3x3', 'conv1x1', 'gn1_stats', 'akgm_tail_bwd',
+            'conv3x3_bwd')
+    missing = [k + suffix for k in path if launches[k + suffix] == 0]
     if missing:
         fail('train_slice: kernels never launched: %s' % missing)
+    other = [k for k, n in launches.items()
+             if n and (k.endswith('_bf16') != (dtype is not None))]
+    if other:
+        fail('train_slice: launched kernels of the other dtype: %s' % other)
     # float32 on both sides, sums in other orders (atomics, cuDNN, oneDNN)
     # through ~70 layers forward and back. Limits from readings on an H100
     # (PERF.md): the first loss within 1e-5 rel and the second, taken on
@@ -898,8 +949,15 @@ def phase_train_slice(dev, seed, **unet):
     # sign, which flips where the prediction error rounds across 0); a
     # parameter after 2 steps of lr 1e-4 within 4.04e-4, the most that
     # AdamW's sign-like first steps can differ (2 * lr each way).
+    # bf16: both sides round at the same places, and a float32 sum in
+    # another order flips a bf16 value's last bit, 2^-8 of it, which runs
+    # on through the network: each loss within 1e-3 rel; the gradients'
+    # distance is printed, not held (a flipped rounding of a layer's output
+    # moves a whole layer's weight gradient by about a bf16 ulp); the
+    # parameters after, as in float32, within the 2 * lr a step that
+    # AdamW's sign-like steps allow.
     for i, (a, b) in enumerate(zip(l_c, l_h)):
-        tol = 1e-5 if i == 0 else 1e-4
+        tol = 1e-3 if dtype is not None else 1e-5 if i == 0 else 1e-4
         if not (math.isfinite(a) and abs(a - b) <= tol * abs(b)):
             fail('train_slice: step %d loss %.8g on the card, %.8g on the '
                  'host' % (i, a, b))
@@ -909,7 +967,7 @@ def phase_train_slice(dev, seed, **unet):
             fail('train_slice: gradient of %s missing or non-finite' % k)
         scale = want.abs().max().item()
         err = (g_c[k] - want).abs().max().item()
-        if not err <= 1e-3 * scale + 1e-6:
+        if dtype is None and not err <= 1e-3 * scale + 1e-6:
             fail('train_slice: gradient of %s: max abs err %.3e, largest '
                  'gradient %.3e' % (k, err, scale))
         g_err = max(g_err, err / max(scale, 1e-30))
@@ -922,26 +980,39 @@ def phase_train_slice(dev, seed, **unet):
         p_err = max(p_err, diff.max().item())
         p_mean += diff.sum().item()
         n += diff.numel()
-    say('train_slice', '%s, 64x64, batch 2, 2 AdamW steps: losses '
-        'card %s host %s; largest gradient err %.3e of its parameter\'s '
-        'largest gradient (tol 1e-3); parameters after: max diff %.3e (tol '
-        '4.04e-4), mean diff %.3e; card %.2f s, host %.2f s; launches %s'
-        % (json.dumps(unet) if unet else 'full width', json.dumps(l_c),
-           json.dumps(l_h), g_err, p_err, p_mean / n, s_c, s_h,
-           json.dumps(launches)))
+    say('train_slice', '%s%s, 64x64, batch 2, 2 AdamW steps: losses '
+        'card %s host %s (tol %s rel); largest gradient err %.3e of its '
+        'parameter\'s largest gradient (%s); parameters after: max diff '
+        '%.3e (tol 4.04e-4), mean diff %.3e; card %.2f s, host %.2f s; '
+        'launches %s'
+        % (json.dumps(unet) if unet else 'full width',
+           '' if dtype is None else ' in bf16 on float32 masters',
+           json.dumps(l_c), json.dumps(l_h),
+           '1e-5, 1e-4' if dtype is None else '1e-3', g_err,
+           'tol 1e-3' if dtype is None else 'printed', p_err, p_mean / n,
+           s_c, s_h, json.dumps(launches)))
+    return launches
 
 
-def phase_train(dev, seed):
-    """The train half of the Trainer at full width and the SID train shape:
-    optimize_parameters on one seeded batch, save_network, reload, test."""
-    import numpy as np
-    import torch
+def train_opt(tmp, compute_dtype=None):
+    """The SID train options of the `train` phases, checkpoints under
+    `tmp`."""
     from ucdir_tpu_torch.configs import SID_MODEL
-    from ucdir_tpu_torch.ops import _build
-    from ucdir_tpu_torch.train import step_loss
-    from ucdir_tpu_torch.trainer import Trainer
+    return {'phase': 'train', 'model': copy.deepcopy(SID_MODEL),
+            'compute_dtype': compute_dtype,
+            'path': {'resume_state': None,
+                     'checkpoint': os.path.join(tmp, 'checkpoint')},
+            'train': {'optimizer': {'type': 'adamw', 'lr': 1e-4},
+                      'ema_scheduler': {'use': True, 'step_start_ema': 5000,
+                                        'update_ema_every': 1,
+                                        'ema_decay': 0.9999}}}
 
-    steps, crop = TRAIN_STEPS, TRAIN_CROP
+
+def train_batch(seed):
+    """The `train` phases' batch: TRAIN_BATCH smooth crops and their
+    degraded versions."""
+    import numpy as np
+    crop = TRAIN_CROP
     rng = np.random.default_rng(seed + 4)
     yy, xx = np.mgrid[0:crop, 0:crop] / (crop - 1.0)
     hr = np.stack([[np.sin((3 + i) * xx + c) * np.cos((2 + i) * yy - c)
@@ -949,59 +1020,81 @@ def phase_train(dev, seed):
     hr = np.ascontiguousarray(hr.transpose(0, 2, 3, 1)).astype(np.float32)
     lq = np.clip(0.1 * hr + rng.normal(0, 0.1, hr.shape), -1,
                  1).astype(np.float32)
+    return hr, lq
+
+
+def train_steps(dev, trainer, hr, lq, steps, phase):
+    """`steps` optimize_parameters on the batch (halved while a step does not
+    fit), the first a warm-up; fails unless the losses are finite and the
+    loss on the first step's draws falls. Returns (batch, s per step, the
+    losses, that loss again, peak GiB, the launches of the first step, of
+    all steps)."""
+    import torch
+    from ucdir_tpu_torch.ops import _build
+    from ucdir_tpu_torch.train import step_loss
+
+    if not trainer.model.training:
+        fail('%s: the model is not in train mode (dropout off)' % phase)
+    batch = TRAIN_BATCH
+    while True:   # halved while a step does not fit
+        trainer.feed_data({'HR': hr[:batch], 'SR': lq[:batch]})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _build.reset_launches()
+        try:
+            trainer.optimize_parameters()   # also the warm-up step
+            break
+        except torch.cuda.OutOfMemoryError:
+            if batch == 1:
+                raise
+            trainer.state.optimizer.zero_grad(set_to_none=True)
+            trainer.iter = trainer.state.step = 0
+            batch //= 2
+            torch.cuda.empty_cache()
+    losses = [trainer.get_current_log()['l_pix']]
+    per_step = dict(_build.LAUNCHES)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(steps - 1):
+        trainer.optimize_parameters()
+        losses.append(trainer.get_current_log()['l_pix'])
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t) / (steps - 1)
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    if not all(math.isfinite(l) for l in losses):
+        fail('%s: non-finite loss in %s' % (phase, losses))
+    # every step draws its own noise level, noise and dropout mask, so the
+    # steps' losses are not comparable one to one: the loss must fall on the
+    # first step's own draws, taken again with the weights after the last
+    # step
+    with torch.no_grad():
+        again = step_loss(trainer.model, trainer.schedules['train'],
+                          {k: trainer.to_device(trainer.data[k])
+                           for k in ('HR', 'SR')},
+                          trainer.step_generator(0),
+                          compute_dtype=trainer.compute_dtype).item()
+    if not again < losses[0]:
+        fail('%s: the loss on the first step\'s draws did not fall: %.6f '
+             'before, %.6f after %d steps' % (phase, losses[0], again,
+                                               steps))
+    return batch, secs, losses, again, peak, per_step, launches
+
+
+def phase_train(dev, seed):
+    """The train half of the Trainer at full width and the SID train shape:
+    optimize_parameters on one seeded batch, save_network, reload, test."""
+    import numpy as np
+    import torch
+    from ucdir_tpu_torch.trainer import Trainer
+
+    steps, crop = TRAIN_STEPS, TRAIN_CROP
+    hr, lq = train_batch(seed)
     with tempfile.TemporaryDirectory() as tmp:
-        opt = {'phase': 'train', 'model': copy.deepcopy(SID_MODEL),
-               'path': {'resume_state': None,
-                        'checkpoint': os.path.join(tmp, 'checkpoint')},
-               'train': {'optimizer': {'type': 'adamw', 'lr': 1e-4},
-                         'ema_scheduler': {'use': True,
-                                           'step_start_ema': 5000,
-                                           'update_ema_every': 1,
-                                           'ema_decay': 0.9999}}}
+        opt = train_opt(tmp)
         trainer = Trainer(opt, device=dev, seed=seed)
-        if not trainer.model.training:
-            fail('train: the model is not in train mode (dropout off)')
-        batch = TRAIN_BATCH
-        while True:   # halved while a step does not fit
-            trainer.feed_data({'HR': hr[:batch], 'SR': lq[:batch]})
-            torch.cuda.reset_peak_memory_stats(dev)
-            _build.reset_launches()
-            try:
-                trainer.optimize_parameters()   # also the warm-up step
-                break
-            except torch.cuda.OutOfMemoryError:
-                if batch == 1:
-                    raise
-                trainer.state.optimizer.zero_grad(set_to_none=True)
-                trainer.iter = trainer.state.step = 0
-                batch //= 2
-                torch.cuda.empty_cache()
-        losses = [trainer.get_current_log()['l_pix']]
-        per_step = dict(_build.LAUNCHES)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(steps - 1):
-            trainer.optimize_parameters()
-            losses.append(trainer.get_current_log()['l_pix'])
-        torch.cuda.synchronize()
-        secs = (time.perf_counter() - t) / (steps - 1)
-        launches = dict(_build.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-        if not all(math.isfinite(l) for l in losses):
-            fail('train: non-finite loss in %s' % losses)
-        # every step draws its own noise level, noise and dropout mask, so
-        # the steps' losses are not comparable one to one: the loss must
-        # fall on the first step's own draws, taken again with the weights
-        # after the last step
-        with torch.no_grad():
-            again = step_loss(trainer.model, trainer.schedules['train'],
-                              {k: trainer.to_device(trainer.data[k])
-                               for k in ('HR', 'SR')},
-                              trainer.step_generator(0)).item()
-        if not again < losses[0]:
-            fail('train: the loss on the first step\'s draws did not fall: '
-                 '%.6f before, %.6f after %d steps' % (losses[0], again,
-                                                       steps))
+        batch, secs, losses, again, peak, per_step, launches = train_steps(
+            dev, trainer, hr, lq, steps, 'train')
         missing = [k for k, n in launches.items()
                    if n == 0 and OWNER[k] in ('main', 'train')]
         if missing:
@@ -1050,6 +1143,53 @@ def phase_train(dev, seed):
             'step %d bit for bit, EMA weights reloaded, Trainer.test 96x96, '
             '50 steps: %.2f s' % (os.path.basename(prefix), steps,
                                   time.perf_counter() - t))
+    return launches
+
+
+def phase_train_bf16(dev, seed):
+    """`train`'s steps with --compute_dtype bf16: the networks on a bf16
+    cast of the float32 masters. Fails unless every step launched the bf16
+    forms of K1..K6 and no float32 kernel, and the masters, gradients,
+    optimizer state, EMA shadow and saved weights stay float32. Returns the
+    launches."""
+    import torch
+    from ucdir_tpu_torch.trainer import Trainer
+
+    steps = BF16_TRAIN_STEPS
+    hr, lq = train_batch(seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(train_opt(tmp, 'bf16'), device=dev, seed=seed)
+        batch, secs, losses, again, peak, per_step, launches = train_steps(
+            dev, trainer, hr, lq, steps, 'train_bf16')
+        missing = [k for k, owner in OWNER.items()
+                   if owner == 'train_bf16' and launches[k] == 0]
+        other = [k for k, n in launches.items()
+                 if n and not k.endswith('_bf16')]
+        if missing or other:
+            fail('train_bf16: bf16 kernels never launched: %s; float32 '
+                 'kernels launched: %s' % (missing, other))
+        state = trainer.state
+        tensors = list(trainer.model.parameters()) + [
+            p.grad for p in trainer.model.parameters()] + list(
+            state.ema_params.values()) + [
+            v for st in state.optimizer.state.values() for v in st.values()
+            if torch.is_tensor(v)]
+        prefix = trainer.save_network(1, steps)
+        for suffix in ('_gen.pth', '_gen_ema.pth'):
+            tensors += torch.load(prefix + suffix,
+                                  weights_only=True).values()
+        if any(t.dtype != torch.float32 for t in tensors):
+            fail('train_bf16: a master weight, gradient, optimizer state, '
+                 'EMA or saved weight is not float32')
+        say('train_bf16', 'Trainer.optimize_parameters with compute_dtype '
+            'bf16, full width, crop %d (network %dx%d), batch %d, AdamW 1e-4, '
+            'dropout 0.1: %.3f s per step (mean of %d after the first), '
+            'losses %s, the first step\'s draws again after the last step '
+            '%.6f, peak %.3f GiB; masters, gradients, optimizer state, EMA '
+            'and saved weights float32; launches per step %s, in %d steps %s'
+            % (TRAIN_CROP, TRAIN_NET, TRAIN_NET, batch, secs, steps - 1,
+               json.dumps([round(l, 6) for l in losses]), again, peak,
+               json.dumps(per_step), steps, json.dumps(launches)))
     return launches
 
 
@@ -1329,9 +1469,12 @@ def main(argv=None):
     sr32, _ = phase_sid(dev, args.seed)
     phase_bf16(dev, args.seed, counts, sr32)
     del sr32
-    phase_train_slice(dev, args.seed)
-    phase_train_slice(dev, args.seed, inner_channel=24)
+    counts['train_slice'] = phase_train_slice(dev, args.seed)
+    counts['train_slice_24'] = phase_train_slice(dev, args.seed,
+                                                 inner_channel=24)
+    counts['train_slice_bf16'] = phase_train_slice(dev, args.seed, 'bf16')
     counts['train'] = phase_train(dev, args.seed)
+    counts['train_bf16'] = phase_train_bf16(dev, args.seed)
     phase_variants(dev, args.seed, counts)
     phase_fewstep(dev, args.seed, counts)
     phase_hires(dev, args.seed, counts)

@@ -329,7 +329,7 @@ def test_bf16_tails_without_a_bf16_kernel_raise():
                              compute_dtype=BF)
 
 
-def _tiny_yaml(tmp_path):
+def _tiny_yaml(tmp_path, **train):
     data = str(tmp_path / 'data')
     _write_pairs(data)
     with open(os.path.join(ROOT, 'ucdir_tpu', 'configs', 'sid.yaml')) as f:
@@ -340,6 +340,9 @@ def _tiny_yaml(tmp_path):
     roots = {'lq': data + '/input', 'gt': data + '/target'}
     for phase in ('train', 'val'):
         cfg['datasets'][phase]['data_args']['dataroot'] = roots
+    if train:
+        cfg['datasets']['train']['data_args']['crop_size'] = 32
+        cfg['train'].update(train)
     (tmp_path / 'tiny.yaml').write_text(yaml.safe_dump(cfg))
 
 
@@ -363,16 +366,19 @@ def test_cli_val_bf16_on_cpu(tmp_path):
 
 
 def test_cli_bf16_refusals(tmp_path):
-    """bf16 training needs the bf16 forms of K5 and K6, and the 'mix' tail
-    (UCDIR_TPU_NO_FUSED_TAIL=1) that of K8: both raise, naming ROADMAP.md."""
-    from ucdir_tpu_torch import sr
-    from ucdir_tpu_torch.trainer import Trainer
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        sr.main(['-p', 'train', '--device', 'cpu', '--compute_dtype',
-                 'bf16'])
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        Trainer({'phase': 'train', 'compute_dtype': 'bf16'}, device='cpu')
-    _tiny_yaml(tmp_path)
+    """bf16 training runs (`-p train --compute_dtype bf16`, 2 iterations on
+    the CPU: a finite l_pix and the in-train validation at iteration 2;
+    tests/test_torch_port_bf16_train.py holds its checkpoints to float32),
+    and the 'mix' tail (UCDIR_TPU_NO_FUSED_TAIL=1), whose kernel K8 has no
+    bf16 form, raises, naming ROADMAP.md."""
+    _tiny_yaml(tmp_path, n_iter=2)
+    proc = _cli(tmp_path, '-p', 'train')
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    losses = [float(line.split('l_pix: ')[1].split()[0])
+              for line in proc.stderr.splitlines() if 'l_pix: ' in line]
+    assert len(losses) == 1 and np.isfinite(losses).all(), losses
+    assert '# Validation # PSNR: ' in proc.stderr
+    assert 'End of training.' in proc.stderr
     proc = _cli(tmp_path, '-p', 'val', UCDIR_TPU_NO_FUSED_TAIL='1')
     assert proc.returncode != 0
     assert 'NotImplementedError' in proc.stderr

@@ -30,9 +30,11 @@ K2 and K3 run on tiles of 128 pixels by 128 or 8 columns, or 256 by 64, in k
 slices of 16: their cases include cout 3, 8, 9 and 130, cin 4, 6 and 70, P
 one short of and one past a pixel tile, stride 2 on odd sizes and B = 3.
 The bf16 forms of K1, K2, K3, K4 and K7 (`_bf16` tests) take the same cases
-in bfloat16 against the bf16 plain versions, which round where the kernels
-do: every output within one bf16 ulp of max(1, |reference|), 2^-7 of it,
-and at least 99% of them the same bits (a float32 sum in another order
+in bfloat16 against the bf16 plain versions, and those of K5 and K6 cases at
+C = 32, 64, 192 and 512 (dW, dbias and dattw the same bits in a second
+call); the plain versions round where the kernels do: every output
+within one bf16 ulp of max(1, |reference|), 2^-7 of it, and at least 99%
+of them the same bits (a float32 sum in another order
 next to a rounding boundary flips one ulp); statistics, each side's float32
 sums of its own rounded output, within the sum over the pixels of the two
 outputs' differences (of their squares' differences) and 1e-5 of the
@@ -628,9 +630,71 @@ def test_conv3x3_preact_bf16(dev, B, H, W, cin, cout):
         x, w, b, a, t)), conv.conv3x3_preact_plain(x, w, b, a, t), 0)
 
 
+# ---- the bf16 forms of K5 and K6 (training under --compute_dtype bf16)
+BWD_BF16_C = [32, 64, 192, 512]
+
+
+def bwd_shape(C):
+    return (2, 13, 21) if C <= 64 else (1, 9, 11)
+
+
+@pytest.mark.parametrize('C', BWD_BF16_C)
+@pytest.mark.parametrize('fold_attw', [False, True])
+def test_akgm_tail_backward_bf16(dev, C, fold_attw):
+    """K5 in bf16 against its bf16 plain version, every output; dW, dbias
+    and dattw the same bits in a second call."""
+    gen, G = torch.Generator(dev).manual_seed(18), 8
+    B, H, W = bwd_shape(C)
+    h, att, w, b = bf16(*akgm_operands(gen, B, H, W, C))
+    go = rnd(gen, B, H, W, C).to(BF)
+    ns = nt = aw = None
+    if fold_attw:
+        ns, nt, aw = bf16(rnd(gen, B, C, scale=0.2, off=1.0),
+                          rnd(gen, B, C, scale=0.2),
+                          rnd(gen, B, G, scale=0.3, off=1.0))
+
+    def run():
+        return akgm.akgm_block_tail_backward_kernel(h, att, w, b, go, G, ns,
+                                                    nt, aw)
+    got = launched('akgm_tail_bwd', run)
+    want = akgm.akgm_block_tail_backward_plain(
+        h, att, w, b, go, G, norm_scale=ns, norm_shift=nt, attw=aw)
+    assert (got[4] is None) == (want[4] is None) == (not fold_attw)
+    n = 5 if fold_attw else 4
+    check_bf16(got[:n], want[:n], 0)
+    again = run()
+    for i in (2, 3, 4)[:n - 2]:
+        assert torch.equal(got[i], again[i]), i
+
+
+@pytest.mark.parametrize('C', BWD_BF16_C)
+@pytest.mark.parametrize('fold_act', [False, True])
+def test_conv3x3_backward_bf16(dev, C, fold_act):
+    """K6 in bf16 (C -> C) against its bf16 plain version; dW and dbias the
+    same bits in a second call."""
+    gen = torch.Generator(dev).manual_seed(19)
+    B, H, W = bwd_shape(C)
+    x, go = rnd(gen, B, H, W, C, scale=0.5), rnd(gen, B, H, W, C)
+    w = rnd(gen, 9 * C, C, scale=(9 * C) ** -0.5)
+    b = rnd(gen, C, scale=0.1)
+    a = t = None
+    if fold_act:
+        a, t = rnd(gen, B, C, scale=0.2, off=1.0), rnd(gen, B, C, scale=0.2)
+    x, go, w, b, a, t = bf16(x, go, w, b, a, t)
+    act = 'swish' if fold_act else None
+
+    def run():
+        return conv.conv3x3_backward_kernel(x, w, b, go, act, a, t)
+    got = launched('conv3x3_bwd', run)
+    check_bf16(got, conv.conv3x3_backward_plain(
+        x, w, b, go, act=act, norm_scale=a, norm_shift=t), 0)
+    again = run()
+    for i in (1, 2):
+        assert torch.equal(got[i], again[i]), i
+
+
 def test_kernels_without_a_bf16_form_refuse_bf16(dev):
-    """K5, K6, K8 and K9 take float32: a bf16 operand raises, it is never
-    cast."""
+    """K8 and K9 take float32: a bf16 operand raises, it is never cast."""
     gen, G, C = torch.Generator(dev).manual_seed(16), 8, 16
     h, att, w, b = bf16(*akgm_operands(gen, 1, 5, 6, C))
     with pytest.raises(TypeError, match='float32'):
@@ -638,9 +702,3 @@ def test_kernels_without_a_bf16_form_refuse_bf16(dev):
     with pytest.raises(TypeError, match='float32'):
         akgm.akgm_block_tail_packed(h, att, akgm.pack_grouped_weight(w, G),
                                     b, h, G)
-    with pytest.raises(TypeError, match='float32'):
-        akgm.akgm_block_tail_backward_kernel(h, att, w, b, h, G, None, None,
-                                             None)
-    x, wc, bc = bf16(rnd(gen, 1, 5, 6, 8), rnd(gen, 72, 8), rnd(gen, 8))
-    with pytest.raises(TypeError, match='float32'):
-        conv.conv3x3_backward_kernel(x, wc, bc, x, None, None, None)

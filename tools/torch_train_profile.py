@@ -3,6 +3,7 @@
 port goes on the card.
 
     python3 tools/torch_train_profile.py [--batch 32] [--crop 256] [--seed 0]
+                                         [--compute_dtype bf16]
     python3 tools/torch_train_profile.py --val [--steps 2] [--seed 0]
                                          [--tail fused|mix|packed]
                                          [--compute_dtype bf16]
@@ -15,12 +16,16 @@ memory, the device's busy time and idle share inside the traced step, the
 time of each CUDA kernel by name (top 30), the port's kernels by launch (K1's
 two: the product and its statistics' reduction; K5's and K6's three: z
 recompute, weight gradient and its reduction, input gradient) and the
-launches of K1..K6 in that step. With --val it restores one 1424 x 2128 frame (1568 x 2272 in the
-network) with --steps DDPM steps instead, once to warm up and once traced:
-the same lines for that frame, whose time is one predictor pass plus --steps
-DY3h steps, with --tail the denoiser's AKGM tail (`DY3h(tail=...)`: K1,
-K8 or K9), and with --compute_dtype bf16 the networks in bfloat16 (the bf16
-kernels). Needs a CUDA card; prints the card's name and power limit first.
+launches of K1..K6 in that step, and the casts' time (`aten::_to_copy` and
+its copy kernels: the parameters' cast to bf16 and the casts around
+attention and the loss). With --val it restores one 1424 x 2128 frame (1568
+x 2272 in the network) with --steps DDPM steps instead, once to warm up and
+once traced: the same lines for that frame, whose time is one predictor
+pass plus --steps DY3h steps, with --tail the denoiser's AKGM tail
+(`DY3h(tail=...)`: K1, K8 or K9). --compute_dtype bf16 runs the networks in
+bfloat16 (the bf16 kernels): validation on a bf16 copy of the weights,
+training on a bf16 cast of the float32 masters. Needs a CUDA card; prints
+the card's name and power limit first.
 """
 import argparse
 import copy
@@ -46,7 +51,7 @@ def main(argv=None):
                     choices=('fused', 'mix', 'packed'),
                     help="the validation denoiser's AKGM tail")
     ap.add_argument('--compute_dtype', default=None, choices=('bf16',),
-                    help="the validation networks' dtype")
+                    help="the networks' dtype")
     args = ap.parse_args(argv)
 
     import torch
@@ -96,6 +101,10 @@ def main(argv=None):
     print('the port\'s kernels by launch:')
     for part, (ms, count) in sorted(parts.items()):
         print('%10.2f ms %6d x  %s' % (ms, count, part))
+    casts = [(e.device_time_total / 1e3, e.count) for e in
+             prof.key_averages() if e.key == 'aten::_to_copy']
+    print('casts (aten::_to_copy, device time of its kernels): %.2f ms in '
+          '%d calls' % (sum(c[0] for c in casts), sum(c[1] for c in casts)))
     return 0
 
 
@@ -113,9 +122,9 @@ PARTS = (
     (('conv_pc_kernel', 'Raw'), 'K3'),
     (('conv_pc_kernel', 'Preact'), 'K7'),
     (('conv_pc_kernel', 'Affine'), 'K2'),
-    (('akgm_tail_kernel', ', true>'), 'K1'),
+    (('akgm_tail_kernel', ', true,'), 'K1'),
     (('stats_reduce_kernel',), 'K1 statistics reduction'),
-    (('akgm_tail_kernel', ', false>'), 'K8'),
+    (('akgm_tail_kernel', ', false,'), 'K8'),
     (('gn1_stats',), 'K4'),
     (('akgm_packed_kernel',), 'K9'),
 )
@@ -170,6 +179,7 @@ def train_step(dev, args):
     from ucdir_tpu_torch.trainer import Trainer
 
     opt = {'phase': 'train', 'model': copy.deepcopy(SID_MODEL),
+           'compute_dtype': args.compute_dtype,
            'path': {'resume_state': None, 'checkpoint': None},
            'train': {'optimizer': {'type': 'adamw', 'lr': 1e-4},
                      'ema_scheduler': {'use': True, 'step_start_ema': 5000,
@@ -191,8 +201,9 @@ def train_step(dev, args):
     torch.cuda.synchronize()
     secs = (time.perf_counter() - t) / 3
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    print('batch %d, crop %d: %.3f s per step (mean of 3), peak %.3f GiB'
-          % (args.batch, args.crop, secs, peak))
+    print('batch %d, crop %d, %s: %.3f s per step (mean of 3), peak %.3f GiB'
+          % (args.batch, args.crop, args.compute_dtype or 'float32', secs,
+             peak))
 
     return trainer.optimize_parameters
 

@@ -47,25 +47,40 @@
 //      weights, on the narrowest tile of 8, 16, 32 or 64 columns that holds
 //      the group's C / G output columns, so that few columns of it idle.
 // Bound: the fp32 FMA rate, at three times K1's operations.
+//
+// ucdir_akgm_tail_bwd_bf16 runs the same launches on bf16 operands and
+// outputs, rounding where the TPU kernel's bf16 instantiation rounds: the
+// recomputed z and A each rounded and their product m = z * A rounded before
+// the G terms are added (the float32 kernel has no such rounding); do from
+// the bf16 cotangent in float32, rounded once, and then dz = do * A (A =
+// att * attw, exact in float32, kept in the float32 scratch aa) rounded
+// where it enters the weight and the input gradient; the datt terms do * z
+// rounded before they are added, datt times attw rounded once; dW and dattw
+// added in float32 in their workspaces and rounded once; dbias the float32
+// sum of the unrounded dz, rounded once; dhh rounded once.
 #include "igemm_pc.cuh"
 
 namespace {
 
 namespace pc = ucdir::pc;
+using ucdir::bf16;
+using ucdir::Elem;
 constexpr int G = 8;  // candidates per channel
 
+template <class E>
 struct DoArgs {
-  const float* h;     // (B, H, W, C)
-  const float* go;    // (B, H, W, C)
-  const float* att;   // (B, H, W, G)
-  const float* attw;  // (B, G) or null
-  const float* w;     // (9 * C / G, C * G), columns permuted in each tile
-  const float* bias;  // (C * G), permuted alike
-  const float* a;     // (B, C) or null
-  const float* t;
-  float* dout;        // (B, H, W, C) do
-  float* aa;          // (B, H, W, G) att * attw, written when attw
-  float* datt;        // (B, H, W, G), written whole
+  const E* h;         // (B, H, W, C)
+  const E* go;        // (B, H, W, C)
+  const E* att;       // (B, H, W, G)
+  const E* attw;      // (B, G) or null
+  const E* w;         // (9 * C / G, C * G), columns permuted in each tile
+  const E* bias;      // (C * G), permuted alike
+  const E* a;         // (B, C) or null
+  const E* t;
+  E* dout;            // (B, H, W, C) do
+  float* aa;          // (B, H, W, G) att * attw, written when attw (bf16:
+                      // always)
+  E* datt;            // (B, H, W, G), written whole
   float* dattw_ws;    // (B, ntp, G) per-tile sums of dattw, or null
   ucdir::Geom g;      // g.C = C, g.cin = C / G
   int ntn;            // column tiles of C * G, all walked by each block
@@ -107,9 +122,9 @@ __device__ __forceinline__ int butterfly_offset(int lane) {
 // TM rows of its channel's 8 candidates; adds the tile's datt terms of the
 // lane's row and candidates (see butterfly) to qs. The terms take the
 // accumulators' registers.
-template <class T>
+template <class T, class E>
 __device__ __forceinline__ void do_epilogue(float (&acc)[T::TM][T::TN],
-                                            const DoArgs& c, int b, int m0,
+                                            const DoArgs<E>& c, int b, int m0,
                                             int n0, float* qs) {
   static_assert(T::TN == G && T::GW == 4 && T::NG == 2, "a channel a thread");
   constexpr int NV = T::TM * G;
@@ -121,8 +136,8 @@ __device__ __forceinline__ void do_epilogue(float (&acc)[T::TM][T::TN],
   float bj[G], awj[G];
 #pragma unroll
   for (int j = 0; j < G; ++j) {
-    bj[j] = c.bias[n0 + pc::tile_col<T>(tn, j)];
-    awj[j] = c.attw ? c.attw[b * G + j] : 1.f;
+    bj[j] = Elem<E>::ld(c.bias + n0 + pc::tile_col<T>(tn, j));
+    awj[j] = c.attw ? Elem<E>::ld(c.attw + b * G + j) : 1.f;
   }
 #pragma unroll
   for (int i = 0; i < T::TM; ++i) {
@@ -133,23 +148,50 @@ __device__ __forceinline__ void do_epilogue(float (&acc)[T::TM][T::TN],
       continue;
     }
     const int64_t pix = (int64_t)b * P + p;
-    const float4 a0 = __ldg(reinterpret_cast<const float4*>(c.att + pix * G));
-    const float4 a1 =
-        __ldg(reinterpret_cast<const float4*>(c.att + pix * G + 4));
-    const float at[G] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    float at[G];
+    Elem<E>::ld4(*reinterpret_cast<float(*)[4]>(at), c.att + pix * G);
+    Elem<E>::ld4(*reinterpret_cast<float(*)[4]>(at + 4), c.att + pix * G + 4);
     float A[G], z[G];
     float o = 0.f;
+    float d;
+    if constexpr (Elem<E>::kLow) {
+      // m = z * A in bf16: both rounded, their (exact) product rounded;
+      // two candidates at a time (one conversion, one bf16x2 product)
 #pragma unroll
-    for (int j = 0; j < G; ++j) {
-      A[j] = at[j] * awj[j];
-      z[j] = acc[i][j] + bj[j];
-      o += z[j] * A[j];
+      for (int j = 0; j < G; ++j) {
+        A[j] = at[j] * awj[j];
+        z[j] = acc[i][j] + bj[j];
+      }
+#pragma unroll
+      for (int j = 0; j < G; j += 2) {
+        const float m = Elem<E>::mul2(Elem<E>::pack2(z[j], z[j + 1]),
+                                      Elem<E>::pack2(A[j], A[j + 1]));
+        o += Elem<E>::lof(m);
+        o += Elem<E>::hif(m);
+      }
+      d = Elem<E>::rnd(Elem<E>::ldg(c.go + pix * C + ch) * ucdir::dswishf(o));
+      Elem<E>::st(c.dout + pix * C + ch, d);
+      // the datt terms d * z, each rounded
+#pragma unroll
+      for (int j = 0; j < G; j += 2) {
+        const float q = Elem<E>::pack2(__fmul_rn(d, z[j]),
+                                       __fmul_rn(d, z[j + 1]));
+        acc[i][j] = Elem<E>::lof(q);
+        acc[i][j + 1] = Elem<E>::hif(q);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        A[j] = at[j] * awj[j];
+        z[j] = acc[i][j] + bj[j];
+        o += z[j] * A[j];
+      }
+      d = __ldg(c.go + pix * C + ch) * ucdir::dswishf(o);
+      c.dout[pix * C + ch] = d;
+#pragma unroll
+      for (int j = 0; j < G; ++j) acc[i][j] = d * z[j];
     }
-    const float d = __ldg(c.go + pix * C + ch) * ucdir::dswishf(o);
-    c.dout[pix * C + ch] = d;
-#pragma unroll
-    for (int j = 0; j < G; ++j) acc[i][j] = d * z[j];
-    if (c.attw != nullptr && n0 == 0 && tn == 0) {
+    if ((Elem<E>::kLow || c.attw != nullptr) && n0 == 0 && tn == 0) {
       float4* ap = reinterpret_cast<float4*>(c.aa + pix * G);
       ap[0] = make_float4(A[0], A[1], A[2], A[3]);
       ap[1] = make_float4(A[4], A[5], A[6], A[7]);
@@ -166,8 +208,8 @@ __device__ __forceinline__ void do_epilogue(float (&acc)[T::TM][T::TN],
 // channels of its pixels' datt terms, which it stores once (no atomics: datt
 // has the same bits from run to run), and its pixels' dattw terms, which it
 // adds in ascending pixel order into its row of the dattw workspace.
-template <class T>
-__global__ void __launch_bounds__(T::NT) akgm_do_kernel(DoArgs c) {
+template <class T, class E>
+__global__ void __launch_bounds__(T::NT) akgm_do_kernel(DoArgs<E> c) {
   static_assert(2 * T::A_WORDS >= T::BM * G, "dattw terms fit the stages");
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -186,7 +228,7 @@ __global__ void __launch_bounds__(T::NT) akgm_do_kernel(DoArgs c) {
     for (int nt = 0; nt < c.ntn; ++nt) {
       float acc[T::TM][T::TN];
       pc::consume<T>(acc, smem, nk);
-      do_epilogue<T>(acc, c, b, m0, nt * T::BN, qs);
+      do_epilogue<T, E>(acc, c, b, m0, nt * T::BN, qs);
     }
     // lane's sums: flat indices off .. off + CNT - 1 of its row of
     // threads' (TM, G) terms, whole rows where CNT >= G
@@ -202,9 +244,9 @@ __global__ void __launch_bounds__(T::NT) akgm_do_kernel(DoArgs c) {
       float term = 0.f;
       if (m0 + m < P) {
         const int64_t pix = (int64_t)b * P + m0 + m;
-        const float aw = c.attw ? __ldg(c.attw + b * G + j) : 1.f;
-        c.datt[pix * G + j] = qs[e] * aw;
-        term = qs[e] * __ldg(c.att + pix * G + j);
+        const float aw = c.attw ? Elem<E>::ldg(c.attw + b * G + j) : 1.f;
+        Elem<E>::st(c.datt + pix * G + j, qs[e] * aw);
+        term = qs[e] * Elem<E>::ldg(c.att + pix * G + j);
       }
       terms[m * G + j] = term;
     }
@@ -220,10 +262,11 @@ __global__ void __launch_bounds__(T::NT) akgm_do_kernel(DoArgs c) {
 
 // dattw (B, G) from the (B, ntp, G) per-tile terms: lane l of warp j adds
 // the tiles [l * run, (l + 1) * run) of candidate j in ascending order, run =
-// ceil(ntp / 32), then lane 0 adds the 32 runs in ascending order; one block
-// per image.
+// ceil(ntp / 32), then lane 0 adds the 32 runs in ascending order and rounds
+// the sum to E once; one block per image.
+template <class E>
 __global__ void __launch_bounds__(32 * G)
-    dattw_reduce_kernel(const float* __restrict__ ws, float* __restrict__ dattw,
+    dattw_reduce_kernel(const float* __restrict__ ws, E* __restrict__ dattw,
                         int ntp) {
   __shared__ float part[G][32];
   const int lane = threadIdx.x & 31;
@@ -239,22 +282,23 @@ __global__ void __launch_bounds__(32 * G)
   if (lane != 0) return;
   float S = 0.f;
   for (int k = 0; k < 32; ++k) S += part[j][k];
-  dattw[b * G + j] = S;
+  Elem<E>::st(dattw + b * G + j, S);
 }
 
+template <class E>
 struct DhArgs {
-  const float* dout;  // (B, H, W, C) do
+  const E* dout;      // (B, H, W, C) do
   const float* aa;    // (B, H, W, G) att * attw
-  const float* wf;    // (G, 9 * C, C / G)
-  float* dhh;         // (B, H, W, C)
+  const E* wf;        // (G, 9 * C, C / G)
+  E* dhh;             // (B, H, W, C)
   ucdir::Geom g;      // g.C = C, g.cin = C (a group's dz columns), g.K = 9 C
   int ntn;
 };
 
 // dhh of one group: the group's dz (C columns) convolved with its flipped,
 // transposed weights (9 * C, C / G); blockIdx.y is the group
-template <class T>
-__global__ void __launch_bounds__(T::NT) akgm_dh_kernel(DhArgs c) {
+template <class T, class E>
+__global__ void __launch_bounds__(T::NT) akgm_dh_kernel(DhArgs<E> c) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int b = blockIdx.z;
@@ -265,7 +309,7 @@ __global__ void __launch_bounds__(T::NT) akgm_dh_kernel(DhArgs c) {
   const int C = c.g.C;
   const int cg = C / G;
   const int64_t P = (int64_t)c.g.H * c.g.W;
-  pc::Operands op;
+  pc::OperandsT<E> op;
   op.xb = c.dout + b * P * C + group * cg;
   op.ab = op.tb = nullptr;
   op.att = c.aa + b * P * G;
@@ -275,7 +319,7 @@ __global__ void __launch_bounds__(T::NT) akgm_dh_kernel(DhArgs c) {
   op.vec_w = cg % 4 == 0;
   const int nk = pc::igemm_setup<T>(smem, c.g, m0);
   if (threadIdx.x >= T::NC) {
-    pc::produce<T, pc::Dz>(smem, op, c.g, n0, nk);
+    pc::produce<T, pc::Dz, E>(smem, op, c.g, n0, nk);
     return;
   }
   float acc[T::TM][T::TN];
@@ -286,42 +330,42 @@ __global__ void __launch_bounds__(T::NT) akgm_dh_kernel(DhArgs c) {
   for (int i = 0; i < T::TM; ++i) {
     const int p = m0 + pc::tile_row<T>(tm, i);
     if (p >= P) continue;
-    float* row = c.dhh + (b * P + p) * C + group * cg;
+    E* row = c.dhh + (b * P + p) * C + group * cg;
 #pragma unroll
     for (int g = 0; g < T::NG; ++g) {
       const int n = n0 + pc::tile_col<T>(tn, T::GW * g);
       const float* v = &acc[i][T::GW * g];
       if (cg % T::GW == 0 && n + T::GW <= cg) {
         if constexpr (T::GW == 4)
-          *reinterpret_cast<float4*>(row + n) =
-              make_float4(v[0], v[1], v[2], v[3]);
+          Elem<E>::st4(row + n, *reinterpret_cast<const float(*)[4]>(v));
         else
-          *reinterpret_cast<float2*>(row + n) = make_float2(v[0], v[1]);
+          Elem<E>::st2(row + n, v[0], v[1]);
       } else {
 #pragma unroll
         for (int j = 0; j < T::GW; ++j)
-          if (n + j < cg) row[n + j] = v[j];
+          if (n + j < cg) Elem<E>::st(row + n + j, v[j]);
       }
     }
   }
 }
 
-template <class T>
-int launch_do(DoArgs c, float* dattw, int B, cudaStream_t st) {
+template <class T, class E>
+int launch_do(DoArgs<E> c, E* dattw, int B, cudaStream_t st) {
   const int P = c.g.H * c.g.W;
   c.ntn = c.g.C * G / T::BN;  // T::BN divides C
   c.ntp = (P + T::BM - 1) / T::BM;
-  akgm_do_kernel<T><<<dim3(c.ntp, 1, B), T::NT, T::SMEM_BYTES, st>>>(c);
+  akgm_do_kernel<T, E><<<dim3(c.ntp, 1, B), T::NT, T::SMEM_BYTES, st>>>(c);
   if (c.dattw_ws != nullptr) {
     const int err = (int)cudaGetLastError();
     if (err) return err;
-    dattw_reduce_kernel<<<B, 32 * G, 0, st>>>(c.dattw_ws, dattw, c.ntp);
+    dattw_reduce_kernel<E><<<B, 32 * G, 0, st>>>(c.dattw_ws, dattw, c.ntp);
   }
   return (int)cudaGetLastError();
 }
 
 // z recompute and do on K1's tile for C (akgm_tail.cu launch)
-int launch_do_for(DoArgs c, float* dattw, int B, cudaStream_t st) {
+template <class E>
+int launch_do_for(DoArgs<E> c, E* dattw, int B, cudaStream_t st) {
   const int C = c.g.C;
   if (C % 128 == 0) return launch_do<pc::Wide>(c, dattw, B, st);
   if (C % 64 == 0) return launch_do<pc::Mid>(c, dattw, B, st);
@@ -330,17 +374,15 @@ int launch_do_for(DoArgs c, float* dattw, int B, cudaStream_t st) {
   return launch_do<pc::Thin<8>>(c, dattw, B, st);
 }
 
-template <class T>
-int launch_dh(DhArgs c, int B, cudaStream_t st) {
+template <class T, class E>
+int launch_dh(DhArgs<E> c, int B, cudaStream_t st) {
   const int P = c.g.H * c.g.W;
   const int cg = c.g.C / G;
   c.ntn = (cg + T::BN - 1) / T::BN;
-  akgm_dh_kernel<T><<<dim3(((P + T::BM - 1) / T::BM) * c.ntn, G, B), T::NT,
+  akgm_dh_kernel<T, E><<<dim3(((P + T::BM - 1) / T::BM) * c.ntn, G, B), T::NT,
                       T::SMEM_BYTES, st>>>(c);
   return (int)cudaGetLastError();
 }
-
-}  // namespace
 
 // h, go, dout, dhh (B, H, W, C) NHWC; att, datt (B, H, W, 8); attw, dattw
 // (B, 8) or both null; w (9 * C/8, 8 * C) as in ucdir_akgm_tail and bias
@@ -348,21 +390,18 @@ int launch_dh(DhArgs c, int B, cudaStream_t st) {
 // tail_tile gives (128, 64, 32, 16 or 8) permuted so that physical column
 // h * bn / 2 + 4 * i + r holds logical column 8 * i + 4 * h + r; wf (8, 9 *
 // C, C/8) with wf[g][tap * C + nl][ci] = w[(8 - tap) * C/8 + ci][g * C + nl]
-// (unpermuted); a, t (B, C) or null. dout is scratch, aa a (B, H, W, 8)
-// scratch used with attw; datt, dattw, dw (9 * C/8, 8 * C) and dbias (8 *
-// C), unpermuted, are written whole; ws is a (splits, 9 * C/8 + 1, 8 * C)
-// workspace and wsa, with attw, a (B, ceil(H * W / bm), 8) one, bm the
-// tile's pixels (128, or 256 at 64 columns). C must be a multiple of 8.
-// Returns the first launch error as a cudaError_t.
-extern "C" int ucdir_akgm_tail_bwd(const float* h, const float* go,
-                                   const float* att, const float* attw,
-                                   const float* w, const float* wf,
-                                   const float* bias, const float* a,
-                                   const float* t, float* dout, float* aa,
-                                   float* dhh, float* datt, float* dw,
-                                   float* dbias, float* dattw, float* ws,
-                                   float* wsa, int B, int H, int W, int C,
-                                   int splits, void* stream) {
+// (unpermuted); a, t (B, C) or null. dout is scratch, aa a float (B, H, W, 8)
+// scratch used with attw (bf16: always); datt, dattw, dw (9 * C/8, 8 * C)
+// and dbias (8 * C), unpermuted, are written whole; ws is a float (splits,
+// 9 * C/8 + 1, 8 * C) workspace and wsa, with attw, a float (B, ceil(H * W /
+// bm), 8) one, bm the tile's pixels (128, or 256 at 64 columns). C must be a
+// multiple of 8. Returns the first launch error as a cudaError_t.
+template <class E>
+int akgm_tail_bwd(const E* h, const E* go, const E* att, const E* attw,
+                  const E* w, const E* wf, const E* bias, const E* a,
+                  const E* t, E* dout, float* aa, E* dhh, E* datt, E* dw,
+                  E* dbias, E* dattw, float* ws, float* wsa, int B, int H,
+                  int W, int C, int splits, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int cg = C / G;
   ucdir::Geom g;
@@ -375,7 +414,7 @@ extern "C" int ucdir_akgm_tail_bwd(const float* h, const float* go,
   g.stride = 1;
   g.cin = cg;
   g.K = 9 * cg;
-  DoArgs d = {};
+  DoArgs<E> d = {};
   d.h = h;
   d.go = go;
   d.att = att;
@@ -389,12 +428,20 @@ extern "C" int ucdir_akgm_tail_bwd(const float* h, const float* go,
   d.datt = datt;
   d.dattw_ws = dattw ? wsa : nullptr;
   d.g = g;
-  d.vec_a = cg % 4 == 0 && pc::aligned(h, 16) &&
-            (a == nullptr || (pc::aligned(a, 16) && pc::aligned(t, 16)));
+  constexpr uintptr_t run = 4 * sizeof(E);  // a 4-wide load
+  d.vec_a = cg % 4 == 0 && pc::aligned(h, run) &&
+            (a == nullptr || (pc::aligned(a, run) && pc::aligned(t, run)));
   int err = launch_do_for(d, dattw, B, st);
   if (err) return err;
-  const float* A = attw ? aa : att;
-  pc::WgradArgs wa = {};
+  // A: the float32 att * attw (bf16: always the scratch; float32 without
+  // attw: att itself)
+  const float* A;
+  if constexpr (Elem<E>::kLow) {
+    A = aa;
+  } else {
+    A = attw ? aa : att;
+  }
+  pc::WgradArgsT<E> wa = {};
   wa.x = h;
   wa.a = a;
   wa.t = t;
@@ -408,7 +455,7 @@ extern "C" int ucdir_akgm_tail_bwd(const float* h, const float* go,
   wa.vec_d = true;
   err = pc::launch_wgrad<pc::DzD>(wa, splits, dw, dbias, st);
   if (err) return err;
-  DhArgs dh = {};
+  DhArgs<E> dh = {};
   dh.dout = dout;
   dh.aa = A;
   dh.wf = wf;
@@ -420,4 +467,33 @@ extern "C" int ucdir_akgm_tail_bwd(const float* h, const float* go,
   if (cg <= 16) return launch_dh<pc::N16>(dh, B, st);
   if (cg <= 32) return launch_dh<pc::N32>(dh, B, st);
   return launch_dh<pc::Mid>(dh, B, st);
+}
+
+}  // namespace
+
+extern "C" int ucdir_akgm_tail_bwd(const float* h, const float* go,
+                                   const float* att, const float* attw,
+                                   const float* w, const float* wf,
+                                   const float* bias, const float* a,
+                                   const float* t, float* dout, float* aa,
+                                   float* dhh, float* datt, float* dw,
+                                   float* dbias, float* dattw, float* ws,
+                                   float* wsa, int B, int H, int W, int C,
+                                   int splits, void* stream) {
+  return akgm_tail_bwd(h, go, att, attw, w, wf, bias, a, t, dout, aa, dhh,
+                       datt, dw, dbias, dattw, ws, wsa, B, H, W, C, splits,
+                       stream);
+}
+
+// The same in bf16: every operand and output bf16 but the float scratch aa
+// (always given) and the float workspaces ws and wsa.
+extern "C" int ucdir_akgm_tail_bwd_bf16(
+    const bf16* h, const bf16* go, const bf16* att, const bf16* attw,
+    const bf16* w, const bf16* wf, const bf16* bias, const bf16* a,
+    const bf16* t, bf16* dout, float* aa, bf16* dhh, bf16* datt, bf16* dw,
+    bf16* dbias, bf16* dattw, float* ws, float* wsa, int B, int H, int W,
+    int C, int splits, void* stream) {
+  return akgm_tail_bwd(h, go, att, attw, w, wf, bias, a, t, dout, aa, dhh,
+                       datt, dw, dbias, dattw, ws, wsa, B, H, W, C, splits,
+                       stream);
 }

@@ -69,14 +69,18 @@
 // the loads of a quarter warp would hit every bank twice.
 //
 // Element type E of the operands in device memory (Elem<E> below): float,
-// or bf16 for the forward kernels K1, K2, K3 and K7 (the TPU kernels' bf16
-// instantiation, validation under --compute_dtype bf16). The producers load
-// bf16 (a 4-wide run is 8 bytes, half the bytes of float) and convert it to
-// float as they stage it, so shared memory, the consumers and their fp32 FMA
-// product are the same for both; the epilogue rounds each output once to
-// nearest even and takes the statistics of the rounded values, which is what
-// the next layer reads. The staging rounds where the TPU kernel's bf16
-// arithmetic rounds: x * a and then + t (and K7's swish) each to bf16.
+// or bf16 for K1, K2, K3 and K7 and the backward kernels K5 and K6 (the TPU
+// kernels' bf16 instantiation, validation and training under
+// --compute_dtype bf16). The producers load bf16 (a 4-wide run is 8 bytes,
+// half the bytes of float) and convert it to float as they stage it, so
+// shared memory, the consumers and their fp32 FMA product are the same for
+// both; the epilogue rounds each output once to nearest even and takes the
+// statistics of the rounded values, which is what the next layer reads. The
+// staging rounds where the TPU kernel's bf16 arithmetic rounds: x * a and
+// then + t (and K7's swish) each to bf16, K5's rebuilt dz = do * att once.
+// The backward's dz epilogue reads a bf16 cotangent and rounds dz once; the
+// weight gradient keeps its float32 workspace and rounds dW and dbias once,
+// after the whole reduction.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -107,9 +111,10 @@ __device__ __forceinline__ float dswishf(float v) {
 
 using bf16 = __nv_bfloat16;
 
-// Loads and stores of an element type as float: ld one value, ld4 four
-// consecutive ones (one 16-byte load of float, one 8-byte load of bf16;
-// aligned to 4 elements), st, st2 and st4 their stores, and rnd a float
+// Loads and stores of an element type as float: ld one value (ldg through
+// the read-only cache), ld2 two and ld4 four consecutive ones (one 16-byte
+// load of float, one 8-byte load of bf16; aligned to 2 or 4 elements), st,
+// st2 and st4 their stores, and rnd a float
 // rounded to the type and back (to nearest even; the identity for float).
 // The producers load a slice two iterations before they store it, so their
 // 4-wide loads are ld4raw: the loaded words as they are, turned into four
@@ -126,6 +131,13 @@ struct Elem<float> {
   static constexpr bool kLow = false;
   static __device__ __forceinline__ float rnd(float v) { return v; }
   static __device__ __forceinline__ float ld(const float* p) { return *p; }
+  static __device__ __forceinline__ float ldg(const float* p) {
+    return __ldg(p);
+  }
+  static __device__ __forceinline__ void ld2(float (&v)[2], const float* p) {
+    const float2 u = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = u.x; v[1] = u.y;
+  }
   static __device__ __forceinline__ void ld4(float (&v)[4], const float* p) {
     const float4 u = __ldg(reinterpret_cast<const float4*>(p));
     v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
@@ -169,6 +181,13 @@ struct Elem<bf16> {
   static __device__ __forceinline__ float ld(const bf16* p) {
     return lo(*reinterpret_cast<const unsigned short*>(p));
   }
+  static __device__ __forceinline__ float ldg(const bf16* p) {
+    return lo(__ldg(reinterpret_cast<const unsigned short*>(p)));
+  }
+  static __device__ __forceinline__ void ld2(float (&v)[2], const bf16* p) {
+    const uint32_t u = __ldg(reinterpret_cast<const unsigned int*>(p));
+    v[0] = lo(u); v[1] = hi(u);
+  }
   static __device__ __forceinline__ void ld4(float (&v)[4], const bf16* p) {
     const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
     v[0] = lo(u.x); v[1] = hi(u.x); v[2] = lo(u.y); v[3] = hi(u.y);
@@ -202,6 +221,20 @@ struct Elem<bf16> {
         : "=r"(d)
         : "r"(__float_as_uint(a)), "r"(__float_as_uint(b)));
     return __uint_as_float(d);
+  }
+  // a and b rounded to nearest even and packed, a in the low half: one
+  // conversion for two values
+  static __device__ __forceinline__ float pack2(float a, float b) {
+    uint32_t d;
+    asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(d) : "f"(b), "f"(a));
+    return __uint_as_float(d);
+  }
+  // the low and the high value of a packed pair held as a float
+  static __device__ __forceinline__ float lof(float u) {
+    return lo(__float_as_uint(u));
+  }
+  static __device__ __forceinline__ float hif(float u) {
+    return hi(__float_as_uint(u));
   }
   static __device__ __forceinline__ void st(bf16* p, float v) {
     *reinterpret_cast<unsigned short*>(p) = (unsigned short)bits(v);
@@ -486,7 +519,7 @@ __device__ __forceinline__ void load_slice(Staged<T>& s, KColumn& kc,
       if (valid && (unsigned)iy < (unsigned)g.H &&
           (unsigned)ix < (unsigned)g.W) {
         const int64_t pix = (int64_t)iy * g.W + ix;
-        s.dv[i] = __ldg(op.xb + pix * g.C + kc.ci / 8);
+        s.dv[i] = Elem<E>::ldg(op.xb + pix * g.C + kc.ci / 8);
         v = __ldg(reinterpret_cast<const float4*>(op.att + pix * 8 +
                                                   kc.ci % 8));
         s.mask |= 0xfu << (4 * i);
@@ -628,7 +661,7 @@ __device__ __forceinline__ void store_slice(const Staged<T>& s,
       float v = 0.f;
       if ((s.mask >> (4 * i + j)) & 1u) {
         if constexpr (X::kDz) {
-          v = s.dv[i] * a[j];
+          v = Elem<E>::rnd(s.dv[i] * a[j]);
         } else if constexpr (kPairs) {
           v = pairs ? a[j] : X::template apply<E>(a[j], s.sa[j], s.st[j]);
         } else {
@@ -810,14 +843,15 @@ __device__ __forceinline__ int igemm_setup(float* smem, const Geom& g,
 // optional swish, rounded to E, store, and with stats the tile's per-column
 // sum and sum of squares of the stored values added into the buffer at
 // smem + T::RED. vec: N % GW == 0 and out aligned to a group of GW columns.
-// DZ (E float): the backward's dz = go * swish'(acc + bias) in place of the
-// output, go (B, P, N) read as the output is stored, no statistics.
+// DZ: the backward's dz = go * swish'(acc + bias) in place of the output,
+// go (B, P, N) read as the output is stored, rounded to E once, no
+// statistics.
 template <class T, bool DZ, class E>
 __device__ __forceinline__ void conv_epilogue_pc(
     const float (&acc)[T::TM][T::TN], float* smem,
     const E* __restrict__ bias, E* __restrict__ out, bool stats,
     int act, bool vec, int P, int N, int b, int m0, int n0,
-    const float* __restrict__ go) {
+    const E* __restrict__ go) {
   const int tn = threadIdx.x % T::NCX;
   const int tm = threadIdx.x / T::NCX;
   float* red = smem + T::RED;
@@ -839,19 +873,18 @@ __device__ __forceinline__ void conv_epilogue_pc(
       const int n = n0 + tile_col<T>(tn, T::GW * g);
       float v[T::GW];
       if constexpr (DZ) {
-        const float* grow = go + ((int64_t)b * P + p) * N + n;
+        const E* grow = go + ((int64_t)b * P + p) * N + n;
         float gv[T::GW];
         if (vec && n + T::GW <= N) {
           if constexpr (T::GW == 4) {
-            const float4 u = __ldg(reinterpret_cast<const float4*>(grow));
-            gv[0] = u.x; gv[1] = u.y; gv[2] = u.z; gv[3] = u.w;
+            Elem<E>::ld4(gv, grow);
           } else {
-            const float2 u = __ldg(reinterpret_cast<const float2*>(grow));
-            gv[0] = u.x; gv[1] = u.y;
+            Elem<E>::ld2(gv, grow);
           }
         } else {
 #pragma unroll
-          for (int j = 0; j < T::GW; ++j) gv[j] = n + j < N ? grow[j] : 0.f;
+          for (int j = 0; j < T::GW; ++j)
+            gv[j] = n + j < N ? Elem<E>::ld(grow + j) : 0.f;
         }
 #pragma unroll
         for (int j = 0; j < T::GW; ++j)
@@ -925,13 +958,12 @@ struct ConvArgsT {
   E* out;             // (B, Ho, Wo, cout)
   float* ssum;        // zeroed (B, cout) or null
   float* ssq;
-  const float* go;    // DZ: (B, Ho, Wo, cout) output cotangent
+  const E* go;        // DZ: (B, Ho, Wo, cout) output cotangent
   Geom g;
   int cout, act;
   int ntn;            // column tiles; blockIdx.x = pixel tile * ntn + column tile
   bool vec_a, vec_w, vec_out;
 };
-using ConvArgs = ConvArgsT<float>;
 
 // out = act(conv(X(x * a + t)) + bias) and its statistics: one BM x BN tile
 // of one image per block. DZ: out = go * swish'(conv(X(x * a + t)) + bias).
@@ -974,7 +1006,7 @@ template <class T, class X, bool DZ, class E>
 int launch_tile(ConvArgsT<E> c, int B, cudaStream_t stream) {
   const int P = c.g.Ho * c.g.Wo;
   c.vec_out = c.cout % T::GW == 0 && aligned(c.out, sizeof(E) * T::GW) &&
-              (!DZ || aligned(c.go, 4 * T::GW));
+              (!DZ || aligned(c.go, sizeof(E) * T::GW));
   c.ntn = (c.cout + T::BN - 1) / T::BN;
   const dim3 grid((unsigned)((P + T::BM - 1) / T::BM) * c.ntn, 1, B);
   conv_pc_kernel<T, X, DZ, E><<<grid, T::NT, T::SMEM_BYTES, stream>>>(c);
@@ -1015,11 +1047,21 @@ int launch_conv(ConvArgsT<E> c, int B, cudaStream_t stream) {
 // (image, y, x) advance by BK pixels a slice with additions. The same
 // threads stage BK pixels of D, 16 bytes along its columns, and sum them for
 // the bias.
-struct WgradArgs {
-  const float* x;    // (B, H, W, g.C) NHWC input
-  const float* a;    // (B, g.C) scale or null
-  const float* t;    // (B, g.C) shift or null
-  const float* d;    // PlainD: (npix, N) cotangent; DzD: do (npix, N / 8)
+//
+// Element type E (bf16: K5's and K6's bf16 forms, training under
+// --compute_dtype bf16): x, a, t, D and dW, dbias of type E, the workspace
+// float. A is staged as the forward's bf16 staging computes it (Affine:
+// x * a, then + t, each rounded; loaded 4-wide as packed pairs), D's values
+// are rounded to E where they enter the product (K6's dz already is; K5's
+// rebuilt dz = do * att is not) but summed for the bias as they are, as the
+// TPU kernel sums K5's dz in float32, and dW and dbias are rounded once, by
+// wgrad_reduce_kernel, after the whole float32 sum.
+template <class E>
+struct WgradArgsT {
+  const E* x;        // (B, H, W, g.C) NHWC input
+  const E* a;        // (B, g.C) scale or null
+  const E* t;        // (B, g.C) shift or null
+  const E* d;        // PlainD: (npix, N) cotangent; DzD: do (npix, N / 8)
   const float* att;  // DzD: (npix, 8) attention times attw
   float* ws;         // (S, K + 1, N) partial sums
   Geom g;            // stride 1; g.cin channels of x per group, g.K = 9 * cin
@@ -1029,25 +1071,35 @@ struct WgradArgs {
   int npix;          // B * H * W
   int chunk;         // pixels per block, a multiple of BK
   int ntn;           // column tiles; blockIdx.x = k tile * ntn + column tile
-  bool vec_a;        // cin % 4 == 0, g.C % 4 == 0, x, a, t 16-byte aligned
-  bool vec_d;        // 16-byte loads of D (PlainD: N % 4 == 0 and aligned)
+  bool vec_a;        // cin % 4 == 0, g.C % 4 == 0, x, a, t aligned to 4
+  bool vec_d;        // 4-wide loads of D (PlainD: N % 4 == 0 and aligned)
   bool vec_ws;       // N % 4 == 0 and ws 16-byte aligned
 };
 
-// D[q][n..n+3] of the plain convolution: the cotangent itself.
+// D[q][n..n+3] of the plain convolution: the cotangent itself. A loader's
+// load() runs two slices before the store, so in bf16 it leaves the loaded
+// words as they are (packed pairs; dv: a 16-bit value's bits) and finish()
+// turns them into the four values where the slice is stored: a conversion
+// next to the load would wait for it. float: load() gives the values and
+// finish() does nothing.
 struct PlainD {
   static constexpr bool kGroups = false;  // K6: one group, gw = N
-  static __device__ __forceinline__ void load(float (&v)[4],
-                                              const WgradArgs& w, int64_t q,
-                                              int n) {
-    const float* r = w.d + q * w.N + n;
+  template <class E>
+  static __device__ __forceinline__ void load(float (&v)[4], float&,
+                                              const WgradArgsT<E>& w,
+                                              int64_t q, int n) {
+    const E* r = w.d + q * w.N + n;
     if (w.vec_d) {
-      const float4 u = __ldg(reinterpret_cast<const float4*>(r));
-      v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+      Elem<E>::ld4raw(v, r);
     } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) v[j] = n + j < w.N ? r[j] : 0.f;
+      for (int j = 0; j < 4; ++j) v[j] = n + j < w.N ? Elem<E>::ld(r + j) : 0.f;
     }
+  }
+  template <class E>
+  static __device__ __forceinline__ void finish(float (&v)[4], float,
+                                                const WgradArgsT<E>& w) {
+    if (w.vec_d) Elem<E>::unpack4(v);
   }
 };
 
@@ -1055,13 +1107,28 @@ struct PlainD {
 // (att already times attw), n % 4 == 0 so the four share channel c = n / 8.
 struct DzD {
   static constexpr bool kGroups = true;  // K5: groups of gw = C of N = 8 C
-  static __device__ __forceinline__ void load(float (&v)[4],
-                                              const WgradArgs& w, int64_t q,
-                                              int n) {
-    const float dv = __ldg(w.d + q * (w.N / 8) + n / 8);
+  template <class E>
+  static __device__ __forceinline__ void load(float (&v)[4], float& dv,
+                                              const WgradArgsT<E>& w,
+                                              int64_t q, int n) {
+    const E* pd = w.d + q * (w.N / 8) + n / 8;
     const float4 u =
         __ldg(reinterpret_cast<const float4*>(w.att + q * 8 + n % 8));
-    v[0] = dv * u.x; v[1] = dv * u.y; v[2] = dv * u.z; v[3] = dv * u.w;
+    if constexpr (Elem<E>::kLow) {
+      dv = __uint_as_float(
+          __ldg(reinterpret_cast<const unsigned short*>(pd)));
+      v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+    } else {
+      const float d = Elem<E>::ldg(pd);
+      v[0] = d * u.x; v[1] = d * u.y; v[2] = d * u.z; v[3] = d * u.w;
+    }
+  }
+  template <class E>
+  static __device__ __forceinline__ void finish(float (&v)[4], float dv,
+                                                const WgradArgsT<E>&) {
+    const float d = Elem<E>::lo(__float_as_uint(dv));
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = d * v[j];
   }
 };
 
@@ -1079,6 +1146,8 @@ struct WgradShape {
 };
 
 // One slice of A and D in registers, and where the producer's rows are.
+// bf16 loaded 4-wide: a, sa and st hold packed pairs in their first two
+// words (Elem::ld4raw), unpacked where the slice is stored.
 template <class T>
 struct WgradStaged {
   using S = WgradShape<T>;
@@ -1086,6 +1155,7 @@ struct WgradStaged {
   float sa[S::AW][4], st[S::AW][4];
   uint32_t mask;              // bit 4 * i + j: a[i][j] is inside
   float d[S::DI][4];
+  float dv[S::DI];            // DzD in bf16: the loaded do's bits
   int py[S::AW], px[S::AW];   // the rows' pixel, advanced by BK a slice
   int pb[S::AW];              // and its image
   int lb[S::AW];              // the image of sa and st (-1: none yet)
@@ -1114,9 +1184,9 @@ __device__ __forceinline__ void wgrad_advance(WgradStaged<T>& s,
   }
 }
 
-template <class T, class DL>
+template <class T, class DL, class E>
 __device__ __forceinline__ void wgrad_load(WgradStaged<T>& s, const KGroup& kg,
-                                           const WgradArgs& w, int cin0,
+                                           const WgradArgsT<E>& w, int cin0,
                                            int64_t qs, int64_t q1, int n0) {
   using S = WgradShape<T>;
   const int tid = threadIdx.x - T::NC;
@@ -1133,21 +1203,39 @@ __device__ __forceinline__ void wgrad_load(WgradStaged<T>& s, const KGroup& kg,
     if (w.vec_a) {
       const int iy = s.py[i] + kg.dy[0];
       const int ix = s.px[i] + kg.dx[0];
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (in && kg.kv[0] && (unsigned)iy < (unsigned)g.H &&
-          (unsigned)ix < (unsigned)g.W) {
-        v = __ldg(reinterpret_cast<const float4*>(
-            w.x + (q + kg.dy[0] * g.W + kg.dx[0]) * g.C + cin0 + kg.ci[0]));
-        s.mask |= 0xfu << (4 * i);
+      if constexpr (Elem<E>::kLow) {
+        if (in && kg.kv[0] && (unsigned)iy < (unsigned)g.H &&
+            (unsigned)ix < (unsigned)g.W) {
+          Elem<E>::ld4raw(s.a[i], w.x + (q + kg.dy[0] * g.W + kg.dx[0]) * g.C +
+                                      cin0 + kg.ci[0]);
+          s.mask |= 0xfu << (4 * i);
+        } else {
+          Elem<E>::zero4(s.a[i]);
+        }
+        if (reload) {
+          const int64_t o = (int64_t)s.pb[i] * g.C + cin0 + kg.ci[0];
+          Elem<E>::ld4raw(s.sa[i], w.a + o);
+          Elem<E>::ld4raw(s.st[i], w.t + o);
+        }
+      } else {
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (in && kg.kv[0] && (unsigned)iy < (unsigned)g.H &&
+            (unsigned)ix < (unsigned)g.W) {
+          v = __ldg(reinterpret_cast<const float4*>(
+              w.x + (q + kg.dy[0] * g.W + kg.dx[0]) * g.C + cin0 + kg.ci[0]));
+          s.mask |= 0xfu << (4 * i);
+        }
+        if (reload) {
+          const int64_t o = (int64_t)s.pb[i] * g.C + cin0 + kg.ci[0];
+          const float4 u = __ldg(reinterpret_cast<const float4*>(w.a + o));
+          const float4 r = __ldg(reinterpret_cast<const float4*>(w.t + o));
+          s.sa[i][0] = u.x; s.sa[i][1] = u.y; s.sa[i][2] = u.z;
+          s.sa[i][3] = u.w;
+          s.st[i][0] = r.x; s.st[i][1] = r.y; s.st[i][2] = r.z;
+          s.st[i][3] = r.w;
+        }
+        s.a[i][0] = v.x; s.a[i][1] = v.y; s.a[i][2] = v.z; s.a[i][3] = v.w;
       }
-      if (reload) {
-        const int64_t o = (int64_t)s.pb[i] * g.C + cin0 + kg.ci[0];
-        const float4 u = __ldg(reinterpret_cast<const float4*>(w.a + o));
-        const float4 r = __ldg(reinterpret_cast<const float4*>(w.t + o));
-        s.sa[i][0] = u.x; s.sa[i][1] = u.y; s.sa[i][2] = u.z; s.sa[i][3] = u.w;
-        s.st[i][0] = r.x; s.st[i][1] = r.y; s.st[i][2] = r.z; s.st[i][3] = r.w;
-      }
-      s.a[i][0] = v.x; s.a[i][1] = v.y; s.a[i][2] = v.z; s.a[i][3] = v.w;
     } else {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -1156,13 +1244,14 @@ __device__ __forceinline__ void wgrad_load(WgradStaged<T>& s, const KGroup& kg,
         float v = 0.f;
         if (in && kg.kv[j] && (unsigned)iy < (unsigned)g.H &&
             (unsigned)ix < (unsigned)g.W) {
-          v = w.x[(q + kg.dy[j] * g.W + kg.dx[j]) * g.C + cin0 + kg.ci[j]];
+          v = Elem<E>::ld(w.x + (q + kg.dy[j] * g.W + kg.dx[j]) * g.C + cin0 +
+                          kg.ci[j]);
           s.mask |= 1u << (4 * i + j);
         }
         if (reload) {
           const int64_t o = (int64_t)s.pb[i] * g.C + cin0 + kg.ci[j];
-          s.sa[i][j] = w.a[o];
-          s.st[i][j] = w.t[o];
+          s.sa[i][j] = Elem<E>::ld(w.a + o);
+          s.st[i][j] = Elem<E>::ld(w.t + o);
         }
         s.a[i][j] = v;
       }
@@ -1176,15 +1265,18 @@ __device__ __forceinline__ void wgrad_load(WgradStaged<T>& s, const KGroup& kg,
     const int n = n0 + 4 * (u % S::DG);
 #pragma unroll
     for (int j = 0; j < 4; ++j) s.d[i][j] = 0.f;
+    s.dv[i] = 0.f;
     if ((S::DU % T::NP == 0 || u < S::DU) && q < q1 && n < w.N)
-      DL::load(s.d[i], w, q, n);
+      DL::load(s.d[i], s.dv[i], w, q, n);
   }
 }
 
-template <class T>
+// pairs (bf16 loaded 4-wide): a, sa and st are packed pairs.
+template <class T, class DL, class E>
 __device__ __forceinline__ void wgrad_store(
     const WgradStaged<T>& s, float* As, float* Bs,
-    float (&bsum)[WgradShape<T>::DI][4]) {
+    float (&bsum)[WgradShape<T>::DI][4], bool pairs,
+    const WgradArgsT<E>& w) {
   using S = WgradShape<T>;
   const int tid = threadIdx.x - T::NC;
   const int kg = tid % S::KGW;
@@ -1192,11 +1284,22 @@ __device__ __forceinline__ void wgrad_store(
 #pragma unroll
   for (int i = 0; i < S::AW; ++i) {
     float v[4];
+    if constexpr (Elem<E>::kLow) {
+      float x[4] = {s.a[i][0], s.a[i][1], s.a[i][2], s.a[i][3]};
+      if (pairs) Affine::pairs<E>(x, s.sa[i], s.st[i]);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      v[j] = (s.mask >> (4 * i + j)) & 1u
-                 ? fmaf(s.a[i][j], s.sa[i][j], s.st[i][j])
-                 : 0.f;
+      for (int j = 0; j < 4; ++j)
+        v[j] = (s.mask >> (4 * i + j)) & 1u
+                   ? (pairs ? x[j]
+                            : Affine::apply<E>(x[j], s.sa[i][j], s.st[i][j]))
+                   : 0.f;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        v[j] = (s.mask >> (4 * i + j)) & 1u
+                   ? fmaf(s.a[i][j], s.sa[i][j], s.st[i][j])
+                   : 0.f;
+    }
     *reinterpret_cast<float4*>(As + (pr + i * S::RSTEP) * T::SA + 4 * kg) =
         make_float4(v[0], v[1], v[2], v[3]);
   }
@@ -1204,24 +1307,29 @@ __device__ __forceinline__ void wgrad_store(
   for (int i = 0; i < S::DI; ++i) {
     const int u = tid + i * T::NP;
     if (S::DU % T::NP != 0 && u >= S::DU) break;
+    float d[4] = {s.d[i][0], s.d[i][1], s.d[i][2], s.d[i][3]};
+    if constexpr (Elem<E>::kLow) DL::finish(d, s.dv[i], w);
     *reinterpret_cast<float4*>(Bs + (u / S::DG) * T::SB + 4 * (u % S::DG)) =
-        make_float4(s.d[i][0], s.d[i][1], s.d[i][2], s.d[i][3]);
+        make_float4(Elem<E>::rnd(d[0]), Elem<E>::rnd(d[1]),
+                    Elem<E>::rnd(d[2]), Elem<E>::rnd(d[3]));
 #pragma unroll
-    for (int j = 0; j < 4; ++j) bsum[i][j] += s.d[i][j];
+    for (int j = 0; j < 4; ++j) bsum[i][j] += d[j];
   }
 }
 
 // The producers' side of the weight gradient, in produce()'s order; at the
 // end the per-thread bias sums go to stage 0 of Bs, row = the thread's pixel
 // row of D.
-template <class T, class DL>
-__device__ __forceinline__ void wgrad_produce(float* smem, const WgradArgs& w,
+template <class T, class DL, class E>
+__device__ __forceinline__ void wgrad_produce(float* smem,
+                                              const WgradArgsT<E>& w,
                                               int cin0, int m0, int n0,
                                               int64_t q0, int64_t q1, int nk) {
   using S = WgradShape<T>;
   const int tid = threadIdx.x - T::NC;
   const int pr = tid / S::KGW;
   const Geom& g = w.g;
+  const bool pairs = Elem<E>::kLow && w.vec_a;
   float* As = smem;
   float* Bs = smem + 2 * T::A_WORDS;
   KGroup kg;
@@ -1238,10 +1346,15 @@ __device__ __forceinline__ void wgrad_produce(float* smem, const WgradArgs& w,
 #pragma unroll
   for (int i = 0; i < S::AW; ++i) {
     s.lb[i] = -1;
+    if (pairs) {
+      Elem<E>::one4(s.sa[i]);
+      Elem<E>::zero4(s.st[i]);
+    } else {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      s.sa[i][j] = 1.f;
-      s.st[i][j] = 0.f;
+      for (int j = 0; j < 4; ++j) {
+        s.sa[i][j] = 1.f;
+        s.st[i][j] = 0.f;
+      }
     }
     const int64_t q = q0 + pr + i * S::RSTEP;
     const int p = (int)(q % ((int64_t)g.H * g.W));
@@ -1256,13 +1369,14 @@ __device__ __forceinline__ void wgrad_produce(float* smem, const WgradArgs& w,
     for (int j = 0; j < 4; ++j) bsum[i][j] = 0.f;
   }
   wgrad_load<T, DL>(s, kg, w, cin0, q0, q1, n0);
-  wgrad_store<T>(s, As, Bs, bsum);
+  wgrad_store<T, DL>(s, As, Bs, bsum, pairs, w);
   if (nk > 1) wgrad_load<T, DL>(s, kg, w, cin0, q0 + T::BK, q1, n0);
   block_sync<T::NT>();
   for (int i = 0; i < nk; ++i) {
     const int nxt = (i + 1) & 1;
     if (i + 1 < nk)
-      wgrad_store<T>(s, As + nxt * T::A_WORDS, Bs + nxt * T::B_WORDS, bsum);
+      wgrad_store<T, DL>(s, As + nxt * T::A_WORDS, Bs + nxt * T::B_WORDS,
+                         bsum, pairs, w);
     if (i + 2 < nk)
       wgrad_load<T, DL>(s, kg, w, cin0, q0 + (int64_t)(i + 2) * T::BK, q1,
                         n0);
@@ -1279,8 +1393,8 @@ __device__ __forceinline__ void wgrad_produce(float* smem, const WgradArgs& w,
 
 // dW's partial tile of one chunk, and with the first k tile its partial
 // bias: plain stores into chunk blockIdx.y's (K + 1, N) slab of w.ws.
-template <class T, class DL>
-__global__ void __launch_bounds__(T::NT) wgrad_pc_kernel(WgradArgs w) {
+template <class T, class DL, class E>
+__global__ void __launch_bounds__(T::NT) wgrad_pc_kernel(WgradArgsT<E> w) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int mt = blockIdx.x / w.ntn;
@@ -1331,12 +1445,13 @@ __global__ void __launch_bounds__(T::NT) wgrad_pc_kernel(WgradArgs w) {
   }
 }
 
-// dW (K, N) and dbias (N): the S partials of ws added in ascending order
-// (an instance per D loader, so that a trace tells K5's from K6's).
-template <class DL>
+// dW (K, N) and dbias (N): the S partials of ws added in ascending order in
+// float32, each result rounded once to E (an instance per D loader, so that
+// a trace tells K5's from K6's).
+template <class DL, class E>
 __global__ void wgrad_reduce_kernel(const float* __restrict__ ws,
-                                    float* __restrict__ dw,
-                                    float* __restrict__ dbias, int K, int N,
+                                    E* __restrict__ dw,
+                                    E* __restrict__ dbias, int K, int N,
                                     int S) {
   const int64_t slab = (int64_t)(K + 1) * N;
   for (int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; e < slab;
@@ -1344,32 +1459,32 @@ __global__ void wgrad_reduce_kernel(const float* __restrict__ ws,
     float v = 0.f;
     for (int s = 0; s < S; ++s) v += ws[s * slab + e];
     if (e < (int64_t)K * N)
-      dw[e] = v;
+      Elem<E>::st(dw + e, v);
     else
-      dbias[e - (int64_t)K * N] = v;
+      Elem<E>::st(dbias + (e - (int64_t)K * N), v);
   }
 }
 
-template <class T, class DL>
-int launch_wgrad_tile(WgradArgs w, int splits, float* dw, float* dbias,
+template <class T, class DL, class E>
+int launch_wgrad_tile(WgradArgsT<E> w, int splits, E* dw, E* dbias,
                       cudaStream_t stream) {
   w.ntn = (w.N + T::BN - 1) / T::BN;
   const int mtiles = (w.g.K + T::BM - 1) / T::BM;
   int chunk = (int)((w.npix + splits - 1) / splits);
   w.chunk = (chunk + T::BK - 1) / T::BK * T::BK;
   const int used = (int)((w.npix + w.chunk - 1) / w.chunk);
-  wgrad_pc_kernel<T, DL>
+  wgrad_pc_kernel<T, DL, E>
       <<<dim3(mtiles * w.ntn, used), T::NT, T::SMEM_BYTES, stream>>>(w);
   const int64_t n = (int64_t)(w.g.K + 1) * w.N;
   const int blocks = (int)((n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024);
-  wgrad_reduce_kernel<DL><<<blocks, 256, 0, stream>>>(w.ws, dw, dbias,
-                                                      w.g.K, w.N, used);
+  wgrad_reduce_kernel<DL, E><<<blocks, 256, 0, stream>>>(w.ws, dw, dbias,
+                                                         w.g.K, w.N, used);
   return (int)cudaGetLastError();
 }
 
 // 64 columns by 64 rows where K <= 64, 96 where K <= 96, else 256.
-template <class DL>
-int launch_wgrad_64(WgradArgs w, int splits, float* dw, float* dbias,
+template <class DL, class E>
+int launch_wgrad_64(WgradArgsT<E> w, int splits, E* dw, E* dbias,
                     cudaStream_t stream) {
   if (w.g.K <= Short::BM)
     return launch_wgrad_tile<Short, DL>(w, splits, dw, dbias, stream);
@@ -1379,8 +1494,8 @@ int launch_wgrad_64(WgradArgs w, int splits, float* dw, float* dbias,
 }
 
 // BN columns by 64 rows where K <= 64, else by 128.
-template <int BN, class DL>
-int launch_wgrad_narrow(WgradArgs w, int splits, float* dw, float* dbias,
+template <int BN, class DL, class E>
+int launch_wgrad_narrow(WgradArgsT<E> w, int splits, E* dw, E* dbias,
                         cudaStream_t stream) {
   if (w.g.K <= ShortN<BN>::BM)
     return launch_wgrad_tile<ShortN<BN>, DL>(w, splits, dw, dbias, stream);
@@ -1396,12 +1511,13 @@ int launch_wgrad_narrow(WgradArgs w, int splits, float* dw, float* dbias,
 // are the caller's; splits is the number of chunks the caller's workspace
 // holds (S), of which the launch uses the ones that a whole number of BK
 // pixels fills.
-template <class DL>
-int launch_wgrad(WgradArgs w, int splits, float* dw, float* dbias,
+template <class DL, class E>
+int launch_wgrad(WgradArgsT<E> w, int splits, E* dw, E* dbias,
                  cudaStream_t stream) {
+  constexpr uintptr_t run = 4 * sizeof(E);  // a 4-wide load
   const bool affine_ok =
-      (w.a == nullptr || (aligned(w.a, 16) && aligned(w.t, 16)));
-  w.vec_a = w.g.cin % 4 == 0 && w.g.C % 4 == 0 && aligned(w.x, 16) &&
+      (w.a == nullptr || (aligned(w.a, run) && aligned(w.t, run)));
+  w.vec_a = w.g.cin % 4 == 0 && w.g.C % 4 == 0 && aligned(w.x, run) &&
             affine_ok;
   w.vec_ws = w.N % 4 == 0 && aligned(w.ws, 16);
   if constexpr (!DL::kGroups) {

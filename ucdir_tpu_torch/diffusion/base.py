@@ -50,7 +50,10 @@ class ResiGaussianGuideDY(nn.Module):
         divides by b * c * h * w). x_in: {'HR', 'SR'} (B, H, W, C); gammas
         (B, 1); noise like HR. The diffusion runs over HR - initx, and initx,
         not detached, guides the denoiser: the loss trains the predictor
-        too. Dropout follows self.training."""
+        too. Dropout follows self.training. Everything runs in the dtype of
+        the inputs and the parameters (bf16 under a mixed-precision train
+        step, `q_sample` included) but the loss: the L1 sum is taken in
+        float32."""
         x_init = self.predictor(x_in['SR'])
         x_start = x_in['HR'] - x_init
         x_noisy = self.q_sample(x_start, gammas.reshape(-1, 1, 1, 1), noise)

@@ -68,8 +68,31 @@ def norm1_affine(x, scale, bias, totals_=None, eps: float = 1e-5):
 def group_norm1(x, a, t):
     """x * a + t in float32 for float32 (a, t) of `norm1_affine_f32`,
     rounded to x's dtype: GroupNorm(1) applied outside a kernel, as flax's
-    GroupNorm normalizes a bfloat16 input."""
-    return (x.float() * a[:, None, None, :] + t[:, None, None, :]).to(x.dtype)
+    GroupNorm normalizes a bfloat16 input. Differentiable in x, a and t; a
+    bfloat16 x is saved for backward as it is, never as its float32 copy."""
+    if x.dtype == torch.float32:
+        return x * a[:, None, None, :] + t[:, None, None, :]
+    return _GroupNorm1.apply(x, a, t)
+
+
+class _GroupNorm1(torch.autograd.Function):
+    """`group_norm1` of a low-precision x with the gradients of its
+    composition (x's float32 copy times a, plus t, rounded): dx the float32
+    g * a rounded to x's dtype, da and dt the float32 sums over the pixels
+    of g * x and of g. It saves x, not x's float32 copy."""
+
+    @staticmethod
+    def forward(ctx, x, a, t):
+        ctx.save_for_backward(x, a)
+        return (x.float() * a[:, None, None, :]
+                + t[:, None, None, :]).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, a = ctx.saved_tensors
+        g = g.float()
+        return ((g * a[:, None, None, :]).to(x.dtype),
+                (g * x).sum(dim=(1, 2)), g.sum(dim=(1, 2)))
 
 
 def guide_maps(block: 'ResnetBlockDY3h', guide, size):

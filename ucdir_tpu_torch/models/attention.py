@@ -5,7 +5,8 @@ Pallas kernel (reference: model/ucdir.py:155-182).
 In bfloat16, as the JAX package: the scores and the softmax in float32 (q and
 k upcast, their products exact), the probabilities rounded to bfloat16, the
 PV product accumulated in float32 and its output rounded to bfloat16; the
-projections in bfloat16.
+projections in bfloat16. Its backward (training) saves the bfloat16 q, k
+and v and recomputes the scores.
 
 The scale is 1 / sqrt(C), the full channel count, as in the reference.
 Above `_STREAM_TOKENS` tokens the softmax runs over query chunks of `_CHUNK`
@@ -31,9 +32,46 @@ _WINDOW_TARGET = 144
 
 def _dense_attention(q, k, v, scale):
     """softmax(q k^T * scale) v for (b, n_head, N, d) operands."""
+    if q.dtype != torch.float32:
+        return _LowAttention.apply(q, k, v, scale)
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p, v)
+
+
+def _low_forward(q, k, v, scale):
+    """(the output, the float32 probabilities p) of `_dense_attention` on
+    low-precision operands."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    p = torch.softmax(s, dim=-1).to(v.dtype)
-    return torch.matmul(p.float(), v.float()).to(q.dtype)
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype), p
+
+
+class _LowAttention(torch.autograd.Function):
+    """`_dense_attention` of bfloat16 operands with the gradients of its
+    composition (the upcasts, the float32 scores and softmax, the
+    probabilities rounded, the float32 PV product rounded; each upcast's
+    gradient rounded back): it saves q, k and v as they are and recomputes
+    the scores in backward, never keeping a float32 copy alive."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _low_forward(q, k, v, scale)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        scale, dt = ctx.scale, q.dtype
+        _, p = _low_forward(q, k, v, scale)
+        g = g.float()
+        dv = torch.matmul(p.to(dt).float().transpose(-1, -2), g).to(dt)
+        dp = torch.matmul(g, v.float().transpose(-1, -2)).to(dt).float()
+        ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * scale
+        dq = torch.matmul(ds, k.float()).to(dt)
+        dk = torch.matmul(ds.transpose(-1, -2), q.float()).to(dt)
+        return dq, dk, dv, None
 
 
 def _streaming_attention(q, k, v, scale):

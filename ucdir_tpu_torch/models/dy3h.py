@@ -47,9 +47,10 @@ class ResnetBlocWithAttn(nn.Module):
 
 
 def dropout_mask(x, p: float, generator=None):
-    """Inverted-dropout mask for x: 0 with probability p, else 1 / (1 - p),
-    drawn from an explicit generator."""
-    keep = torch.rand(x.shape, device=x.device, dtype=x.dtype,
+    """Inverted-dropout mask for x, in x's dtype: 0 with probability p, else
+    1 / (1 - p), drawn in float32 from an explicit generator whatever x's
+    dtype, so that a bfloat16 step draws the float32 step's mask."""
+    keep = torch.rand(x.shape, device=x.device, dtype=torch.float32,
                       generator=generator) >= p
     return keep.to(x.dtype) / (1. - p)
 

@@ -6,7 +6,9 @@ layout (`weight`, `bias`), so a reference state dict loads unchanged; each
 repacks its weight into the kernel layout: under autograd as a differentiable
 view or copy, so the parameter gets its gradient, and without it once, cached
 until the parameter changes (`load_state_dict`, `.to()`, any in-place
-update).
+update). A tensor that stands in for a parameter (the bf16 cast that a
+mixed-precision train step hands `torch.func.functional_call`) is never
+cached: its layout is built anew from it at every call.
 """
 from __future__ import annotations
 
@@ -71,11 +73,13 @@ def crop_pad(y, pads):
 
 def cached(module: nn.Module, name: str, fn, *params):
     """The kernel-layout copy `fn()` of `params`. Where autograd is on and a
-    parameter requires grad, it is computed anew with autograd on, so the
-    gradient flows back to the parameter; otherwise (validation) it is
-    computed once and kept on `module` until one of `params` changes (its
-    storage or its version counter)."""
-    if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+    parameter requires grad, or where one of `params` is not an
+    `nn.Parameter` (a cast standing in for one), it is computed anew, with
+    autograd on, so the gradient flows back to the parameter; otherwise
+    (validation) it is computed once and kept on `module` until one of
+    `params` changes (its storage or its version counter)."""
+    if (torch.is_grad_enabled() and any(p.requires_grad for p in params)) \
+            or not all(isinstance(p, nn.Parameter) for p in params):
         return fn().contiguous()
     key = tuple((p.data_ptr(), p._version) for p in params)
     store = module.__dict__.setdefault('_kernel_layout', {})

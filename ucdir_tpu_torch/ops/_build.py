@@ -9,9 +9,9 @@ CPU tests import every module, and only a CUDA tensor reaches `library()`.
 
 Every C entry point launches on the stream it is given, allocates nothing,
 does not synchronise, and returns `cudaGetLastError()`; `launch` raises when
-that is not 0 and counts the launch in `LAUNCHES`. K1, K2, K3, K4 and K7
-have a second entry point for bfloat16 operands, `ucdir_<kernel>_bf16`
-(`entry`), counted under its own name; every other kernel takes float32.
+that is not 0 and counts the launch in `LAUNCHES`. K1..K7 have a second
+entry point for bfloat16 operands, `ucdir_<kernel>_bf16` (`entry`), counted
+under its own name; K8 and K9 take float32.
 """
 from __future__ import annotations
 
@@ -36,10 +36,11 @@ LAUNCHES = {'akgm_tail': 0, 'conv3x3': 0, 'conv1x1': 0, 'gn1_stats': 0,
             'akgm_tail_bwd': 0, 'conv3x3_bwd': 0, 'conv3x3_preact': 0,
             'akgm_mix': 0, 'akgm_packed': 0,
             'akgm_tail_bf16': 0, 'conv3x3_bf16': 0, 'conv1x1_bf16': 0,
-            'gn1_stats_bf16': 0, 'conv3x3_preact_bf16': 0}
+            'gn1_stats_bf16': 0, 'conv3x3_preact_bf16': 0,
+            'akgm_tail_bwd_bf16': 0, 'conv3x3_bwd_bf16': 0}
 # the kernels with a bfloat16 entry point, `<kernel>_bf16`
 BF16_KERNELS = ('akgm_tail', 'conv3x3', 'conv1x1', 'gn1_stats',
-                'conv3x3_preact')
+                'conv3x3_preact', 'akgm_tail_bwd', 'conv3x3_bwd')
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: pointers and the stream as void*, sizes and flags as int.

@@ -11,9 +11,10 @@ channel c read input group c // (C / G) (the reference's `.view(b, C, G, H,
 W)` of the grouped conv). The kernel-layout weights are the grouped HWIO
 kernel (3, 3, C / G, C * G) reshaped to (9 * C / G, C * G).
 
-K1 also takes bfloat16 operands, all of one dtype, and returns bfloat16 (its
-statistics float32): the TPU kernel's bf16 instantiation, with its roundings
-(`akgm_block_tail_plain`). K5, K8 and K9 take float32.
+K1 and its backward K5 also take bfloat16 operands, all of one dtype, and
+return bfloat16 (K1's statistics float32): the TPU kernels' bf16
+instantiation, with their roundings (`akgm_block_tail_plain`,
+`akgm_block_tail_backward_plain`). K8 and K9 take float32.
 """
 from __future__ import annotations
 
@@ -23,8 +24,9 @@ import torch
 import torch.nn.functional as F
 
 from ucdir_tpu_torch.ops import _build
-from ucdir_tpu_torch.ops.conv import (dswish, rounded, staged_affine, swish,
-                                     vjp_of_plain, wgrad_workspace)
+from ucdir_tpu_torch.ops.conv import (affine_grads, dswish, rounded,
+                                     staged_affine, swish, vjp_of_plain,
+                                     wgrad_workspace)
 from ucdir_tpu_torch.ops.stats import fold_stats_grad, gn1_stats_plain
 
 
@@ -131,28 +133,58 @@ def akgm_block_tail_backward_plain(h, att_sp, w, bias, go, nset: int, *,
     """The plain version of K5: (dhh, datt_sp, dw, dbias, dattw) of the block
     tail for the output cotangent `go`, dhh the gradient of the affine's
     output h * a + t and dattw None without attw. It materializes the
-    (B, H, W, C, G) candidates and their gradient, which K5 never writes."""
+    (B, H, W, C, G) candidates and their gradient, which K5 never writes.
+
+    bfloat16: as B8 computes in bf16 (`_akgm_block_bwd_kernel` of
+    ucdir_tpu/ops/akgm_pallas.py), on the operands' values in float32: the
+    affine as `staged_affine`; A = att * attw in float32 (exact); z
+    recomputed in float32, then m = z * A of z and A each rounded, itself
+    rounded, and o the float32 sum of the G terms; do = go * swish'(o)
+    rounded once; dz = do * A, rounded where the weight and the input
+    gradient read it, and dbias the float32 sum of the unrounded dz; the
+    datt terms do * z rounded before their float32 sum over the channels;
+    every gradient rounded once at the end."""
     B, H, W, C = h.shape
     cg = C // nset
-    if norm_scale is not None:
+    low = h.dtype if h.dtype == torch.bfloat16 else None
+    if low is not None:
+        h = (h.float() if norm_scale is None
+             else staged_affine(h, norm_scale, norm_shift))
+        att_sp, w, bias, go = att_sp.float(), w.float(), bias.float(), \
+            go.float()
+        attw = None if attw is None else attw.float()
+    elif norm_scale is not None:
         h = h * norm_scale[:, None, None, :] + norm_shift[:, None, None, :]
     A = att_sp if attw is None else att_sp * attw[:, None, None, :]
     k = w.reshape(3, 3, cg, C * nset).permute(3, 2, 0, 1)
     hn = h.permute(0, 3, 1, 2)
     z = F.conv2d(hn, k, bias, padding=1, groups=nset)      # (B, C * G, H, W)
     z5 = z.permute(0, 2, 3, 1).reshape(B, H, W, C, nset)
-    o = torch.einsum('bhwcj,bhwj->bhwc', z5, A)
-    do = go * dswish(o)
+    if low is None:
+        o = torch.einsum('bhwcj,bhwj->bhwc', z5, A)
+        do = go * dswish(o)
+    else:
+        m = rounded(rounded(z5, low) * rounded(A, low)[:, :, :, None, :],
+                    low)
+        do = rounded(go * dswish(m.sum(dim=-1)), low)
     dz = (do[..., None] * A[:, :, :, None, :]).reshape(B, H, W, C * nset)
     dz = dz.permute(0, 3, 1, 2)
-    dhh = F.conv_transpose2d(dz, k, padding=1, groups=nset)
-    dk = torch.nn.grad.conv2d_weight(hn, k.shape, dz, padding=1, groups=nset)
+    dzr = dz if low is None else rounded(dz, low)
+    dhh = F.conv_transpose2d(dzr, k, padding=1, groups=nset)
+    dk = torch.nn.grad.conv2d_weight(hn, k.shape, dzr, padding=1,
+                                     groups=nset)
     dw = dk.permute(2, 3, 1, 0).reshape(9 * cg, C * nset)
-    q = torch.einsum('bhwc,bhwcj->bhwj', do, z5)
+    if low is None:
+        q = torch.einsum('bhwc,bhwcj->bhwj', do, z5)
+    else:
+        q = rounded(do[..., None] * z5, low).sum(dim=-2)
     datt = q if attw is None else q * attw[:, None, None, :]
     dattw = None if attw is None else (q * att_sp).sum(dim=(1, 2))
-    return (dhh.permute(0, 2, 3, 1).contiguous(), datt, dw,
-            dz.sum(dim=(0, 2, 3)), dattw)
+    grads = (dhh.permute(0, 2, 3, 1).contiguous(), datt, dw,
+             dz.sum(dim=(0, 2, 3)), dattw)
+    if low is None:
+        return grads
+    return tuple(None if g is None else g.to(low) for g in grads)
 
 
 def tail_tile(C):
@@ -204,11 +236,14 @@ def permuted_columns(w):
 
 def akgm_block_tail_backward_kernel(h, att_sp, w, bias, go, nset,
                                      norm_scale, norm_shift, attw):
-    """K5 on CUDA tensors: (dhh, datt_sp, dw, dbias, dattw)."""
+    """K5 on CUDA tensors, every operand float32 or every one bfloat16:
+    (dhh, datt_sp, dw, dbias, dattw) of that dtype."""
     B, H, W, C = h.shape
+    dt = h.dtype
+    kernel = _build.entry('akgm_tail_bwd', h)
     dev = _check_operands('K5', h, att_sp, w, bias, nset, norm_scale,
-                          norm_shift, attw)
-    _build.check('go', go, (B, H, W, C), device=dev)
+                          norm_shift, attw, dtype=dt)
+    _build.check('go', go, (B, H, W, C), device=dev, dtype=dt)
     cg = C // nset
     # per-group weights of the transposed conv: (G, 9 * C, C / G), taps
     # flipped, wf[g][tap * C + n][ci] = w[(8 - tap) * C/G + ci][g * C + n]
@@ -217,7 +252,9 @@ def akgm_block_tail_backward_kernel(h, att_sp, w, bias, go, nset,
     cols = _tile_columns_on(C * nset, tail_tile(C)[1], w.device)
     wp, bp = w[:, cols].contiguous(), bias[cols].contiguous()
     do = torch.empty_like(h)             # scratch: go * swish'(o)
-    aa = None if attw is None else torch.empty_like(att_sp)  # att * attw
+    # scratch: att * attw in float32 (in bf16 also without attw)
+    aa = (None if attw is None and dt == torch.float32 else
+          torch.empty(att_sp.shape, device=dev, dtype=torch.float32))
     dhh = torch.empty_like(h)
     datt = torch.empty_like(att_sp)
     dw = torch.empty_like(w)
@@ -229,7 +266,7 @@ def akgm_block_tail_backward_kernel(h, att_sp, w, bias, go, nset,
         wsa = torch.empty(B, stats_tiles(H * W, C), nset, device=dev,
                           dtype=torch.float32)
     splits, ws = wgrad_workspace(9 * cg, C * nset, C, B * H * W, dev)
-    _build.launch('akgm_tail_bwd', h.data_ptr(), go.data_ptr(),
+    _build.launch(kernel, h.data_ptr(), go.data_ptr(),
                   att_sp.data_ptr(), _build.ptr(attw), wp.data_ptr(),
                   wf.data_ptr(), bp.data_ptr(), _build.ptr(norm_scale),
                   _build.ptr(norm_shift), do.data_ptr(), _build.ptr(aa),
@@ -255,8 +292,8 @@ def akgm_block_tail_backward(h, att_sp, w, bias, go, nset: int, *,
             h, att_sp, w, bias, go, nset, norm_scale, norm_shift, attw)
     if norm_scale is None:
         return dhh, datt, dw, dbias, go, None, None, dattw
-    return (dhh * norm_scale[:, None, None, :], datt, dw, dbias, go,
-            (dhh * h).sum(dim=(1, 2)), dhh.sum(dim=(1, 2)), dattw)
+    dh, dns, dnt = affine_grads(dhh, h, norm_scale, norm_shift)
+    return dh, datt, dw, dbias, go, dns, dnt, dattw
 
 
 class _AkgmBlockTail(torch.autograd.Function):

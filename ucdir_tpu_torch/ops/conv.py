@@ -13,12 +13,13 @@ With `emit_stats=True` a function returns `(out, (sum, sumsq))`, the
 per-(batch, channel) float32 sums of `out` — the producer half of the chained
 GroupNorm(1) statistics (ucdir_tpu_torch/models/dy3h.py).
 
-The forward ops (K2, K3, K7) also take bfloat16 operands, all of one dtype,
-and return bfloat16: the TPU kernels' bf16 instantiation, which validation
-runs under `--compute_dtype bf16`. The kernel and the plain version alike
-compute in float32 on the operands' values and round where the TPU kernel's
-bf16 arithmetic rounds (`staged_affine`; the output once, to nearest even);
-the statistics are float32 sums of the rounded output.
+The ops (K2, K3, K7, and K6 backward) also take bfloat16 operands, all of
+one dtype, and return bfloat16: the TPU kernels' bf16 instantiation, which
+validation and training run under `--compute_dtype bf16`. The kernel and
+the plain version alike compute in float32 on the operands' values and
+round where the TPU kernel's bf16 arithmetic rounds (`staged_affine`; the
+output once, to nearest even); the statistics are float32 sums of the
+rounded output, and the gradients float32 sums rounded once.
 """
 from __future__ import annotations
 
@@ -147,18 +148,31 @@ def _conv3x3_forward(x, w, bias, stride, act, norm_scale, norm_shift,
 def conv3x3_backward_plain(x, w, bias, go, *, act=None, norm_scale=None,
                            norm_shift=None):
     """The plain version of K6: (dxh, dw, dbias) of the stride-1 conv3x3,
-    dxh the gradient of the affine's output x * a + t."""
+    dxh the gradient of the affine's output x * a + t. bfloat16: as B9
+    computes in bf16 (`_conv_bwd_kernel` of ucdir_tpu/ops/conv_pallas.py),
+    on the operands' values in float32: the affine as `staged_affine`, z in
+    float32, dz = go * swish'(z) rounded once (without swish, go itself),
+    the transposed convolution of that dz and its float32 sums dw and dbias
+    each rounded once."""
     cin, cout = x.shape[-1], w.shape[1]
-    if norm_scale is not None:
+    low = x.dtype if x.dtype == torch.bfloat16 else None
+    if low is not None:
+        x = (x.float() if norm_scale is None
+             else staged_affine(x, norm_scale, norm_shift))
+        w, bias, go = w.float(), bias.float(), go.float()
+    elif norm_scale is not None:
         x = x * norm_scale[:, None, None, :] + norm_shift[:, None, None, :]
     k = w.reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
     xn, dz = _nchw(x), _nchw(go)
     if act == 'swish':
         dz = dz * dswish(F.conv2d(xn, k, bias, padding=1))
+        if low is not None:
+            dz = rounded(dz, low)
     dxh = _nhwc(F.conv_transpose2d(dz, k, padding=1))
     dk = torch.nn.grad.conv2d_weight(xn, k.shape, dz, padding=1)
     dw = dk.permute(2, 3, 1, 0).reshape(9 * cin, cout)
-    return dxh, dw, dz.sum(dim=(0, 2, 3))
+    grads = dxh, dw, dz.sum(dim=(0, 2, 3))
+    return grads if low is None else tuple(g.to(low) for g in grads)
 
 
 # The weight gradients of K5 and K6 (`csrc/igemm_pc.cuh`, wgrad_pc_kernel)
@@ -222,16 +236,18 @@ def wgrad_workspace(K, N, group_cols, npix, device):
 
 
 def conv3x3_backward_kernel(x, w, bias, go, act, norm_scale, norm_shift):
-    """K6 on CUDA tensors: (dxh, dw, dbias)."""
+    """K6 on CUDA tensors, every operand float32 or every one bfloat16:
+    (dxh, dw, dbias) of that dtype."""
     B, H, W, cin = x.shape
     cout = w.shape[1]
-    dev = x.device
-    _build.check('x', x)
-    _build.check('go', go, (B, H, W, cout), device=dev)
-    _build.check('w', w, (9 * cin, cout), device=dev)
-    _build.check('bias', bias, (cout,), device=dev)
-    _build.check('norm_scale', norm_scale, (B, cin), device=dev)
-    _build.check('norm_shift', norm_shift, (B, cin), device=dev)
+    dev, dt = x.device, x.dtype
+    kernel = _build.entry('conv3x3_bwd', x)
+    _build.check('x', x, dtype=dt)
+    _build.check('go', go, (B, H, W, cout), device=dev, dtype=dt)
+    _build.check('w', w, (9 * cin, cout), device=dev, dtype=dt)
+    _build.check('bias', bias, (cout,), device=dev, dtype=dt)
+    _build.check('norm_scale', norm_scale, (B, cin), device=dev, dtype=dt)
+    _build.check('norm_shift', norm_shift, (B, cin), device=dev, dtype=dt)
     # the transposed convolution's weights: taps flipped, channels swapped
     wf = (w.reshape(9, cin, cout).flip(0).permute(0, 2, 1)
           .reshape(9 * cout, cin).contiguous())
@@ -240,7 +256,7 @@ def conv3x3_backward_kernel(x, w, bias, go, act, norm_scale, norm_shift):
     dw = torch.empty_like(w)
     dbias = torch.empty_like(bias)
     splits, ws = wgrad_workspace(9 * cin, cout, cout, B * H * W, dev)
-    _build.launch('conv3x3_bwd', x.data_ptr(), go.data_ptr(), w.data_ptr(),
+    _build.launch(kernel, x.data_ptr(), go.data_ptr(), w.data_ptr(),
                   wf.data_ptr(), bias.data_ptr(), _build.ptr(norm_scale),
                   _build.ptr(norm_shift), _build.ptr(dz), dxh.data_ptr(),
                   dw.data_ptr(), dbias.data_ptr(), ws.data_ptr(), B, H, W,
@@ -263,14 +279,28 @@ def conv3x3_backward(x, w, bias, go, *, act=None, norm_scale=None,
             x, w, bias, go.contiguous(), act, norm_scale, norm_shift)
     if norm_scale is None:
         return dxh, dw, dbias, None, None
-    return (dxh * norm_scale[:, None, None, :], dw, dbias,
-            (dxh * x).sum(dim=(1, 2)), dxh.sum(dim=(1, 2)))
+    dx, dns, dnt = affine_grads(dxh, x, norm_scale, norm_shift)
+    return dx, dw, dbias, dns, dnt
+
+
+def affine_grads(dxh, x, norm_scale, norm_shift):
+    """(dx, dnorm_scale, dnorm_shift) from dxh, the gradient of the affine's
+    output x * a + t: dx = dxh * a in dxh's dtype, and the float32 sums over
+    the pixels of dxh * x and of dxh, rounded to the affine's dtype (as
+    `_conv3x3_backward` of ucdir_tpu/ops/conv_pallas.py ends). Overwrites
+    dxh's float32 copy, which is dxh itself where dxh is float32."""
+    dx = dxh * norm_scale[:, None, None, :]
+    dxf = dxh.float()
+    dnt = dxf.sum(dim=(1, 2))
+    dns = dxf.mul_(x).sum(dim=(1, 2))
+    return dx, dns.to(norm_scale.dtype), dnt.to(norm_shift.dtype)
 
 
 class _Conv3x3(torch.autograd.Function):
-    """Forward K2. Backward, stride 1: the statistics' cotangents fold into
-    the output's, then K6. Stride 2 (Downsample) owes no kernel: the autograd
-    of the plain version."""
+    """Forward K2. Backward: the statistics' cotangents fold into the
+    output's (`fold_stats_grad`), then K6 at stride 1; stride 2 (Downsample)
+    owes no kernel: the autograd of the plain version, as the JAX package
+    takes the vjp of its XLA composition (`_dcs_bwd`)."""
 
     @staticmethod
     def forward(ctx, x, w, bias, norm_scale, norm_shift, stride, act,
@@ -279,7 +309,7 @@ class _Conv3x3(torch.autograd.Function):
         out, s, q = _conv3x3_forward(x, w, bias, stride, act, norm_scale,
                                      norm_shift, emit_stats)
         ctx.save_for_backward(x, w, bias, norm_scale, norm_shift,
-                              out if emit_stats and stride == 1 else None)
+                              out if emit_stats else None)
         ctx.conf = (stride, act, emit_stats)
         return (out, s, q) if emit_stats else out
 
@@ -287,15 +317,15 @@ class _Conv3x3(torch.autograd.Function):
     def backward(ctx, g, ds=None, dq=None):
         x, w, bias, ns, nt, out = ctx.saved_tensors
         stride, act, emit_stats = ctx.conf
+        if emit_stats:
+            g = fold_stats_grad(g, out, ds, dq)
         if stride != 1:
             grads = vjp_of_plain(
                 lambda *a: conv3x3_plain(
                     a[0], a[1], a[2], stride=stride, act=act,
-                    norm_scale=a[3], norm_shift=a[4], emit_stats=emit_stats),
-                (x, w, bias, ns, nt), (g, ds, dq))
+                    norm_scale=a[3], norm_shift=a[4]),
+                (x, w, bias, ns, nt), (g,))
             return (*grads, None, None, None)
-        if emit_stats:
-            g = fold_stats_grad(g, out, ds, dq)
         return (*conv3x3_backward(x, w, bias, g, act=act, norm_scale=ns,
                                   norm_shift=nt), None, None, None)
 

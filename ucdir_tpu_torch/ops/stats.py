@@ -30,15 +30,20 @@ def _gn1_stats_forward(x):
 
 def fold_stats_grad(g, out, ds, dq):
     """The cotangent of `out` with those of its emitted statistics folded in:
-    d(sum)/d(out) = 1 and d(sumsq)/d(out) = 2 * out. g, ds, dq may be None
-    (no cotangent)."""
+    d(sum)/d(out) = 1 and d(sumsq)/d(out) = 2 * out, added in float32 and
+    rounded to out's dtype once (`_c3s_bwd` of ucdir_tpu/ops/conv_pallas.py).
+    g, ds, dq may be None (no cotangent)."""
+    if g is not None:
+        g = g.float()
     if ds is not None:
-        ds = ds[:, None, None, :]
+        ds = ds.float()[:, None, None, :]
         g = ds.expand_as(out) if g is None else g + ds
     if dq is not None:
-        dq = 2. * out * dq[:, None, None, :]
+        dq = 2. * out.float() * dq.float()[:, None, None, :]
         g = dq if g is None else g + dq
-    return torch.zeros_like(out) if g is None else g.contiguous()
+    if g is None:
+        return torch.zeros_like(out)
+    return g.to(out.dtype).contiguous()
 
 
 class _GN1Stats(torch.autograd.Function):

@@ -2,7 +2,7 @@
 and result files of the repo's `sr.py`:
 
     python -m ucdir_tpu_torch.sr -p train -c ucdir_tpu/configs/sid.yaml \\
-        [--seed N] [--device cuda] [-debug]
+        [--seed N] [--device cuda] [-debug] [--compute_dtype bf16]
     python -m ucdir_tpu_torch.sr -p val -c ucdir_tpu/configs/sid.yaml \\
         [--checkpoint <prefix>] [--seed N] [--device cuda] \\
         [--sampler ddpm|ddim|dpmpp|dpmpp_sde] [--sampling_timesteps N] \\
@@ -14,9 +14,11 @@ Training saves the reference's checkpoint triple
 `I{iter}_E{epoch}_{gen,gen_ema,opt}.pth` and resumes from the prefix in the
 config's `path.resume_state`; `-p val --checkpoint <prefix>` validates a
 triple's EMA weights. Without a checkpoint the model starts from the random
-weights of --seed. One process, one card; float32, and for validation
-`--compute_dtype bf16` (the networks in bfloat16 on a copy of the weights,
-the sampler in float32; training in bf16 is not ported). Validation inputs
+weights of --seed. One process, one card; float32, or `--compute_dtype bf16`:
+validation runs the networks in bfloat16 on a copy of the weights and the
+sampler in float32, training runs them on a bfloat16 cast of the float32
+weights, which with the optimizer state, the EMA and the checkpoints stay
+float32. Validation inputs
 above 4.3 M px after the 64-px pad are restored tiled (1024-px tiles, 64-px
 halos) inside every denoising step; `--val_patch` instead runs a whole
 reverse process per tile, and `--search_params` sweeps the validation
@@ -72,9 +74,7 @@ def _parser():
 
 def _refuse(args):
     """NotImplementedError for every option the port does not carry yet."""
-    todo = [(args.compute_dtype is not None and args.phase == 'train',
-             '--compute_dtype with -p train'),
-            (args.val_batch > 1, '--val_batch > 1')]
+    todo = [(args.val_batch > 1, '--val_batch > 1')]
     for hit, what in todo:
         if hit:
             raise NotImplementedError('%s is not ported yet; see ROADMAP.md'

@@ -32,7 +32,7 @@ SCHEDULE_BUFFERS = (
 
 
 # opt['compute_dtype'] (sr.py's --compute_dtype) -> the networks' dtype in
-# validation
+# training and validation
 COMPUTE_DTYPES = {None: None, 'bf16': torch.bfloat16}
 
 
@@ -44,17 +44,16 @@ class Trainer:
     """phase 'train': optimizer steps on fed batches, validation with the
     live weights, checkpoints as the reference's triple. phase 'val':
     validation with the EMA (or live) weights of a checkpoint, or with the
-    random weights the model is built with, in opt['compute_dtype'] ('bf16':
-    the networks in bfloat16 on a copy of the weights; None: float32)."""
+    random weights the model is built with. Both in opt['compute_dtype']
+    ('bf16': the networks in bfloat16 on a cast of the float32 weights,
+    which with the optimizer state, the EMA shadow and the checkpoints stay
+    float32; None: float32)."""
 
     def __init__(self, opt, device, seed: int = 0):
         name = opt.get('compute_dtype')
         if name not in COMPUTE_DTYPES:
             raise ValueError('compute_dtype %r: expected bf16 or None'
                              % (name,))
-        if name and opt['phase'] == 'train':
-            # bf16 training needs the bf16 forms of K5 and K6
-            raise _unsupported('training with --compute_dtype %s' % name)
         self.compute_dtype = COMPUTE_DTYPES[name]
         self.opt = opt
         self.device = torch.device(device)
@@ -105,10 +104,12 @@ class Trainer:
         return t
 
     def optimize_parameters(self):
-        """One optimizer step on the fed batch (reference model.py:104-122)."""
+        """One optimizer step on the fed batch (reference model.py:104-122),
+        the networks in opt['compute_dtype']."""
         batch = {k: self.to_device(self.data[k]) for k in ('HR', 'SR')}
         loss = train_step(self.state, self.schedules['train'], batch,
-                          generator=self.step_generator(self.iter))
+                          generator=self.step_generator(self.iter),
+                          compute_dtype=self.compute_dtype)
         self.log_dict['l_pix'] = float(loss)
         self.iter += 1
 
