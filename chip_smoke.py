@@ -36,8 +36,14 @@ on any failure:
               in bf16 (cuDNN, cuBLAS), the bound the larger of the counted
               bytes at 2 a value and the counted FLOP at 989 TFLOP/s (bf16
               on the tensor cores, dense), with the fp32 FMA product's issue
-              time at 67 TFLOP/s, which these forms run, printed beside
-              it; and the bf16 forms of K5 and K6 at the train shapes of
+              time at 67 TFLOP/s printed beside it (K1's and K4's bf16
+              forms run that product; K2's, K3's and K7's run on the tensor
+              cores, csrc/igemm_tc.cuh, and K2's bf16 statistics must be
+              equal bit for bit in a second call); the edges of that core
+              in bf16 (ragged last tiles at 195 x 283, cout 24 and 96, cin 6
+              and 96, stride 2 at 391 x 567, K3 at 1568 x 2271 with cin 96,
+              6 and cout 3, K7 at cout 24 and 96); and the bf16 forms of K5
+              and K6 at the train shapes of
               their fp32 cases, held alike (their dW, dbias and K5's
               attention gradients bit-identical in a second call), the
               library `aten.convolution_backward` in bf16.
@@ -60,7 +66,10 @@ on any failure:
               and generator): seconds, ms per DY3h step, peak memory,
               launches, every bf16 kernel launched, and its distance from
               phase 5's float32 frame, mean abs within 0.05 (the JAX
-              package's test of bf16 against fp32).
+              package's test of bf16 against fp32); every launch of K2, K3
+              and K7 in bf16 there and on the `dropout: 0` slice must have
+              gone through the tensor-core core, and no other launch, of
+              the bf16 or the float32 frame.
   6. train_slice  full width, crop 64, batch 2, dropout off, injected gammas
               and noise, 2 AdamW steps on the card and on the host: the loss
               of each step, every gradient of the first step and every
@@ -106,7 +115,9 @@ Then one JSON line of kernel results (each kernel's launches from the path
 that owns it: K1..K4 the main phase, K5 and K6 the train phase, K7 the
 fewstep phase, K8 and K9 their variants run, the bf16 forms the bf16 frame,
 K7's the bf16 `dropout: 0` slice and K5's and K6's the bf16 train steps;
-every path's counts beside them;
+every path's counts beside them, and `tc_launches`, of a kernel's launches
+on its path those that went through the tensor-core core (None where the
+path's were not read);
 errors the largest and times summed over phase 2's shapes), the card's
 `nvidia-smi` name and power limit, and last `{"ok": true, "device": {...}}`.
 
@@ -178,6 +189,11 @@ OWNER = {'akgm_tail': 'main', 'conv3x3': 'main', 'conv1x1': 'main',
          'conv1x1_bf16': 'bf16', 'gn1_stats_bf16': 'bf16',
          'conv3x3_preact_bf16': 'bf16_head',
          'akgm_tail_bwd_bf16': 'train_bf16', 'conv3x3_bwd_bf16': 'train_bf16'}
+
+
+# per path, the launches of each entry point that went through the
+# tensor-core core (csrc/igemm_tc.cuh), read where the path's launches are
+TC = {}
 
 
 def say(phase, msg):
@@ -351,13 +367,14 @@ def kernel_cases(gen, dev):
         if not backward:
             kw = dict(stride=stride, act=act, emit_stats=True, norm_scale=a,
                       norm_shift=t)
+            # bf16: statistics added in a fixed order, the same bits again
             cases.append(dict(
                 **kind('conv3x3', dtype), label=label,
                 kernel=lambda: conv.conv3x3(x, w, b, **kw),
                 plain=lambda: conv.conv3x3_plain(x, w, b, **kw),
                 library=lambda: F.conv2d(nchw(x), k, b, stride=stride,
                                          padding=1),
-                stats=2, flop=flop,
+                stats=2, fixed=() if dtype == f32 else (1, 2), flop=flop,
                 bytes=(nbytes(x, w, b, a, t) + x.element_size() * n_out
                        + 8 * B * cout)))
             return
@@ -509,6 +526,30 @@ def kernel_cases(gen, dev):
     k4_case(gen=g16, dtype=bf)
     preact_case(H0, W0, gen=g16, dtype=bf)
     preact_case(TILE, TILE, gen=g16, dtype=bf)
+    # the edges of the tensor-core core (csrc/igemm_tc.cuh) in bf16, from a
+    # generator of their own: ragged last pixel tiles (195 x 283: 25 x 18
+    # tiles of 8 x 16 pixels, the last row and column short), TMA boxes of
+    # weights past cout (24, 96), a
+    # 64-channel chunk half used (96), cin = 6 (the scalar staging), stride
+    # 2 at an odd size, the 8-column tile (cout = 3)
+    g_edge = torch.Generator(dev).manual_seed(gen.initial_seed() + 10)
+    he, we = h8 - 1, w8 - 1
+    for label, H, W, cin, cout, opts in (
+            ('edge ragged 64->64 %dx%d fold+swish+stats' % (he, we), he, we,
+             64, 64, dict(fold=True, act='swish')),
+            ('edge 64->24 %dx%d stats' % (he, we), he, we, 64, 24, {}),
+            ('edge 96->96 %dx%d fold+stats' % (he, we), he, we, 96, 96,
+             dict(fold=True)),
+            ('edge 6->64 %dx%d stats' % (he, we), he, we, 6, 64, {}),
+            ('edge stride 2 64->64 %dx%d stats' % (2 * he + 1, 2 * we + 1),
+             2 * he + 1, 2 * we + 1, 64, 64, dict(stride=2))):
+        conv_case(label, 1, H, W, cin, cout, gen=g_edge, dtype=bf, **opts)
+    # K3's at the frame's size with an odd width (27819 tiles of 128 and 96
+    # pixels): at 195 x 283 a 1x1 conv is as short as its launch
+    for cin, cout in ((96, 24), (6, 64), (64, 3)):
+        conv1x1_case(H0, W0 - 1, cin, cout, gen=g_edge, dtype=bf)
+    for cin, cout in ((64, 24), (96, 96)):
+        preact_case(he, we, cin=cin, cout=cout, gen=g_edge, dtype=bf)
     # the bf16 forms of the backward kernels at the train shapes, from a
     # generator of their own
     g17 = torch.Generator(dev).manual_seed(gen.initial_seed() + 17)
@@ -719,6 +760,7 @@ def phase_main(dev, seed, compute_dtype=None, phase='main'):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t
     launches = dict(_build.LAUNCHES)
+    TC[phase] = _build.tc_launches()
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     sr = trainer.get_current_visuals()['SR']
     if sr.shape != (11, 96, 96, 3) or not np.isfinite(sr).all():
@@ -781,6 +823,7 @@ def phase_sid(dev, seed, compute_dtype=None, phase='sid'):
     torch.cuda.synchronize()
     t_frame = time.perf_counter() - t
     launches = dict(_build.LAUNCHES)
+    TC[phase] = _build.tc_launches()
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     if (sr.shape != frame.shape or sr.dtype != torch.float32
             or not torch.isfinite(sr).all()):
@@ -849,9 +892,11 @@ def phase_bf16(dev, seed, counts, sr32):
     slice (K7's bf16 form), Trainer.test, and phase_sid's frame against its
     float32 result `sr32`."""
     import torch
+    from ucdir_tpu_torch.ops import _build
     bf = torch.bfloat16
     bf16_slice(dev, seed)
     counts['bf16_head'] = bf16_slice(dev, seed, dropout=0.0)
+    TC['bf16_head'] = _build.tc_launches()
     phase_main(dev, seed, 'bf16', phase='bf16')
     sr, counts['bf16'] = phase_sid(dev, seed, bf, phase='bf16')
     missing = [k for k, owner in OWNER.items()
@@ -861,6 +906,17 @@ def phase_bf16(dev, seed, counts, sr32):
              % missing)
     if counts['bf16_head']['conv3x3_preact_bf16'] == 0:
         fail('bf16: the dropout: 0 model never launched conv3x3_preact_bf16')
+    # K2, K3 and K7 in bf16 run on the tensor cores at every launch; no
+    # other kernel does, and none of the float32 frame
+    for path in ('bf16', 'bf16_head', 'sid'):
+        wrong = {k: (TC[path][k], n) for k, n in counts[path].items()
+                 if TC[path][k] != (n if k in _build.TC_ENTRIES else 0)}
+        if wrong:
+            fail('%s: launches through the tensor cores, of all launches: '
+                 '%s' % (path, wrong))
+    say('bf16', 'launches through the tensor-core core on the bf16 frame, '
+        'of all: %s' % json.dumps({k: [TC['bf16'][k], counts['bf16'][k]]
+                                   for k in _build.TC_ENTRIES}))
     d = (sr - sr32).abs()
     mean = d.mean().item()
     if not mean <= 0.05:
@@ -1061,6 +1117,7 @@ def train_steps(dev, trainer, hr, lq, steps, phase):
     torch.cuda.synchronize()
     secs = (time.perf_counter() - t) / (steps - 1)
     launches = dict(_build.LAUNCHES)
+    TC[phase] = _build.tc_launches()
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     if not all(math.isfinite(l) for l in losses):
         fail('%s: non-finite loss in %s' % (phase, losses))
@@ -1466,7 +1523,7 @@ def main(argv=None):
     phase_kernels(dev, args.seed, results)
     phase_slice(dev, args.seed)
     counts = {'main': phase_main(dev, args.seed)}
-    sr32, _ = phase_sid(dev, args.seed)
+    sr32, counts['sid'] = phase_sid(dev, args.seed)
     phase_bf16(dev, args.seed, counts, sr32)
     del sr32
     counts['train_slice'] = phase_train_slice(dev, args.seed)
@@ -1489,6 +1546,9 @@ def main(argv=None):
         kernels.append({
             'name': name, 'route': 'cuda', 'source': source,
             'replaces': replaces, 'launches': counts[OWNER[name]][name],
+            # of those, the launches through the tensor-core core (None:
+            # not read on that path)
+            'tc_launches': TC.get(OWNER[name], {}).get(name),
             'launches_by_path': {k: v[name] for k, v in counts.items()},
             'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
             'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],

@@ -152,9 +152,15 @@ def test_akgm_block_tail_bf16_matches_pallas(rng, fold):
     check_stats(got, s, q, want, ws, wq)
 
 
+# The edges of the bf16 kernels' tiles (csrc/igemm_tc.cuh), whose plain
+# versions the card holds the kernels against: a ragged last pixel tile of
+# 128 (9 x 15 = 135 pixels), cin = 6 (K = 54), cout = 3, stride 2 at odd
+# sizes.
+@pytest.mark.parametrize('B,H,W,cin,cout', [
+    (2, 8, 16, 16, 24), (1, 9, 15, 8, 16), (1, 7, 11, 6, 16),
+    (1, 9, 13, 16, 3)])
 @pytest.mark.parametrize('fold_act', [False, True])
-def test_conv3x3_bf16_matches_pallas(rng, fold_act):
-    B, H, W, cin, cout = 2, 8, 16, 16, 24
+def test_conv3x3_bf16_matches_pallas(rng, fold_act, B, H, W, cin, cout):
     (x,) = draws(rng, (B, H, W, cin))
     k, b = draws(rng, (3, 3, cin, cout), (cout,), scale=0.1)
     a, t = fold_draws(rng, B, cin, fold_act)
@@ -168,23 +174,37 @@ def test_conv3x3_bf16_matches_pallas(rng, fold_act):
     check_stats(got, s, q, want, ws, wq)
 
 
-def test_conv3x3_stride2_bf16_matches_pallas_downconv(rng):
-    B, H, W, cin, cout = 1, 16, 16, 8, 16
+@pytest.mark.parametrize('B,H,W,cin,cout', [
+    (1, 16, 16, 8, 16), (1, 9, 13, 8, 16), (1, 10, 13, 6, 3)])
+def test_conv3x3_stride2_bf16_matches_pallas_downconv(rng, B, H, W, cin,
+                                                      cout):
+    """At an odd size the port's stride-2 conv has (H + 1) // 2 rows, the
+    Pallas kernel H // 2 (the JAX model only downsamples even sizes): the
+    Pallas output is the port's first rows and columns. The port's
+    statistics are those of its whole output; those of the rows and columns
+    both sides compute are held against Pallas's."""
     (x,) = draws(rng, (B, H, W, cin))
     k, b = draws(rng, (3, 3, cin, cout), (cout,), scale=0.1)
     with pltpu.force_tpu_interpret_mode():
         want, ws, wq = _downconv_forward(J(x), J(k), J(b), emit_stats=True)
     got, (s, q) = conv3x3(T(x), T(k).reshape(9 * cin, cout), T(b), stride=2,
                           emit_stats=True)
-    assert got.shape == (B, H // 2, W // 2, cout)
-    check_out(got, want)
-    check_stats(got, s, q, want, ws, wq)
+    assert got.shape == (B, (H + 1) // 2, (W + 1) // 2, cout)
+    check_out(got[:, :H // 2, :W // 2], want)
+    if H % 2 == W % 2 == 0:
+        check_stats(got, s, q, want, ws, wq)
+    else:
+        check_stats(got, s, q, got, s, q)
+        crop = got[:, :H // 2, :W // 2].float()
+        check_stats(crop, crop.sum((1, 2)), (crop * crop).sum((1, 2)), want,
+                    ws, wq)
 
 
-def test_upconv2x_bf16_matches_pallas(rng):
+@pytest.mark.parametrize('B,H,W,cin,cout', [(1, 8, 10, 8, 12),
+                                             (1, 9, 15, 6, 3)])
+def test_upconv2x_bf16_matches_pallas(rng, B, H, W, cin, cout):
     """B5 on the TPU: the packed weights in bf16 (the taps of a source pixel
     added, then rounded), then B2 on them, then depth-to-space."""
-    B, H, W, cin, cout = 1, 8, 10, 8, 12
     (x,) = draws(rng, (B, H, W, cin))
     k, b = draws(rng, (3, 3, cin, cout), (cout,), scale=0.1)
     kp = _pack_up_kernel(J(k)).astype(jnp.bfloat16)
@@ -203,9 +223,10 @@ def test_upconv2x_bf16_matches_pallas(rng):
                 f32(wq).reshape(B, 4, cout).sum(1))
 
 
+@pytest.mark.parametrize('B,H,W,cin,cout', [
+    (2, 8, 16, 24, 16), (1, 9, 15, 6, 3), (1, 11, 13, 8, 24)])
 @pytest.mark.parametrize('act', [None, 'swish'])
-def test_conv1x1_bf16_matches_pallas(rng, act):
-    B, H, W, cin, cout = 2, 8, 16, 24, 16
+def test_conv1x1_bf16_matches_pallas(rng, act, B, H, W, cin, cout):
     (x,) = draws(rng, (B, H, W, cin))
     k, b = draws(rng, (1, 1, cin, cout), (cout,), scale=0.2)
     with pltpu.force_tpu_interpret_mode():
@@ -213,8 +234,9 @@ def test_conv1x1_bf16_matches_pallas(rng, act):
     check_out(conv1x1(T(x), T(k).reshape(cin, cout), T(b), act=act), want)
 
 
-def test_conv3x3_preact_bf16_matches_pallas(rng):
-    B, H, W, cin, cout = 2, 8, 16, 16, 3
+@pytest.mark.parametrize('B,H,W,cin,cout', [
+    (2, 8, 16, 16, 3), (1, 9, 15, 6, 24), (1, 11, 13, 16, 3)])
+def test_conv3x3_preact_bf16_matches_pallas(rng, B, H, W, cin, cout):
     (x,) = draws(rng, (B, H, W, cin))
     k, b = draws(rng, (3, 3, cin, cout), (cout,), scale=0.1)
     a, t = fold_draws(rng, B, cin, True)

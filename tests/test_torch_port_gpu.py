@@ -30,7 +30,15 @@ K2 and K3 run on tiles of 128 pixels by 128 or 8 columns, or 256 by 64, in k
 slices of 16: their cases include cout 3, 8, 9 and 130, cin 4, 6 and 70, P
 one short of and one past a pixel tile, stride 2 on odd sizes and B = 3.
 The bf16 forms of K1, K2, K3, K4 and K7 (`_bf16` tests) take the same cases
-in bfloat16 against the bf16 plain versions, and those of K5 and K6 cases at
+in bfloat16 against the bf16 plain versions; K2, K3 and K7 in bf16 run on
+the tensor-core core (`csrc/igemm_tc.cuh`: wgmma, tiles of 8 x 16 pixels for
+the 3x3 convolutions, 128 for the 1x1, by 128, 64 or 8 columns), every
+launch of theirs counted through it, and its edges have tests of their own
+(`tensor_core` tests: ragged last tiles, cin = 6 and 96, cout = 3, 24, 64,
+96 and 512, stride 2 at odd sizes, the packed upsampling, with and without
+fold, swish and statistics; K2's statistics, added per pixel tile in a
+fixed order, and K3's output the same bits in a second call). Those of K5
+and K6 take cases at
 C = 32, 64, 192 and 512 (dW, dbias and dattw the same bits in a second
 call); the plain versions round where the kernels do: every output
 within one bf16 ulp of max(1, |reference|), 2^-7 of it, and at least 99%
@@ -556,10 +564,13 @@ def bf16(*ts):
 
 
 def launched(name, fn):
-    n = dict(_build.LAUNCHES)
+    n, tc = dict(_build.LAUNCHES), _build.tc_launches()
     out = fn()
     assert _build.LAUNCHES[name + '_bf16'] == n[name + '_bf16'] + 1
     assert _build.LAUNCHES[name] == n[name]
+    # K2, K3 and K7 in bf16 go through the tensor cores, nothing else does
+    assert (_build.tc_launches()[name + '_bf16']
+            == tc[name + '_bf16'] + (name + '_bf16' in _build.TC_ENTRIES))
     return out
 
 
@@ -628,6 +639,117 @@ def test_conv3x3_preact_bf16(dev, B, H, W, cin, cout):
     x, w, b, a, t = bf16(x, w, b, a, t)
     check_bf16(launched('conv3x3_preact', lambda: conv.conv3x3_preact(
         x, w, b, a, t)), conv.conv3x3_preact_plain(x, w, b, a, t), 0)
+
+
+# ---- the tensor-core core's edges: the ragged last pixel tile, cin = 6 (K =
+# 54 in one slice), cin = 96 (a 64-channel chunk half used), cout = 3 (the
+# 8-column tile, weights stored by the producers), 24 and 96 (TMA boxes past
+# cout), 64 and 512 (the 64- and 128-column tiles), stride 2 at an odd width
+TC_CONV3X3 = [
+    (1, 11, 13, 64, 64, 1), (2, 9, 15, 6, 64, 1), (1, 10, 13, 64, 3, 1),
+    (1, 12, 11, 64, 24, 1), (1, 7, 19, 96, 96, 1), (1, 6, 22, 256, 512, 1),
+    (2, 13, 17, 64, 64, 2), (1, 15, 21, 96, 24, 2)]
+
+
+@pytest.mark.parametrize('B,H,W,cin,cout,stride', TC_CONV3X3)
+@pytest.mark.parametrize('fold', [False, True])
+@pytest.mark.parametrize('act', [None, 'swish'])
+@pytest.mark.parametrize('emit_stats', [False, True])
+def test_conv3x3_bf16_tensor_core_edges(dev, B, H, W, cin, cout, stride,
+                                        fold, act, emit_stats):
+    gen = torch.Generator(dev).manual_seed(20)
+    x = rnd(gen, B, H, W, cin, scale=0.5)
+    w = rnd(gen, 9 * cin, cout, scale=(9 * cin) ** -0.5)
+    b = rnd(gen, cout, scale=0.1)
+    a, t = rnd(gen, B, cin, off=1.0), rnd(gen, B, cin, scale=0.2)
+    x, w, b, a, t = bf16(x, w, b, a, t)
+    kw = dict(stride=stride, act=act, emit_stats=emit_stats)
+    if fold:
+        kw.update(norm_scale=a, norm_shift=t)
+    got = launched('conv3x3', lambda: conv.conv3x3(x, w, b, **kw))
+    check_bf16(got, conv.conv3x3_plain(x, w, b, **kw), 2 * emit_stats)
+
+
+@pytest.mark.parametrize('cout', [24, 64])
+@pytest.mark.parametrize('emit_stats', [False, True])
+def test_upconv2x_bf16_tensor_core(dev, cout, emit_stats):
+    """The packed upsampling: K2 on (9 * cin, 4 * cout) phase-packed
+    weights, a ragged last pixel tile."""
+    gen = torch.Generator(dev).manual_seed(21)
+    cin = 64
+    x = rnd(gen, 1, 9, 17, cin, scale=0.5).to(BF)
+    k = rnd(gen, 3, 3, cin, cout, scale=(9 * cin) ** -0.5).to(BF)
+    b = rnd(gen, cout, scale=0.1).to(BF)
+    wp = conv.pack_up_kernel(k).reshape(9 * cin, 4 * cout).contiguous()
+    bp = b.repeat(4)
+    got = launched('conv3x3', lambda: conv.upconv2x(x, wp, bp,
+                                                    emit_stats=emit_stats))
+    want = conv.conv3x3_plain(x, wp, bp, emit_stats=emit_stats)
+    if emit_stats:
+        y, (s, q) = want
+        want = (conv.depth_to_space2(y), (s.reshape(1, 4, cout).sum(1),
+                                          q.reshape(1, 4, cout).sum(1)))
+    else:
+        want = conv.depth_to_space2(want)
+    check_bf16(got, want, 2 * emit_stats)
+
+
+TC_PREACT = [(1, 11, 13, 64, 3), (2, 9, 15, 6, 24), (1, 10, 13, 64, 64),
+             (1, 7, 19, 96, 96), (1, 6, 22, 128, 512)]
+
+
+@pytest.mark.parametrize('B,H,W,cin,cout', TC_PREACT)
+def test_conv3x3_preact_bf16_tensor_core_edges(dev, B, H, W, cin, cout):
+    gen = torch.Generator(dev).manual_seed(22)
+    x = rnd(gen, B, H, W, cin, scale=0.5)
+    w = rnd(gen, 9 * cin, cout, scale=(9 * cin) ** -0.5)
+    b = rnd(gen, cout, scale=0.1)
+    a, t = rnd(gen, B, cin, off=1.0), rnd(gen, B, cin, scale=2.0)
+    x, w, b, a, t = bf16(x, w, b, a, t)
+    check_bf16(launched('conv3x3_preact', lambda: conv.conv3x3_preact(
+        x, w, b, a, t)), conv.conv3x3_preact_plain(x, w, b, a, t), 0)
+
+
+# K3: TMA for both operands where cin % 8 == 0 (a ragged last tile of the
+# B * H * W rows), the producers' scalar path at cin = 6 and 70, the 8-column
+# tile at cout = 3
+TC_CONV1X1 = [(1, 11, 13, 64, 64), (2, 9, 15, 6, 64), (1, 10, 13, 64, 3),
+              (1, 12, 11, 64, 24), (2, 7, 19, 96, 96), (1, 6, 22, 1024, 512),
+              (1, 5, 7, 70, 128)]
+
+
+@pytest.mark.parametrize('B,H,W,cin,cout', TC_CONV1X1)
+@pytest.mark.parametrize('act', [None, 'swish'])
+def test_conv1x1_bf16_tensor_core_edges(dev, B, H, W, cin, cout, act):
+    gen = torch.Generator(dev).manual_seed(23)
+    x = rnd(gen, B, H, W, cin, scale=0.5)
+    w, b = rnd(gen, cin, cout, scale=cin ** -0.5), rnd(gen, cout, scale=0.1)
+    x, w, b = bf16(x, w, b)
+    check_bf16(launched('conv1x1', lambda: conv.conv1x1(x, w, b, act=act)),
+               conv.conv1x1_plain(x, w, b, act=act), 0)
+
+
+@pytest.mark.parametrize('B,H,W,cin,cout,stride', [
+    (1, 40, 37, 64, 64, 1), (2, 33, 65, 192, 128, 1), (1, 29, 31, 6, 64, 1),
+    (1, 41, 43, 64, 3, 2)])
+def test_conv3x3_bf16_statistics_repeat_bit_for_bit(dev, B, H, W, cin, cout,
+                                                     stride):
+    """K2's bf16 statistics are added per pixel tile and then over the tiles
+    in a fixed order, no atomics: a second call gives the same bits; so does
+    K3's output."""
+    gen = torch.Generator(dev).manual_seed(24)
+    x = rnd(gen, B, H, W, cin, scale=0.5)
+    w = rnd(gen, 9 * cin, cout, scale=(9 * cin) ** -0.5)
+    b = rnd(gen, cout, scale=0.1)
+    a, t = rnd(gen, B, cin, off=1.0), rnd(gen, B, cin, scale=0.2)
+    x, w, b, a, t = bf16(x, w, b, a, t)
+    kw = dict(stride=stride, act='swish', emit_stats=True, norm_scale=a,
+              norm_shift=t)
+    first, second = (flat(conv.conv3x3(x, w, b, **kw)) for _ in range(2))
+    for f, s in zip(first, second):
+        assert torch.equal(f, s)
+    w1 = rnd(gen, cin, cout, scale=cin ** -0.5).to(BF)
+    assert torch.equal(conv.conv1x1(x, w1, b), conv.conv1x1(x, w1, b))
 
 
 # ---- the bf16 forms of K5 and K6 (training under --compute_dtype bf16)

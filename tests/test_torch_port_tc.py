@@ -1,19 +1,18 @@
-"""The arithmetic of a 3xTF32 product on the tensor cores, emulated in plain
-PyTorch on the CPU: what a tensor-core form of the convolutions K2, K3 and K7
-computes, and what any later one (wgmma, see ROADMAP.md) has to keep.
+"""Tensor-core arithmetic emulated in plain PyTorch on the CPU.
 
-K2, K3 and K7 ship with an fp32 FMA product (`ucdir_tpu_torch/csrc/
-igemm_pc.cuh`); the tensor-core form was built and measured in the same
-pipeline (PERF.md). It multiplies in TF32 with the 3xTF32 split: every
-staged value v becomes hi = rna_tf32(v) and lo = rna_tf32(v - hi), and a k8
-step of the product is lo * hi + hi * lo + hi * hi, summed from 0 and added to
-the running float32 sum. Here the same arithmetic runs in float32 tensors
-whose values are TF32 numbers (a product of two of them is exact in float32),
-rounded to TF32 by bit arithmetic on the int32 view (round to nearest, ties
-away from 0, what `cvt.rna.tf32.f32` does), at the depths K of the main
-path's shapes and with the operand scales of `chip_smoke.py`'s cases:
-downs_0 (K = 54), conv1 192 -> 64 (K = 1728) and conv1 1024 -> 512 (K =
-9216).
+The 3xTF32 product: what a tensor-core form of the float32 convolutions K2,
+K3 and K7 computes, and what any later one has to keep. K2, K3 and K7 ship
+with an fp32 FMA product in float32 (`ucdir_tpu_torch/csrc/igemm_pc.cuh`);
+the tensor-core form was built and measured in the same pipeline (PERF.md).
+It multiplies in TF32 with the 3xTF32 split: every staged value v becomes hi
+= rna_tf32(v) and lo = rna_tf32(v - hi), and a k8 step of the product is lo
+* hi + hi * lo + hi * hi, summed from 0 and added to the running float32 sum.
+Here the same arithmetic runs in float32 tensors whose values are TF32
+numbers (a product of two of them is exact in float32), rounded to TF32 by
+bit arithmetic on the int32 view (round to nearest, ties away from 0, what
+`cvt.rna.tf32.f32` does), at the depths K of the main path's shapes and with
+the operand scales of `chip_smoke.py`'s cases: downs_0 (K = 54), conv1 192
+-> 64 (K = 1728) and conv1 1024 -> 512 (K = 9216).
 
 Tolerances: hi + lo is within 2^-22 of v (2^-23 by the rounding of lo, which
 has at most 12 significant bits of which TF32 keeps 11; one bit of margin);
@@ -21,6 +20,21 @@ the three-term product's largest error against float64 is within 2x the
 float32 product's (both sum k8 partial sums in the same order); the one-term
 TF32 product misses 1e-5, the limit the port holds end to end, which is why
 a tensor-core product needs the split.
+
+The bf16 product of the bf16 forms of K2, K3 and K7 (`csrc/igemm_tc.cuh`):
+wgmma on bf16 operands with float32 accumulators, the sum running over k16
+chunks. A product of two bf16 values has at most 16 significant bits, so it
+is exact in float32. How the tensor core adds a chunk's products into its
+float32 accumulator is its own (it does not round each addition to nearest
+as IEEE fmaf does), so this is no model of the card's arithmetic: it bounds
+what reordering the float32 sums in k16 chunks does. Emulated here with the
+chunk's sum taken in float64 and rounded once into the float32 running sum,
+against the sequential fmaf of the FMA core (each step rounded once to
+float32), both outputs rounded to bf16: they differ by far less than phase
+2's bf16 limit, one bf16 ulp of max(1, largest) (2^-7 of it; `chip_smoke.py`
+kernel_cases `kind`), at the same depths and scales. What holds the card's
+own accumulation to that limit is phase 2 of `chip_smoke.py` and the GPU
+tests (`tests/test_torch_port_gpu.py`).
 """
 import numpy as np
 import pytest
@@ -156,3 +170,60 @@ def test_truncating_instead_of_rounding_is_worse(K):
     hi, lo = split_tf32(a)
     rna = (hi.double() + lo.double() - a.double()).abs().max().item()
     assert rna < trunc
+
+
+BF16 = torch.bfloat16
+
+
+def bf16_operands(K, seed, m=48, n=24):
+    """operands() rounded to bf16, the values both bf16 products see."""
+    return tuple(t.to(BF16).float() for t in operands(K, seed, m, n))
+
+
+def product_fmaf(a, b):
+    """The FMA core's product: one float32 accumulator per output, k in
+    ascending order, each step a*b + acc rounded once to float32."""
+    acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
+    for k in range(a.shape[1]):
+        acc = (a[:, k:k + 1].double() * b[k].double()
+               + acc.double()).float()
+    return acc
+
+
+def product_k16(a, b):
+    """The tensor-core product: each k16 chunk's products summed exactly
+    (float64) and added once into the float32 running sum."""
+    acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
+    for k in range(0, a.shape[1], 16):
+        acc = (acc.double() + a[:, k:k + 16].double()
+               @ b[k:k + 16].double()).float()
+    return acc
+
+
+@pytest.mark.parametrize('K', DEPTHS)
+def test_bf16_products_are_exact_in_float32(K):
+    a, b = bf16_operands(K, 5)
+    prod32 = a[:, :, None] * b[None]
+    prod64 = a.double()[:, :, None] * b.double()[None]
+    assert torch.equal(prod32.double(), prod64)
+
+
+@pytest.mark.parametrize('K', DEPTHS)
+def test_bf16_k16_sums_meet_the_phase2_limit(K):
+    """Rounded to bf16, the k16-chunk product and the sequential fmaf
+    product differ by less than one bf16 ulp of max(1, largest): reordering
+    the float32 sums in k16 chunks stays within phase 2's limit."""
+    a, b = bf16_operands(K, 6)
+    pad = -a.shape[1] % 16                        # K padded to k16 with 0
+    a = torch.nn.functional.pad(a, (0, pad))
+    b = torch.nn.functional.pad(b, (0, 0, 0, pad))
+    assert a.shape[1] % 16 == 0
+    fma = product_fmaf(a, b).to(BF16).float()
+    tc = product_k16(a, b).to(BF16).float()
+    limit = 2. ** -7 * max(1.0, fma.abs().max().item())
+    err = (tc - fma).abs().max().item()
+    assert err <= limit, (err, limit)
+    # and both are float32-grade against float64 before the rounding
+    exact = a.double() @ b.double()
+    for p in (product_fmaf(a, b), product_k16(a, b)):
+        assert (p.double() - exact).abs().max().item() <= 1e-5

@@ -14,7 +14,8 @@ times three steps with the host clock around `torch.cuda.synchronize()`, then
 traces one more step with `torch.profiler` and prints: seconds per step, peak
 memory, the device's busy time and idle share inside the traced step, the
 time of each CUDA kernel by name (top 30), the port's kernels by launch (K1's
-two: the product and its statistics' reduction; K5's and K6's three: z
+two and K2 bf16's two: the product and its statistics' reduction; K2, K3
+and K7 in bf16 on the tensor cores apart from their FMA forms; K5's and K6's three: z
 recompute, weight gradient and its reduction, input gradient) and the
 launches of K1..K6 in that step, and the casts' time (`aten::_to_copy` and
 its copy kernels: the parameters' cast to bf16 and the casts around
@@ -122,6 +123,11 @@ PARTS = (
     (('conv_pc_kernel', 'Raw'), 'K3'),
     (('conv_pc_kernel', 'Preact'), 'K7'),
     (('conv_pc_kernel', 'Affine'), 'K2'),
+    # the bf16 forms of K2, K3 and K7 on the tensor cores (igemm_tc.cuh)
+    (('conv_tc_kernel', 'Raw'), 'K3 bf16 (tensor cores)'),
+    (('conv_tc_kernel', 'Preact'), 'K7 bf16 (tensor cores)'),
+    (('conv_tc_kernel', 'Affine'), 'K2 bf16 (tensor cores)'),
+    (('conv_stats_kernel',), 'K2 bf16 statistics reduction'),
     (('akgm_tail_kernel', ', true,'), 'K1'),
     (('stats_reduce_kernel',), 'K1 statistics reduction'),
     (('akgm_tail_kernel', ', false,'), 'K8'),

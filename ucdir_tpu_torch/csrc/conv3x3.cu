@@ -24,12 +24,20 @@
 // statistics through warp shuffles. K7 at the head (64 -> 3) takes the 8-wide
 // tile; it still evaluates one expf per staged element, nine per input value,
 // so the staging bounds it.
-// The _bf16 entry points are the same kernels on bf16 operands and outputs
-// (the TPU kernels' bf16 instantiation): half the bytes, the same fp32 FMA
-// product, the roundings of igemm_pc.cuh's Elem<bf16>. Bound, in counted
-// bytes at 2 a value over 3.35 TB/s and counted FLOP over 67 TFLOP/s: the
-// operations still, except at the 64 -> 3 head.
-#include "igemm_pc.cuh"
+// The _bf16 entry points (the TPU kernels' bf16 instantiation) run on the
+// tensor-core core of igemm_tc.cuh: a bf16 wgmma product with fp32
+// accumulation, the staging rounded where the TPU kernels' bf16 arithmetic
+// rounds, the statistics per pixel tile into a workspace the caller
+// allocates, added in a fixed order. Bound, in counted FLOP at 989 TFLOP/s
+// (bf16 on the tensor cores) or counted bytes at 2 a value over 3.35 TB/s:
+// the product at the main path's widths (conv1 1024 -> 512 at 196 x 284:
+// 0.531 ms), the bytes at downs_0 and the 64 -> 3 heads. What the design
+// does about it: the product at the tensor cores' rate from a 4-stage
+// mbarrier ring, the weights by TMA, and producer warps that stage each
+// 64-channel chunk of a tile's halo once (fold and swish applied once) and
+// copy each tap's rows from it; the product side and that staging, which
+// share shared memory's bandwidth, bound it now (PERF.md §7).
+#include "igemm_tc.cuh"
 
 namespace {
 
@@ -63,6 +71,26 @@ ucdir::pc::ConvArgsT<E> conv_args(const E* x, const E* w, const E* bias,
   return c;
 }
 
+ucdir::tc::TcArgs tc_args(const bf16* x, const bf16* w, const bf16* bias,
+                          const bf16* a, const bf16* t, bf16* out, float* ws,
+                          int H, int W, int cin, int cout, int stride,
+                          int act) {
+  const ucdir::pc::ConvArgsT<bf16> c = conv_args(
+      x, w, bias, a, t, out, nullptr, nullptr, H, W, cin, cout, stride, act);
+  ucdir::tc::TcArgs p = {};
+  p.x = x;
+  p.w = w;
+  p.bias = bias;
+  p.a = a;
+  p.t = t;
+  p.out = out;
+  p.ws = ws;
+  p.g = c.g;
+  p.cout = cout;
+  p.act = act;
+  return p;
+}
+
 }  // namespace
 
 // x (B, H, W, cin) NHWC; w (9 * cin, cout) with row tap * cin + ci; bias
@@ -91,17 +119,18 @@ extern "C" int ucdir_conv3x3_preact(const float* x, const float* w,
       B, (cudaStream_t)stream);
 }
 
-// K2 and K7 in bf16: x, w, bias, a, t and out bf16; ssum, ssq float.
+// K2 and K7 in bf16 on the tensor cores: x, w, bias, a, t and out bf16;
+// ssum, ssq (B, cout) float, written whole from ws, a float (B, 2, cout,
+// ceil(Ho * Wo / 128)) workspace, or all three null.
 extern "C" int ucdir_conv3x3_bf16(const bf16* x, const bf16* w,
                                   const bf16* bias, const bf16* a,
                                   const bf16* t, bf16* out, float* ssum,
-                                  float* ssq, int B, int H, int W, int cin,
-                                  int cout, int stride, int act,
+                                  float* ssq, float* ws, int B, int H, int W,
+                                  int cin, int cout, int stride, int act,
                                   void* stream) {
-  return ucdir::pc::launch_conv<ucdir::pc::Affine>(
-      conv_args(x, w, bias, a, t, out, ssum, ssq, H, W, cin, cout, stride,
-                act),
-      B, (cudaStream_t)stream);
+  return ucdir::tc::launch_conv<ucdir::pc::Affine>(
+      tc_args(x, w, bias, a, t, out, ws, H, W, cin, cout, stride, act), ssum,
+      ssq, B, (cudaStream_t)stream, ucdir::tc::TC_CONV3X3);
 }
 
 extern "C" int ucdir_conv3x3_preact_bf16(const bf16* x, const bf16* w,
@@ -109,8 +138,15 @@ extern "C" int ucdir_conv3x3_preact_bf16(const bf16* x, const bf16* w,
                                          const bf16* t, bf16* out, int B,
                                          int H, int W, int cin, int cout,
                                          void* stream) {
-  return ucdir::pc::launch_conv<ucdir::pc::Preact>(
-      conv_args(x, w, bias, a, t, out, nullptr, nullptr, H, W, cin, cout, 1,
-                0),
-      B, (cudaStream_t)stream);
+  return ucdir::tc::launch_conv<ucdir::pc::Preact>(
+      tc_args(x, w, bias, a, t, out, nullptr, H, W, cin, cout, 1, 0),
+      nullptr, nullptr, B, (cudaStream_t)stream, ucdir::tc::TC_PREACT);
+}
+
+// Launches of the tensor-core core since the library was loaded, of entry
+// point `entry`: 0 ucdir_conv3x3_bf16 (K2), 1 ucdir_conv3x3_preact_bf16
+// (K7), 2 ucdir_conv1x1_bf16 (K3); -1 for any other.
+extern "C" long long ucdir_tc_launches(int entry) {
+  if (entry < 0 || entry >= ucdir::tc::TC_ENTRIES) return -1;
+  return ucdir::tc::launch_count(entry);
 }

@@ -69,9 +69,11 @@
 // the loads of a quarter warp would hit every bank twice.
 //
 // Element type E of the operands in device memory (Elem<E> below): float,
-// or bf16 for K1, K2, K3 and K7 and the backward kernels K5 and K6 (the TPU
+// or bf16 for K1 and the backward kernels K5 and K6 (the TPU
 // kernels' bf16 instantiation, validation and training under
-// --compute_dtype bf16). The producers load bf16 (a 4-wide run is 8 bytes,
+// --compute_dtype bf16). The bf16 forms of K2, K3 and K7 run on the tensor
+// cores instead (igemm_tc.cuh), which reuses Geom, Elem<bf16> and the
+// staging functors below. The producers load bf16 (a 4-wide run is 8 bytes,
 // half the bytes of float) and convert it to float as they stage it, so
 // shared memory, the consumers and their fp32 FMA product are the same for
 // both; the epilogue rounds each output once to nearest even and takes the

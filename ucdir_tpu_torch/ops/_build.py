@@ -11,7 +11,10 @@ Every C entry point launches on the stream it is given, allocates nothing,
 does not synchronise, and returns `cudaGetLastError()`; `launch` raises when
 that is not 0 and counts the launch in `LAUNCHES`. K1..K7 have a second
 entry point for bfloat16 operands, `ucdir_<kernel>_bf16` (`entry`), counted
-under its own name; K8 and K9 take float32.
+under its own name; K8 and K9 take float32. The bf16 forms of K2, K3 and K7
+run on the tensor-core core `csrc/igemm_tc.cuh`, which counts its own
+successful launches per entry point (`ucdir_tc_launches`); `tc_launches()`
+reads them.
 """
 from __future__ import annotations
 
@@ -38,6 +41,10 @@ LAUNCHES = {'akgm_tail': 0, 'conv3x3': 0, 'conv1x1': 0, 'gn1_stats': 0,
             'akgm_tail_bf16': 0, 'conv3x3_bf16': 0, 'conv1x1_bf16': 0,
             'gn1_stats_bf16': 0, 'conv3x3_preact_bf16': 0,
             'akgm_tail_bwd_bf16': 0, 'conv3x3_bwd_bf16': 0}
+# the entry points on the tensor-core core, in the order of the library's
+# counters (`ucdir_tc_launches(i)`), and the counts at the last reset
+TC_ENTRIES = ('conv3x3_bf16', 'conv3x3_preact_bf16', 'conv1x1_bf16')
+_tc_base = [0] * len(TC_ENTRIES)
 # the kernels with a bfloat16 entry point, `<kernel>_bf16`
 BF16_KERNELS = ('akgm_tail', 'conv3x3', 'conv1x1', 'gn1_stats',
                 'conv3x3_preact', 'akgm_tail_bwd', 'conv3x3_bwd')
@@ -56,11 +63,35 @@ _SIGNATURES = {
     'akgm_packed': [_P] * 9 + [_I] * 4 + [_P],
 }
 _SIGNATURES.update({k + '_bf16': _SIGNATURES[k] for k in BF16_KERNELS})
+# K2's bf16 form takes a workspace for its fixed-order statistics
+_SIGNATURES['conv3x3_bf16'] = [_P] * 9 + [_I] * 7 + [_P]
 
 
 def reset_launches():
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    if _loaded():
+        _tc_base[:] = _tc_counts()
+
+
+def tc_launches():
+    """Per kernel as in LAUNCHES, the launches since the last
+    reset_launches() that went through the tensor-core core, as the library
+    counts them (all 0 where the library was never loaded)."""
+    out = dict.fromkeys(LAUNCHES, 0)
+    if _loaded():
+        for name, n, base in zip(TC_ENTRIES, _tc_counts(), _tc_base):
+            out[name] = n - base
+    return out
+
+
+def _loaded():
+    return library.cache_info().currsize > 0
+
+
+def _tc_counts():
+    lib = library()
+    return [lib.ucdir_tc_launches(i) for i in range(len(TC_ENTRIES))]
 
 
 def _nvcc() -> str:
@@ -129,6 +160,8 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, 'ucdir_' + name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    lib.ucdir_tc_launches.argtypes = [_I]
+    lib.ucdir_tc_launches.restype = ctypes.c_longlong
     return lib
 
 

@@ -113,6 +113,17 @@ def _flat(out):
     return [out]
 
 
+# K2's bf16 form (`csrc/igemm_tc.cuh`) stores the statistics of each pixel
+# tile of 8 x 16 output pixels into a (B, 2, cout, tiles) float32 workspace
+# that the wrapper allocates, and adds the tiles in a fixed order.
+STATS_TILE = (8, 16)
+
+
+def stats_tiles(Ho, Wo):
+    """The pixel tiles of an Ho x Wo output."""
+    return -(-Ho // STATS_TILE[0]) * -(-Wo // STATS_TILE[1])
+
+
 def _conv3x3_forward(x, w, bias, stride, act, norm_scale, norm_shift,
                      emit_stats):
     """(out, sum, sumsq), the last two None without emit_stats: K2 on a CUDA
@@ -133,15 +144,23 @@ def _conv3x3_forward(x, w, bias, stride, act, norm_scale, norm_shift,
     _build.check('norm_shift', norm_shift, (B, cin), device=dev, dtype=dt)
     Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
     out = torch.empty(B, Ho, Wo, cout, device=dev, dtype=dt)
-    s = q = None
+    s = q = ws = None
     if emit_stats:
-        s = torch.zeros(B, cout, device=dev, dtype=torch.float32)
-        q = torch.zeros_like(s)
+        # float32: zeroed sums the kernel adds into; bf16: per-tile sums in
+        # a workspace, added in a fixed order into sums it writes whole
+        new = torch.zeros if dt == torch.float32 else torch.empty
+        s = new(B, cout, device=dev, dtype=torch.float32)
+        q = new(B, cout, device=dev, dtype=torch.float32)
+        if dt == torch.bfloat16:
+            ws = torch.empty(B, 2, cout, stats_tiles(Ho, Wo), device=dev,
+                             dtype=torch.float32)
+    ptrs = (_build.ptr(s), _build.ptr(q))
+    if dt == torch.bfloat16:
+        ptrs += (_build.ptr(ws),)
     _build.launch(kernel, x.data_ptr(), w.data_ptr(), bias.data_ptr(),
                   _build.ptr(norm_scale), _build.ptr(norm_shift),
-                  out.data_ptr(), _build.ptr(s), _build.ptr(q),
-                  B, H, W, cin, cout, stride, int(act == 'swish'),
-                  _build.stream(x))
+                  out.data_ptr(), *ptrs, B, H, W, cin, cout, stride,
+                  int(act == 'swish'), _build.stream(x))
     return out, s, q
 
 
