@@ -37,16 +37,18 @@ on any failure:
               bytes at 2 a value and the counted FLOP at 989 TFLOP/s (bf16
               on the tensor cores, dense), with the fp32 FMA product's issue
               time at 67 TFLOP/s printed beside it (K1's and K4's bf16
-              forms run that product; K2's, K3's and K7's run on the tensor
-              cores, csrc/igemm_tc.cuh, and K2's bf16 statistics must be
-              equal bit for bit in a second call); the edges of that core
+              forms run that product; K2's, K3's, K5's, K6's and K7's run
+              on the tensor cores, csrc/igemm_tc.cuh, and K2's bf16
+              statistics must be equal bit for bit in a second call); the
+              edges of that core
               in bf16 (ragged last tiles at 195 x 283, cout 24 and 96, cin 6
               and 96, stride 2 at 391 x 567, K3 at 1568 x 2271 with cin 96,
               6 and cout 3, K7 at cout 24 and 96); and the bf16 forms of K5
               and K6 at the train shapes of
               their fp32 cases, held alike (their dW, dbias and K5's
               attention gradients bit-identical in a second call), the
-              library `aten.convolution_backward` in bf16.
+              library `aten.convolution_backward` in bf16; they too run on
+              the tensor cores.
   3. slice    the full-width SID model (random weights from --seed) restores
               a 96 x 96 input with 2 steps and injected noise on the card and
               on the host (plain versions); the outputs must agree.
@@ -90,8 +92,9 @@ on any failure:
               96 x 96 input.
   7b. train_bf16  the same steps with --compute_dtype bf16 (5, the first a
               warm-up): seconds per step, peak memory, only the bf16 forms
-              of K1..K6 launched, masters, gradients, AdamW state, EMA and
-              the saved weights float32.
+              of K1..K6 launched, every call of K5, K6 (and K2, K3) in bf16
+              through the tensor-core core, masters, gradients, AdamW
+              state, EMA and the saved weights float32.
   8. variants the full-width model with `dropout: 0` (folded head, K7) and
               each AKGM tail ('fused' K1, 'mix' K8, 'packed' K9) restores a
               256 x 256 input with 2 DDPM steps and injected noise on the
@@ -619,7 +622,7 @@ def phase_kernels(dev, seed, results):
         t_bytes = 1e3 * case['bytes'] / HBM_BYTES_PER_S
         rate = case.get('flop_per_s', FP32_FLOP_PER_S)
         t_flop = 1e3 * case['flop'] / rate
-        # a bf16 form's product runs as fp32 FMA: its issue time alone
+        # a bf16 form's product as fp32 FMA (K1's): its issue time alone
         t_fma = 1e3 * case['flop'] / FP32_FLOP_PER_S
         r = results.setdefault(name, {
             'max_abs_err': 0.0, 'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0,
@@ -907,16 +910,9 @@ def phase_bf16(dev, seed, counts, sr32):
     if counts['bf16_head']['conv3x3_preact_bf16'] == 0:
         fail('bf16: the dropout: 0 model never launched conv3x3_preact_bf16')
     # K2, K3 and K7 in bf16 run on the tensor cores at every launch; no
-    # other kernel does, and none of the float32 frame
+    # other kernel of the frame does, and none of the float32 frame
     for path in ('bf16', 'bf16_head', 'sid'):
-        wrong = {k: (TC[path][k], n) for k, n in counts[path].items()
-                 if TC[path][k] != (n if k in _build.TC_ENTRIES else 0)}
-        if wrong:
-            fail('%s: launches through the tensor cores, of all launches: '
-                 '%s' % (path, wrong))
-    say('bf16', 'launches through the tensor-core core on the bf16 frame, '
-        'of all: %s' % json.dumps({k: [TC['bf16'][k], counts['bf16'][k]]
-                                   for k in _build.TC_ENTRIES}))
+        tensor_cores_only(path, counts[path])
     d = (sr - sr32).abs()
     mean = d.mean().item()
     if not mean <= 0.05:
@@ -1203,6 +1199,21 @@ def phase_train(dev, seed):
     return launches
 
 
+def tensor_cores_only(path, launches):
+    """Fails unless every launch on `path` of an entry point of the
+    tensor-core core (`_build.TC_ENTRIES`: K2, K3, K5, K6 and K7 in bf16)
+    went through it, and no other entry point's did."""
+    from ucdir_tpu_torch.ops import _build
+    wrong = {k: (TC[path][k], n) for k, n in launches.items()
+             if TC[path][k] != (n if k in _build.TC_ENTRIES else 0)}
+    if wrong:
+        fail('%s: launches through the tensor cores, of all launches: %s'
+             % (path, wrong))
+    say(path, 'launches through the tensor-core core, of all: %s'
+        % json.dumps({k: [TC[path][k], launches[k]]
+                      for k in _build.TC_ENTRIES}))
+
+
 def phase_train_bf16(dev, seed):
     """`train`'s steps with --compute_dtype bf16: the networks on a bf16
     cast of the float32 masters. Fails unless every step launched the bf16
@@ -1225,6 +1236,7 @@ def phase_train_bf16(dev, seed):
         if missing or other:
             fail('train_bf16: bf16 kernels never launched: %s; float32 '
                  'kernels launched: %s' % (missing, other))
+        tensor_cores_only('train_bf16', launches)
         state = trainer.state
         tensors = list(trainer.model.parameters()) + [
             p.grad for p in trainer.model.parameters()] + list(

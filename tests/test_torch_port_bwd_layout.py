@@ -15,6 +15,15 @@ tests/test_torch_port_gpu.py).
   backward at a small crop and scaled to crop 256. K5's weight-gradient tile
   (`wgrad_tile`, as `launch_wgrad` chooses it) lies in one group at every
   width K5 takes, and K6's (one group) is chosen by width as before.
+- The bf16 forms run on the tensor cores (`csrc/igemm_tc.cuh`): their weight
+  gradient's plan (128-row tiles of dW, 128 (K6) or 64 columns of one
+  group, K6's bias a row of the product, 64-pixel slices) holds the cap at
+  every SID
+  train site; its rows are the im2col side, the wider one but at K6's
+  downs_0 (a tie in tiles there); K5's mix epilogue needs no column
+  permutation
+  (a channel's 8 candidates are one 8-column slab of wgmma's accumulator);
+  dattw's workspace counts 8 x 16 pixel tiles.
 - K9's staging (`csrc/igemm_pc.cuh`, `AttScaled`) takes the input group of
   each staged channel by additions as a producer's column advances slice by
   slice; mirrored here, it is c // (C / 8) at every tap and channel.
@@ -160,6 +169,144 @@ def test_wgrad_plan_fits_its_cap_at_the_sid_train_shapes():
         assert full or s == min(
             conv.WGRAD_CAP_BYTES // (4 * (K + 1) * N),
             -(-npix // conv.WGRAD_MIN_CHUNK)), site
+
+
+def test_tc_wgrad_plan_fits_its_cap_at_the_sid_train_shapes():
+    """The bf16 forms' weight gradient on the tensor cores (`csrc/igemm_tc.cuh`
+    wgrad_tc_kernel): 128 rows of dW by 128 (K6 from 128 columns) or 64
+    columns, K6's bias a row of the product (K + 1 rows), chunks of a
+    multiple of 64 pixels; its
+    workspace holds the cap at every SID train site at batch 32 and its grid
+    fills the card unless the cap or the least chunk stops S first."""
+    batch = 32
+    for site in sid_train_sites():
+        H = W = site[1] * 9 // 2
+        k6 = site[0] == 'k6'
+        if k6:
+            K, N, cols = 9 * site[3], site[4], site[4]
+        else:
+            K, N, cols = 9 * site[3] // G, site[3] * G, site[3]
+        npix = batch * H * W
+        s = conv.wgrad_splits(K, N, cols, npix, tensor_cores=True, ones=k6)
+        assert s * (K + 1) * N * 4 <= conv.WGRAD_CAP_BYTES, site
+        assert npix / s >= conv.WGRAD_MIN_CHUNK, site
+        blocks = conv.wgrad_tiles(K, N, cols, True, k6) * s
+        full = blocks >= 0.9 * 132 * -(-blocks // 132)
+        assert full or s == min(
+            conv.WGRAD_CAP_BYTES // (4 * (K + 1) * N),
+            -(-npix // conv.WGRAD_MIN_CHUNK)), site
+
+
+def tc_tiles(M, N, cols, bn=None):
+    """Tiles of a tensor-core product of M rows (128 a tile) and N columns
+    in groups of `cols` (bn columns a tile; by default 128 for one group of
+    128 or more, else 64; min(bn, cols) of one group)."""
+    bn = bn or (128 if cols >= max(N, 128) else 64)
+    return -(-M // 128) * (N // cols) * -(-cols // min(bn, cols))
+
+
+@pytest.mark.parametrize('C', [8, 16, 24, 32, 48, 64, 96, 128, 192, 256,
+                               512])
+def test_tc_wgrad_tiles_lie_in_one_group_and_rows_are_the_wider_side(C):
+    """K5's weight gradient at every width it takes, and K6's at every
+    width of the SID train sites: each column tile lies in one group and the
+    group's columns are covered once; and the product's rows (M, 128 a tile)
+    are dW's rows, the im2col side, the wider one (K5: 9 C / 8 against a
+    group's C columns; K6: 9 cin + 1 against cout) but at K6's downs_0 (55
+    rows against 64 columns), where dW transposed would take as many tiles
+    (one)."""
+    K, N = 9 * C // G, C * G
+    bm, bn, per_sm = conv.wgrad_tile(C, K, N, tensor_cores=True)
+    assert (bm, bn, per_sm) == (128, 64, 1)
+    assert conv.wgrad_tile(C * G, K, C * G, tensor_cores=True)[1] == (
+        128 if C * G >= 128 else 64)   # K6: one group of C * G columns
+    width = min(bn, C)
+    for g in range(G):
+        cover = []
+        for t in range(-(-C // width)):
+            n0 = g * C + t * width
+            n1 = min(n0 + width, (g + 1) * C)
+            assert g * C <= n0 < n1 <= (g + 1) * C
+            cover += range(n0, n1)
+        assert cover == list(range(g * C, (g + 1) * C))
+    assert K >= C
+    m = conv.tc_merge(C // G)
+    assert (m * C // G) % 8 == 0 and m in (1, 2, 4, 8)
+    assert conv.wgrad_tiles(K, N, C, True) == tc_tiles(m * K, N, m * C, 64)
+    for cin, cout in ((6, 64), (64, 3), (64, 64), (192, 64), (384, 128),
+                      (1024, 512), (128, 512), (512, 512)):
+        Kc = 9 * cin + 1
+        assert conv.wgrad_tiles(9 * cin, cout, cout, True, True) == (
+            tc_tiles(Kc, cout, cout))
+        assert Kc >= cout or tc_tiles(Kc, cout, cout) == tc_tiles(
+            cout, Kc, Kc) == 1, cin
+
+
+def tc_slab_columns(n, lane):
+    """The (channel, candidate) pairs of the grouped product's natural
+    columns c * G + j that a lane holds in wgmma's m64nNk16 accumulator
+    (`csrc/igemm_tc.cuh` MixEpi), slab by slab: columns 8 s + 2 (lane % 4)
+    and + 1 of each 8-column slab s of an n-column tile."""
+    return [((8 * s + 2 * (lane % 4) + e) // 8,
+             (8 * s + 2 * (lane % 4) + e) % 8)
+            for s in range(n // 8) for e in (0, 1)]
+
+
+@pytest.mark.parametrize('C', [8, 16, 24, 32, 64, 128, 192, 512])
+def test_tc_mix_needs_no_column_permutation(C):
+    """On the tensor cores a lane of wgmma's m64nNk16 accumulator holds
+    columns 8 s + 2 (lane % 4) and + 1 of each 8-column slab s, and in the
+    natural column order c * 8 + j a slab is one channel's 8 candidates, 2
+    to each lane of a quad: K5's mix epilogue takes the weights and the bias
+    as they are (`permuted_columns` is the FMA core's, whose thread holds
+    two groups of 4 columns half a tile apart)."""
+    for bn in (8, 16, 32, 64):
+        if bn > C * G:
+            continue
+        for lane in range(32):
+            got = tc_slab_columns(bn, lane)
+            assert len(got) == bn // 4
+            for s in range(bn // 8):
+                (c0, j0), (c1, j1) = got[2 * s], got[2 * s + 1]
+                assert c0 == c1 == s and (j0, j1) == (2 * (lane % 4),
+                                                      2 * (lane % 4) + 1)
+            quad = [tc_slab_columns(bn, 4 * (lane // 4) + i)
+                    for i in range(4)]
+            for s in range(bn // 8):
+                assert sorted(j for q in quad for c, j in q[2 * s:2 * s + 2]
+                              if c == s) == list(range(8))
+    # the FMA core's order is another one: the tensor cores' path drops it
+    bn = akgm.tail_tile(C)[1]
+    assert not torch.equal(akgm.tile_columns(C * G, bn),
+                           torch.arange(C * G)) or bn == 8
+
+
+@pytest.mark.parametrize('C', [8, 16, 24, 32, 40, 96, 64, 512])
+def test_tc_merged_weights_are_the_grouped_conv(C):
+    """Below 8 channels a group, K5's z recompute on the tensor cores merges
+    `tc_merge` groups into one with block-diagonal weights: the grouped conv
+    with the merged groups is the grouped conv with the groups (exact: the
+    added products are zeros)."""
+    rng = np.random.default_rng(C)
+    cg, m = C // G, conv.tc_merge(C // G)
+    h = torch.from_numpy(rng.standard_normal((1, 6, 7, C)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((9 * cg, C * G))
+                         .astype(np.float32))
+    wm = akgm.tc_merged_weights(w, G)
+    assert wm.shape == (9 * m * cg, C * G)
+    want = F.conv2d(h.permute(0, 3, 1, 2),
+                    w.reshape(3, 3, cg, C * G).permute(3, 2, 0, 1),
+                    padding=1, groups=G)
+    got = F.conv2d(h.permute(0, 3, 1, 2),
+                   wm.reshape(3, 3, m * cg, C * G).permute(3, 2, 0, 1),
+                   padding=1, groups=G // m)
+    assert torch.allclose(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize('H,W,want', [(288, 288, 36 * 18), (18, 18, 3 * 2),
+                                      (7, 9, 1), (37, 29, 5 * 2)])
+def test_tc_dattw_workspace_counts_8_by_16_pixel_tiles(H, W, want):
+    assert akgm.tc_pixel_tiles(H, W) == want
 
 
 def test_wgrad_splits_follows_the_tile_and_the_card():

@@ -227,3 +227,110 @@ def test_bf16_k16_sums_meet_the_phase2_limit(K):
     exact = a.double() @ b.double()
     for p in (product_fmaf(a, b), product_k16(a, b)):
         assert (p.double() - exact).abs().max().item() <= 1e-5
+
+
+# ---- the backward's bf16 products on the tensor cores (K5 and K6 in bf16)
+#
+# The weight gradient (`csrc/igemm_tc.cuh` wgrad_tc_kernel) reduces over
+# pixels: each block's chunk of the batch's pixels in 64-pixel slices, four
+# k16 steps each, the partial tiles of the chunks added in ascending order by
+# `wgrad_reduce_kernel` and rounded to bf16 once. Emulated as above (each k16
+# chunk's products summed exactly and rounded once into the float32 running
+# sum), at the chunk depths of the tensor cores' plan (`ops/conv.py`
+# `wgrad_splits(..., tensor_cores=True)`) at SID train sites at batch 32,
+# against the FMA core: its own plan's chunks, each a sequential fmaf, the
+# partials added in ascending order. Tolerance: phase 2's bf16 limit.
+# K5's z recompute adds a channel's 8 rounded terms m = z * A two in a lane
+# and then over the lanes of a quad by two shuffles: ((m0 + m1) + (m2 + m3))
+# + ((m4 + m5) + (m6 + m7)), where the FMA core adds them in order; both
+# then give do = go * swish'(o) rounded once. Tolerance: the same limit.
+
+# (K, N, group columns, pixels): K6 conv1 192 -> 64 at 288 x 288, K5 at C =
+# 64 there, K6 conv1 1024 -> 512 at 36 x 36, all at batch 32
+WGRAD_SITES = [(1728, 64, 64, 32 * 288 * 288), (72, 512, 64, 32 * 288 * 288),
+               (9216, 512, 512, 32 * 36 * 36)]
+
+
+def chunk_bounds(npix, splits, step):
+    chunk = -(-(-(-npix // splits)) // step) * step
+    return [(q, min(q + chunk, npix)) for q in range(0, npix, chunk)]
+
+
+def wgrad_k16(x, d, bounds):
+    """Per chunk, the k16 pixel steps' exact sums rounded once into a
+    float32 running sum; the chunks' partials added in ascending order."""
+    total = torch.zeros(x.shape[1], dtype=torch.float32)
+    for q0, q1 in bounds:
+        acc = torch.zeros(x.shape[1], dtype=torch.float32)
+        prods = (x[q0:q1].double() * d[q0:q1].double())
+        pad = -prods.shape[0] % 16
+        prods = torch.nn.functional.pad(prods, (0, 0, 0, pad))
+        steps = prods.reshape(-1, 16, x.shape[1]).sum(dim=1)
+        for step in steps:
+            acc = (acc.double() + step).float()
+        total = total + acc
+    return total
+
+
+def wgrad_fmaf(x, d, bounds):
+    """Per chunk a sequential fmaf (the products are exact in float32, so a
+    float32 running sum of them); the partials added in ascending order."""
+    total = np.zeros(x.shape[1], np.float32)
+    prods = (x * d).numpy()
+    for q0, q1 in bounds:
+        total = total + np.add.accumulate(prods[q0:q1], axis=0,
+                                          dtype=np.float32)[-1]
+    return torch.from_numpy(total)
+
+
+@pytest.mark.parametrize('K,N,cols,npix', WGRAD_SITES)
+def test_bf16_wgrad_pixel_chunks_meet_the_phase2_limit(K, N, cols, npix):
+    from ucdir_tpu_torch.ops import conv
+    s_tc = conv.wgrad_splits(K, N, cols, npix, tensor_cores=True,
+                             ones=cols == N)
+    s_fma = conv.wgrad_splits(K, N, cols, npix)
+    rng = np.random.default_rng(7)
+    n = 4   # outputs (dW entries) emulated in full
+    x = torch.from_numpy(rng.standard_normal((npix, n)).astype(np.float32)
+                         * 0.5).to(BF16).float()
+    d = torch.from_numpy(rng.standard_normal((npix, n)).astype(np.float32)
+                         ).to(BF16).float()
+    tc = wgrad_k16(x, d, chunk_bounds(npix, s_tc, 64)).to(BF16).float()
+    fma = wgrad_fmaf(x, d, chunk_bounds(npix, s_fma, 16)).to(BF16).float()
+    limit = 2. ** -7 * max(1.0, fma.abs().max().item())
+    assert (tc - fma).abs().max().item() <= limit
+    exact = (x.double() * d.double()).sum(dim=0)
+    for p in (tc, fma):
+        assert ((p.double() - exact).abs() <= 2. ** -7 * exact.abs()
+                + 1e-6).all()
+
+
+def dswish(z):
+    sig = torch.sigmoid(z)
+    return sig * (1. + z * (1. - sig))
+
+
+@pytest.mark.parametrize('seed', [0, 1, 2])
+def test_k5_quad_order_of_the_g_terms_meets_the_limit(seed):
+    rng = np.random.default_rng(seed)
+    P, C = 4096, 64
+    z = torch.from_numpy(rng.standard_normal((P, C, 8)).astype(np.float32))
+    A = torch.from_numpy((rng.standard_normal((P, 1, 8)) * 0.5
+                          ).astype(np.float32)).to(BF16).float()
+    go = torch.from_numpy(rng.standard_normal((P, C)).astype(np.float32)
+                          ).to(BF16).float()
+    m = (z.to(BF16).float() * A).to(BF16).float()     # each term rounded
+    seq = torch.zeros(P, C)
+    for j in range(8):
+        seq = seq + m[..., j]                          # the FMA core's order
+    pairs = [m[..., 2 * i] + m[..., 2 * i + 1] for i in range(4)]
+    quad = (pairs[0] + pairs[1]) + (pairs[2] + pairs[3])
+    do_seq = (go * dswish(seq)).to(BF16).float()
+    do_quad = (go * dswish(quad)).to(BF16).float()
+    limit = 2. ** -7 * max(1.0, do_seq.abs().max().item())
+    assert (do_quad - do_seq).abs().max().item() <= limit
+    # the sums themselves differ by float32 rounding alone
+    exact = m.double().sum(dim=-1)
+    for o in (seq, quad):
+        assert (o.double() - exact).abs().max().item() <= 8 * 2. ** -24 * (
+            m.double().abs().sum(dim=-1).max().item())

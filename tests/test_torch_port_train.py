@@ -34,7 +34,7 @@ from ucdir_tpu_torch.schedule import make_schedule
 from ucdir_tpu_torch.train import (create_train_state, make_optimizer,
                                    train_step)
 from ucdir_tpu_torch.train.optim import finetune_select
-from ucdir_tpu_torch.trainer import Trainer
+from ucdir_tpu_torch.trainer import Trainer, TrainerBNoise, create_model
 from ucdir_tpu_torch.utils import checkpoint as ckpt_util
 from ucdir_tpu_torch.utils.convert_jax import from_jax_params
 
@@ -337,6 +337,59 @@ def test_trainer_trains_validates_and_round_trips_checkpoints(rng, tmp_path):
         ckpt_util.restore_state(str(tmp_path / 'missing'), trainer.state)
 
 
+@pytest.mark.parametrize('name, cls', [(None, Trainer), ('DDPM', Trainer),
+                                       ('DDPM_bnoise', TrainerBNoise)])
+def test_create_model_builds_the_trainer_model_name_names(tmp_path, name,
+                                                          cls):
+    """create_model picks the trainer by opt['model']['name'] as the JAX
+    package's does (no name: DDPM)."""
+    opt = trainer_opt(tmp_path)
+    if name is not None:
+        opt['model']['name'] = name
+    assert type(create_model(opt, device='cpu', seed=1)) is cls
+
+
+@pytest.mark.parametrize('name', ['DDPM_realsr', 'DDPM_unknown'])
+def test_create_model_refuses_names_it_does_not_build(tmp_path, name):
+    """DDPM_realsr is not ported and an unknown name is no model: both raise
+    (the JAX package raises KeyError on the unknown one) rather than train
+    another model."""
+    opt = trainer_opt(tmp_path)
+    opt['model']['name'] = name
+    with pytest.raises(NotImplementedError, match=name):
+        create_model(opt, device='cpu')
+
+
+def test_bnoise_adds_its_draws_to_the_degraded_input(rng, tmp_path,
+                                                     monkeypatch):
+    """TrainerBNoise.feed_data gives exactly SR + draws * 2 * 50/255 for
+    injected draws and leaves HR alone; the draws come from the trainer's
+    own seeded generator, the same for the same seed, not from torch's
+    global state."""
+    opt = trainer_opt(tmp_path)
+    opt['model']['name'] = 'DDPM_bnoise'
+    batch = toy_batch(rng)
+    draws = rng.standard_normal(batch['SR'].shape).astype(np.float32)
+    trainer = create_model(opt, device='cpu', seed=3)
+    monkeypatch.setattr(trainer, 'draw_noise', lambda shape: draws)
+    trainer.feed_data(batch)
+    want = batch['SR'].astype(np.float32) + draws * 2 * (50. / 255.)
+    np.testing.assert_array_equal(trainer.data['SR'], want)
+    np.testing.assert_array_equal(trainer.data['HR'], batch['HR'])
+    monkeypatch.undo()
+
+    def noise_of(seed):
+        t = create_model(opt, device='cpu', seed=seed)
+        torch.manual_seed(seed + 100)   # the global state plays no part
+        t.feed_data(batch)
+        return t.data['SR'] - batch['SR'].astype(np.float32)
+
+    a, b = noise_of(3), noise_of(3)
+    np.testing.assert_array_equal(a, b)
+    assert not np.array_equal(a, noise_of(4))
+    assert 0.2 < np.std(a) < 0.6      # 2 * 50/255 = 0.39
+
+
 def test_latest_checkpoint_keeps_the_step(tmp_path):
     """`I_Elatest` names neither iteration nor epoch: the step comes back
     from the opt file, the epoch as 0."""
@@ -419,6 +472,20 @@ def test_cli_train_then_val_on_cpu_loads_no_jax(tmp_path):
     log = _cli(tmp_path, '-p', 'val', '--checkpoint', prefix)
     assert 'Loading pretrained model for G [%s_gen_ema.pth]' % prefix in log
     assert '# Validation # PSNR: ' in log and '# Validation # SSIM: ' in log
+
+
+def test_cli_trains_the_bnoise_model_on_cpu_loads_no_jax(tmp_path):
+    """A DDPM_bnoise config trains through `-p train` at toy size on the
+    CPU, as TrainerBNoise (the noise added to every fed batch), with nothing
+    of JAX or of the JAX package imported."""
+    _tiny_yaml(tmp_path)
+    cfg = yaml.safe_load((tmp_path / 'tiny.yaml').read_text())
+    cfg['model']['name'] = 'DDPM_bnoise'
+    cfg['train']['n_iter'] = 2
+    (tmp_path / 'tiny.yaml').write_text(yaml.safe_dump(cfg))
+    log = _cli(tmp_path, '-p', 'train')
+    assert log.count('l_pix: ') == 1
+    assert 'End of training.' in log
 
 
 def test_cli_train_refuses_a_missing_card():

@@ -3,7 +3,7 @@
 backward goes, launch by launch, at four train shapes of the SID model; with
 --k5, of K5 (the AKGM tail backward) and its plain version at three widths.
 
-    python3 tools/torch_bwd_split.py [--k5]
+    python3 tools/torch_bwd_split.py [--k5] [--bf16]
 
 For each case: `conv.conv3x3_backward_kernel` (K6: the z recompute, the
 weight gradient and its reduction, the input gradient) and
@@ -14,8 +14,10 @@ an unfolded input), which changes the work it does. --k5:
 `akgm.akgm_block_tail_backward_kernel` (the z recompute and do, dattw's
 reduction, the weight gradient and its reduction, the input gradient) and
 `akgm_block_tail_backward_plain` at C = 32 (288 x 288), 192 (36 x 36) and 64
-(288 x 288), batch 8, with the affine and attw. Needs a CUDA card; prints
-the card's name and power limit first.
+(288 x 288), and 512 (36 x 36), batch 8, with the affine and attw. --bf16:
+every operand bfloat16, the bf16 forms of K5 and K6 (on the tensor cores)
+and the library's backward in bf16. Needs a CUDA card; prints the card's
+name and power limit first.
 """
 import argparse
 import os
@@ -26,9 +28,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 # (batch, height = width, cin, cout, folded affine, activation)
 CASES = ((8, 144, 128, 512, False, None), (8, 288, 192, 64, True, 'swish'),
-         (8, 288, 6, 64, False, None), (8, 36, 1024, 512, True, 'swish'))
+         (8, 288, 6, 64, False, None), (8, 36, 1024, 512, True, 'swish'),
+         (8, 288, 64, 3, False, None))
 # K5: (batch, height = width, C)
-CASES_K5 = ((8, 288, 32), (8, 36, 192), (8, 288, 64))
+CASES_K5 = ((8, 288, 32), (8, 36, 192), (8, 288, 64), (8, 36, 512))
 
 
 def split(name, fn):
@@ -45,13 +48,15 @@ def split(name, fn):
                    for e in prof.key_averages()
                    if e.device_type.name == 'CUDA'), reverse=True)
     print('%s: %.3f ms: %s' % (name, sum(r[0] for r in rows), ' | '.join(
-        '%.3f ms %s' % (ms, key[:90]) for ms, key in rows[:6])), flush=True)
+        '%.3f ms %s' % (ms, key[:150]) for ms, key in rows[:6])), flush=True)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--k5', action='store_true',
                     help='K5 and its plain version instead of K6')
+    ap.add_argument('--bf16', action='store_true',
+                    help='bfloat16 operands: the kernels\' bf16 forms')
     args = ap.parse_args(argv)
     import torch
     from ucdir_tpu_torch.ops import akgm, conv
@@ -66,8 +71,11 @@ def main(argv=None):
     dev = torch.device('cuda', 0)
     gen = torch.Generator(dev).manual_seed(0)
 
+    dt = torch.bfloat16 if args.bf16 else torch.float32
+
     def rnd(*shape, scale=1.0, off=0.0):
-        return torch.randn(shape, generator=gen, device=dev) * scale + off
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                + off).to(dt)
 
     if args.k5:
         G = 8

@@ -51,13 +51,13 @@ __global__ void __launch_bounds__(T::NT, 1)
   if (threadIdx.x >= T::NC) {
     if constexpr (T::PREG != 128) tc::setmaxnreg_inc<T::PREG>();
     if constexpr (SIDE == STAGING) {
-      tc::produce<T, X, BT, false>(p, &ma, &mb, ring, total);
+      tc::produce<T, X, BT, false, false>(p, &ma, &mb, ring);
       return;
     }
     const int pt = threadIdx.x - T::NC;
     int s = 0;
     for (int t = blockIdx.x; t < total; t += gridDim.x) {
-      const tc::TilePos q = tc::tile_pos<T>(p, t);
+      const tc::TilePos q = tc::tile_pos<false>(p, t);
       for (int c = 0; c < p.nk; ++c, ++s) {
         ring.acquire(s);
         if (BT && pt == 0) {
@@ -75,7 +75,7 @@ __global__ void __launch_bounds__(T::NT, 1)
     if constexpr (SIDE == PRODUCT) {
       float acc[T::BN / 2];
       tc::consume<T, BT>(acc, ring, s, p.nk);
-      tc::epilogue<T>(acc, p, red, epi, tc::tile_pos<T>(p, t));
+      tc::epilogue<T>(acc, p, red, epi, tc::tile_pos<false>(p, t));
     } else {
       for (int c = 0; c < p.nk; ++c) {
         ring.wait_full(s + c);

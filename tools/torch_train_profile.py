@@ -14,9 +14,10 @@ times three steps with the host clock around `torch.cuda.synchronize()`, then
 traces one more step with `torch.profiler` and prints: seconds per step, peak
 memory, the device's busy time and idle share inside the traced step, the
 time of each CUDA kernel by name (top 30), the port's kernels by launch (K1's
-two and K2 bf16's two: the product and its statistics' reduction; K2, K3
-and K7 in bf16 on the tensor cores apart from their FMA forms; K5's and K6's three: z
-recompute, weight gradient and its reduction, input gradient) and the
+two and K2 bf16's two: the product and its statistics' reduction; K2, K3,
+K5, K6 and K7 in bf16 on the tensor cores apart from their FMA forms; K5's
+and K6's three: z recompute, weight gradient and its reduction, input
+gradient) and the
 launches of K1..K6 in that step, and the casts' time (`aten::_to_copy` and
 its copy kernels: the parameters' cast to bf16 and the casts around
 attention and the loss). With --val it restores one 1424 x 2128 frame (1568
@@ -111,6 +112,16 @@ def main(argv=None):
 
 # kernel name -> the port's kernel and launch (csrc/*.cu), first match wins
 PARTS = (
+    # the bf16 forms of K5 and K6 on the tensor cores (igemm_tc.cuh)
+    (('gconv_tc_kernel', 'MixEpi'), 'K5 bf16 do (z recompute, tensor cores)'),
+    (('gconv_tc_kernel', 'Dz'), 'K5 bf16 dh (input gradient, tensor cores)'),
+    (('wgrad_tc_kernel', ', true'), 'K5 bf16 dW (tensor cores)'),
+    (('wgrad_tc_kernel', ', false'), 'K6 bf16 dW (tensor cores)'),
+    (('wgrad_reduce_kernel', 'WgradTc'), 'K5 and K6 bf16 dW reductions'),
+    (('gconv_tc_kernel', 'OutEpi<true>'), 'K6 bf16 dz (z recompute, '
+     'tensor cores)'),
+    (('gconv_tc_kernel', 'Dgrad'), 'K6 bf16 dx (input gradient, tensor '
+     'cores)'),
     (('akgm_do_kernel',), 'K5 do (z recompute)'),
     (('dattw_reduce_kernel',), 'K5 dattw reduction'),
     (('wgrad_pc_kernel', 'DzD'), 'K5 dW'),

@@ -48,17 +48,33 @@
 //      the group's C / G output columns, so that few columns of it idle.
 // Bound: the fp32 FMA rate, at three times K1's operations.
 //
-// ucdir_akgm_tail_bwd_bf16 runs the same launches on bf16 operands and
-// outputs, rounding where the TPU kernel's bf16 instantiation rounds: the
-// recomputed z and A each rounded and their product m = z * A rounded before
-// the G terms are added (the float32 kernel has no such rounding); do from
-// the bf16 cotangent in float32, rounded once, and then dz = do * A (A =
-// att * attw, exact in float32, kept in the float32 scratch aa) rounded
-// where it enters the weight and the input gradient; the datt terms do * z
-// rounded before they are added, datt times attw rounded once; dW and dattw
-// added in float32 in their workspaces and rounded once; dbias the float32
-// sum of the unrounded dz, rounded once; dhh rounded once.
-#include "igemm_pc.cuh"
+// ucdir_akgm_tail_bwd_bf16 (the TPU kernel's bf16 instantiation, training
+// under --compute_dtype bf16) makes the same three products on the tensor
+// cores of the H100 (igemm_tc.cuh: wgmma bf16, fp32 accumulators), the
+// weights and the bias in their natural column order (the permutation above
+// serves the FMA core's thread layout; wgmma's accumulator puts a channel's
+// 8 candidates on the 4 lanes of a quad as they are):
+//   1. gconv_tc_kernel with MixEpi: per group the product K1 runs (K = 9 C
+//      / 8, N = C), each block walking every column tile of its 8 x 16
+//      pixels; the recomputed z and A each rounded and m = z * A rounded,
+//      the 8 terms of a channel added two in a lane and over its quad by
+//      two shuffles, do = go * swish'(o) rounded once, the datt terms do * z
+//      rounded and added in the lane across channels; datt = q * attw
+//      rounded once, the dattw terms per pixel tile into the workspace wsa
+//      (B, tiles of 8 x 16 pixels, 8), dattw_reduce_kernel adding them in a
+//      fixed order; A = att * attw (exact in float32) into aa;
+//   2. wgrad_tc_kernel per group: the group's C / 8 channels of h * a + t
+//      as im2col rows, dz = do * A rebuilt by the producers and rounded
+//      where it enters the product, the bias the float32 sums of the
+//      unrounded dz the producers rebuild, partial tiles per pixel chunk in
+//      ws added in a fixed order, dW and dbias rounded once;
+//   3. gconv_tc_kernel with the Dz staging: per group the transposed
+//      grouped conv of dz (K = 9 C, N = C / 8, wgmma m64n8 .. n64), dz
+//      rebuilt from do and A as the halo is staged, rounded once; dhh
+//      rounded once.
+// Bound: counted FLOP at 989 TFLOP/s bf16. A call counts in
+// ucdir_tc_launches once all its launches have gone out.
+#include "igemm_tc.cuh"
 
 namespace {
 
@@ -78,8 +94,7 @@ struct DoArgs {
   const E* a;         // (B, C) or null
   const E* t;
   E* dout;            // (B, H, W, C) do
-  float* aa;          // (B, H, W, G) att * attw, written when attw (bf16:
-                      // always)
+  float* aa;          // (B, H, W, G) att * attw, written when attw
   E* datt;            // (B, H, W, G), written whole
   float* dattw_ws;    // (B, ntp, G) per-tile sums of dattw, or null
   ucdir::Geom g;      // g.C = C, g.cin = C / G
@@ -153,45 +168,17 @@ __device__ __forceinline__ void do_epilogue(float (&acc)[T::TM][T::TN],
     Elem<E>::ld4(*reinterpret_cast<float(*)[4]>(at + 4), c.att + pix * G + 4);
     float A[G], z[G];
     float o = 0.f;
-    float d;
-    if constexpr (Elem<E>::kLow) {
-      // m = z * A in bf16: both rounded, their (exact) product rounded;
-      // two candidates at a time (one conversion, one bf16x2 product)
 #pragma unroll
-      for (int j = 0; j < G; ++j) {
-        A[j] = at[j] * awj[j];
-        z[j] = acc[i][j] + bj[j];
-      }
-#pragma unroll
-      for (int j = 0; j < G; j += 2) {
-        const float m = Elem<E>::mul2(Elem<E>::pack2(z[j], z[j + 1]),
-                                      Elem<E>::pack2(A[j], A[j + 1]));
-        o += Elem<E>::lof(m);
-        o += Elem<E>::hif(m);
-      }
-      d = Elem<E>::rnd(Elem<E>::ldg(c.go + pix * C + ch) * ucdir::dswishf(o));
-      Elem<E>::st(c.dout + pix * C + ch, d);
-      // the datt terms d * z, each rounded
-#pragma unroll
-      for (int j = 0; j < G; j += 2) {
-        const float q = Elem<E>::pack2(__fmul_rn(d, z[j]),
-                                       __fmul_rn(d, z[j + 1]));
-        acc[i][j] = Elem<E>::lof(q);
-        acc[i][j + 1] = Elem<E>::hif(q);
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < G; ++j) {
-        A[j] = at[j] * awj[j];
-        z[j] = acc[i][j] + bj[j];
-        o += z[j] * A[j];
-      }
-      d = __ldg(c.go + pix * C + ch) * ucdir::dswishf(o);
-      c.dout[pix * C + ch] = d;
-#pragma unroll
-      for (int j = 0; j < G; ++j) acc[i][j] = d * z[j];
+    for (int j = 0; j < G; ++j) {
+      A[j] = at[j] * awj[j];
+      z[j] = acc[i][j] + bj[j];
+      o += z[j] * A[j];
     }
-    if ((Elem<E>::kLow || c.attw != nullptr) && n0 == 0 && tn == 0) {
+    const float d = __ldg(c.go + pix * C + ch) * ucdir::dswishf(o);
+    c.dout[pix * C + ch] = d;
+#pragma unroll
+    for (int j = 0; j < G; ++j) acc[i][j] = d * z[j];
+    if (c.attw != nullptr && n0 == 0 && tn == 0) {
       float4* ap = reinterpret_cast<float4*>(c.aa + pix * G);
       ap[0] = make_float4(A[0], A[1], A[2], A[3]);
       ap[1] = make_float4(A[4], A[5], A[6], A[7]);
@@ -391,7 +378,7 @@ int launch_dh(DhArgs<E> c, int B, cudaStream_t st) {
 // h * bn / 2 + 4 * i + r holds logical column 8 * i + 4 * h + r; wf (8, 9 *
 // C, C/8) with wf[g][tap * C + nl][ci] = w[(8 - tap) * C/8 + ci][g * C + nl]
 // (unpermuted); a, t (B, C) or null. dout is scratch, aa a float (B, H, W, 8)
-// scratch used with attw (bf16: always); datt, dattw, dw (9 * C/8, 8 * C)
+// scratch used with attw; datt, dattw, dw (9 * C/8, 8 * C)
 // and dbias (8 * C), unpermuted, are written whole; ws is a float (splits,
 // 9 * C/8 + 1, 8 * C) workspace and wsa, with attw, a float (B, ceil(H * W /
 // bm), 8) one, bm the tile's pixels (128, or 256 at 64 columns). C must be a
@@ -433,14 +420,8 @@ int akgm_tail_bwd(const E* h, const E* go, const E* att, const E* attw,
             (a == nullptr || (pc::aligned(a, run) && pc::aligned(t, run)));
   int err = launch_do_for(d, dattw, B, st);
   if (err) return err;
-  // A: the float32 att * attw (bf16: always the scratch; float32 without
-  // attw: att itself)
-  const float* A;
-  if constexpr (Elem<E>::kLow) {
-    A = aa;
-  } else {
-    A = attw ? aa : att;
-  }
+  // A: the float32 att * attw (without attw: att itself)
+  const float* A = attw ? aa : att;
   pc::WgradArgsT<E> wa = {};
   wa.x = h;
   wa.a = a;
@@ -469,6 +450,91 @@ int akgm_tail_bwd(const E* h, const E* go, const E* att, const E* attw,
   return launch_dh<pc::Mid>(dh, B, st);
 }
 
+// K5 in bf16 on the tensor cores (the header's bf16 paragraph): the
+// operands of akgm_tail_bwd, every one bf16 but aa, ws and wsa.
+int akgm_tail_bwd_tc(const bf16* h, const bf16* go, const bf16* att,
+                     const bf16* attw, const bf16* w, const bf16* wf,
+                     const bf16* bias, const bf16* a, const bf16* t,
+                     bf16* dout, float* aa, bf16* dhh, bf16* datt, bf16* dw,
+                     bf16* dbias, bf16* dattw, float* ws, float* wsa, int B,
+                     int H, int W, int C, int splits, cudaStream_t st) {
+  namespace tc = ucdir::tc;
+  const int cg = C / G;
+  // below 8 channels a group (cg % 8 != 0), m groups merged into one of
+  // m * cg channels, a multiple of 8, so that A takes the vector staging:
+  // the z recompute on block-diagonal weights w (9 m cg, 8 C) that the
+  // caller builds (ops/akgm.py tc_merged_weights), the weight gradient
+  // keeping the diagonal blocks
+  int m = 1;
+  while ((m * cg) % 8 && m < G) m *= 2;
+  ucdir::Geom g;
+  g.H = H;
+  g.W = W;
+  g.C = C;
+  g.Ho = H;
+  g.Wo = W;
+  g.ks = 3;
+  g.stride = 1;
+  g.cin = m * cg;
+  g.K = 9 * m * cg;
+  tc::TcArgs p = {};  // z, do, A and the datt terms
+  p.x = h;
+  p.w = w;
+  p.bias = bias;
+  p.a = a;
+  p.t = t;
+  p.g = g;
+  p.cout = p.wld = C * G;
+  p.gw = m * C;
+  p.xgs = m * cg;
+  p.wgc = m * C;  // a group's weights: its columns
+  p.wrows = g.K;
+  const tc::MixArgs e = {go, att, attw, dout, aa, datt, attw ? wsa : nullptr};
+  int err = tc::launch_grouped<pc::Affine, tc::MixEpi>(p, e, B, true, st);
+  if (err) return err;
+  if (attw != nullptr) {
+    const int ntp = (H + 7) / 8 * ((W + 15) / 16);
+    dattw_reduce_kernel<bf16><<<B, 32 * G, 0, st>>>(wsa, dattw, ntp);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  tc::WArgs wa = {};
+  wa.x = h;
+  wa.a = a;
+  wa.t = t;
+  wa.d = dout;
+  wa.att = aa;
+  wa.ws = ws;
+  wa.g = g;
+  wa.N = C * G;
+  wa.gw = m * C;
+  wa.npix = B * H * W;
+  wa.krows = g.K;  // the bias: the producers' sums of the unrounded dz
+  wa.kd = 9 * cg;
+  wa.msub = m > 1 ? cg : 0;
+  wa.mcols = C;
+  err = tc::launch_wgrad_tc<true>(wa, splits, dw, dbias, st);
+  if (err) return err;
+  tc::TcArgs q = {};  // per group the transposed conv of dz (K = 9 C)
+  q.x = dout;
+  q.att = aa;
+  q.w = wf;
+  q.out = dhh;
+  q.g = g;
+  q.g.cin = C;
+  q.g.K = 9 * C;
+  q.gw = cg;
+  q.cout = C;
+  q.xgs = q.wld = cg;
+  q.wgr = 9 * C;  // a group's weights: its 9 C rows
+  q.wrows = G * 9 * C;
+  err = tc::launch_grouped<pc::Dz, tc::OutEpi<false>>(q, tc::NoArgs{}, B,
+                                                       false, st);
+  if (err) return err;
+  ++tc::launch_count(tc::TC_AKGM_BWD);
+  return 0;
+}
+
 }  // namespace
 
 extern "C" int ucdir_akgm_tail_bwd(const float* h, const float* go,
@@ -485,15 +551,16 @@ extern "C" int ucdir_akgm_tail_bwd(const float* h, const float* go,
                        stream);
 }
 
-// The same in bf16: every operand and output bf16 but the float scratch aa
-// (always given) and the float workspaces ws and wsa.
+// The same in bf16 on the tensor cores: every operand and output bf16 but
+// the float scratch aa (always given) and the float workspaces ws and wsa
+// (B, ceil(H / 8) * ceil(W / 16), 8); w and bias in natural column order.
 extern "C" int ucdir_akgm_tail_bwd_bf16(
     const bf16* h, const bf16* go, const bf16* att, const bf16* attw,
     const bf16* w, const bf16* wf, const bf16* bias, const bf16* a,
     const bf16* t, bf16* dout, float* aa, bf16* dhh, bf16* datt, bf16* dw,
     bf16* dbias, bf16* dattw, float* ws, float* wsa, int B, int H, int W,
     int C, int splits, void* stream) {
-  return akgm_tail_bwd(h, go, att, attw, w, wf, bias, a, t, dout, aa, dhh,
-                       datt, dw, dbias, dattw, ws, wsa, B, H, W, C, splits,
-                       stream);
+  return akgm_tail_bwd_tc(h, go, att, attw, w, wf, bias, a, t, dout, aa, dhh,
+                          datt, dw, dbias, dattw, ws, wsa, B, H, W, C, splits,
+                          (cudaStream_t)stream);
 }

@@ -69,20 +69,16 @@
 // the loads of a quarter warp would hit every bank twice.
 //
 // Element type E of the operands in device memory (Elem<E> below): float,
-// or bf16 for K1 and the backward kernels K5 and K6 (the TPU
-// kernels' bf16 instantiation, validation and training under
-// --compute_dtype bf16). The bf16 forms of K2, K3 and K7 run on the tensor
-// cores instead (igemm_tc.cuh), which reuses Geom, Elem<bf16> and the
-// staging functors below. The producers load bf16 (a 4-wide run is 8 bytes,
-// half the bytes of float) and convert it to float as they stage it, so
-// shared memory, the consumers and their fp32 FMA product are the same for
-// both; the epilogue rounds each output once to nearest even and takes the
-// statistics of the rounded values, which is what the next layer reads. The
-// staging rounds where the TPU kernel's bf16 arithmetic rounds: x * a and
-// then + t (and K7's swish) each to bf16, K5's rebuilt dz = do * att once.
-// The backward's dz epilogue reads a bf16 cotangent and rounds dz once; the
-// weight gradient keeps its float32 workspace and rounds dW and dbias once,
-// after the whole reduction.
+// or bf16 for K1 (the TPU kernel's bf16 instantiation, validation under
+// --compute_dtype bf16). The bf16 forms of K2, K3, K5, K6 and K7 run on the
+// tensor cores instead (igemm_tc.cuh), which reuses Geom, Elem<bf16>, the
+// staging functors and the weight gradient's reduction below. The producers
+// load bf16 (a 4-wide run is 8 bytes, half the bytes of float) and convert
+// it to float as they stage it, so shared memory, the consumers and their
+// fp32 FMA product are the same for both; the epilogue rounds each output
+// once to nearest even and takes the statistics of the rounded values,
+// which is what the next layer reads. The staging rounds where the TPU
+// kernel's bf16 arithmetic rounds: x * a and then + t each to bf16.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -1050,14 +1046,9 @@ int launch_conv(ConvArgsT<E> c, int B, cudaStream_t stream) {
 // threads stage BK pixels of D, 16 bytes along its columns, and sum them for
 // the bias.
 //
-// Element type E (bf16: K5's and K6's bf16 forms, training under
-// --compute_dtype bf16): x, a, t, D and dW, dbias of type E, the workspace
-// float. A is staged as the forward's bf16 staging computes it (Affine:
-// x * a, then + t, each rounded; loaded 4-wide as packed pairs), D's values
-// are rounded to E where they enter the product (K6's dz already is; K5's
-// rebuilt dz = do * att is not) but summed for the bias as they are, as the
-// TPU kernel sums K5's dz in float32, and dW and dbias are rounded once, by
-// wgrad_reduce_kernel, after the whole float32 sum.
+// float32 (K5's and K6's bf16 forms run on the tensor cores, igemm_tc.cuh
+// wgrad_tc_kernel, which shares wgrad_reduce_kernel: dW and dbias rounded
+// once to their type after the whole float32 sum).
 template <class E>
 struct WgradArgsT {
   const E* x;        // (B, H, W, g.C) NHWC input
@@ -1078,30 +1069,20 @@ struct WgradArgsT {
   bool vec_ws;       // N % 4 == 0 and ws 16-byte aligned
 };
 
-// D[q][n..n+3] of the plain convolution: the cotangent itself. A loader's
-// load() runs two slices before the store, so in bf16 it leaves the loaded
-// words as they are (packed pairs; dv: a 16-bit value's bits) and finish()
-// turns them into the four values where the slice is stored: a conversion
-// next to the load would wait for it. float: load() gives the values and
-// finish() does nothing.
+// D[q][n..n+3] of the plain convolution: the cotangent itself.
 struct PlainD {
   static constexpr bool kGroups = false;  // K6: one group, gw = N
   template <class E>
-  static __device__ __forceinline__ void load(float (&v)[4], float&,
+  static __device__ __forceinline__ void load(float (&v)[4],
                                               const WgradArgsT<E>& w,
                                               int64_t q, int n) {
     const E* r = w.d + q * w.N + n;
     if (w.vec_d) {
-      Elem<E>::ld4raw(v, r);
+      Elem<E>::ld4(v, r);
     } else {
 #pragma unroll
       for (int j = 0; j < 4; ++j) v[j] = n + j < w.N ? Elem<E>::ld(r + j) : 0.f;
     }
-  }
-  template <class E>
-  static __device__ __forceinline__ void finish(float (&v)[4], float,
-                                                const WgradArgsT<E>& w) {
-    if (w.vec_d) Elem<E>::unpack4(v);
   }
 };
 
@@ -1110,27 +1091,14 @@ struct PlainD {
 struct DzD {
   static constexpr bool kGroups = true;  // K5: groups of gw = C of N = 8 C
   template <class E>
-  static __device__ __forceinline__ void load(float (&v)[4], float& dv,
+  static __device__ __forceinline__ void load(float (&v)[4],
                                               const WgradArgsT<E>& w,
                                               int64_t q, int n) {
     const E* pd = w.d + q * (w.N / 8) + n / 8;
     const float4 u =
         __ldg(reinterpret_cast<const float4*>(w.att + q * 8 + n % 8));
-    if constexpr (Elem<E>::kLow) {
-      dv = __uint_as_float(
-          __ldg(reinterpret_cast<const unsigned short*>(pd)));
-      v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
-    } else {
-      const float d = Elem<E>::ldg(pd);
-      v[0] = d * u.x; v[1] = d * u.y; v[2] = d * u.z; v[3] = d * u.w;
-    }
-  }
-  template <class E>
-  static __device__ __forceinline__ void finish(float (&v)[4], float dv,
-                                                const WgradArgsT<E>&) {
-    const float d = Elem<E>::lo(__float_as_uint(dv));
-#pragma unroll
-    for (int j = 0; j < 4; ++j) v[j] = d * v[j];
+    const float d = Elem<E>::ldg(pd);
+    v[0] = d * u.x; v[1] = d * u.y; v[2] = d * u.z; v[3] = d * u.w;
   }
 };
 
@@ -1148,8 +1116,6 @@ struct WgradShape {
 };
 
 // One slice of A and D in registers, and where the producer's rows are.
-// bf16 loaded 4-wide: a, sa and st hold packed pairs in their first two
-// words (Elem::ld4raw), unpacked where the slice is stored.
 template <class T>
 struct WgradStaged {
   using S = WgradShape<T>;
@@ -1157,7 +1123,6 @@ struct WgradStaged {
   float sa[S::AW][4], st[S::AW][4];
   uint32_t mask;              // bit 4 * i + j: a[i][j] is inside
   float d[S::DI][4];
-  float dv[S::DI];            // DzD in bf16: the loaded do's bits
   int py[S::AW], px[S::AW];   // the rows' pixel, advanced by BK a slice
   int pb[S::AW];              // and its image
   int lb[S::AW];              // the image of sa and st (-1: none yet)
@@ -1205,39 +1170,23 @@ __device__ __forceinline__ void wgrad_load(WgradStaged<T>& s, const KGroup& kg,
     if (w.vec_a) {
       const int iy = s.py[i] + kg.dy[0];
       const int ix = s.px[i] + kg.dx[0];
-      if constexpr (Elem<E>::kLow) {
-        if (in && kg.kv[0] && (unsigned)iy < (unsigned)g.H &&
-            (unsigned)ix < (unsigned)g.W) {
-          Elem<E>::ld4raw(s.a[i], w.x + (q + kg.dy[0] * g.W + kg.dx[0]) * g.C +
-                                      cin0 + kg.ci[0]);
-          s.mask |= 0xfu << (4 * i);
-        } else {
-          Elem<E>::zero4(s.a[i]);
-        }
-        if (reload) {
-          const int64_t o = (int64_t)s.pb[i] * g.C + cin0 + kg.ci[0];
-          Elem<E>::ld4raw(s.sa[i], w.a + o);
-          Elem<E>::ld4raw(s.st[i], w.t + o);
-        }
-      } else {
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (in && kg.kv[0] && (unsigned)iy < (unsigned)g.H &&
-            (unsigned)ix < (unsigned)g.W) {
-          v = __ldg(reinterpret_cast<const float4*>(
-              w.x + (q + kg.dy[0] * g.W + kg.dx[0]) * g.C + cin0 + kg.ci[0]));
-          s.mask |= 0xfu << (4 * i);
-        }
-        if (reload) {
-          const int64_t o = (int64_t)s.pb[i] * g.C + cin0 + kg.ci[0];
-          const float4 u = __ldg(reinterpret_cast<const float4*>(w.a + o));
-          const float4 r = __ldg(reinterpret_cast<const float4*>(w.t + o));
-          s.sa[i][0] = u.x; s.sa[i][1] = u.y; s.sa[i][2] = u.z;
-          s.sa[i][3] = u.w;
-          s.st[i][0] = r.x; s.st[i][1] = r.y; s.st[i][2] = r.z;
-          s.st[i][3] = r.w;
-        }
-        s.a[i][0] = v.x; s.a[i][1] = v.y; s.a[i][2] = v.z; s.a[i][3] = v.w;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (in && kg.kv[0] && (unsigned)iy < (unsigned)g.H &&
+          (unsigned)ix < (unsigned)g.W) {
+        v = __ldg(reinterpret_cast<const float4*>(
+            w.x + (q + kg.dy[0] * g.W + kg.dx[0]) * g.C + cin0 + kg.ci[0]));
+        s.mask |= 0xfu << (4 * i);
       }
+      if (reload) {
+        const int64_t o = (int64_t)s.pb[i] * g.C + cin0 + kg.ci[0];
+        const float4 u = __ldg(reinterpret_cast<const float4*>(w.a + o));
+        const float4 r = __ldg(reinterpret_cast<const float4*>(w.t + o));
+        s.sa[i][0] = u.x; s.sa[i][1] = u.y; s.sa[i][2] = u.z;
+        s.sa[i][3] = u.w;
+        s.st[i][0] = r.x; s.st[i][1] = r.y; s.st[i][2] = r.z;
+        s.st[i][3] = r.w;
+      }
+      s.a[i][0] = v.x; s.a[i][1] = v.y; s.a[i][2] = v.z; s.a[i][3] = v.w;
     } else {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -1267,18 +1216,15 @@ __device__ __forceinline__ void wgrad_load(WgradStaged<T>& s, const KGroup& kg,
     const int n = n0 + 4 * (u % S::DG);
 #pragma unroll
     for (int j = 0; j < 4; ++j) s.d[i][j] = 0.f;
-    s.dv[i] = 0.f;
     if ((S::DU % T::NP == 0 || u < S::DU) && q < q1 && n < w.N)
-      DL::load(s.d[i], s.dv[i], w, q, n);
+      DL::load(s.d[i], w, q, n);
   }
 }
 
-// pairs (bf16 loaded 4-wide): a, sa and st are packed pairs.
 template <class T, class DL, class E>
 __device__ __forceinline__ void wgrad_store(
     const WgradStaged<T>& s, float* As, float* Bs,
-    float (&bsum)[WgradShape<T>::DI][4], bool pairs,
-    const WgradArgsT<E>& w) {
+    float (&bsum)[WgradShape<T>::DI][4]) {
   using S = WgradShape<T>;
   const int tid = threadIdx.x - T::NC;
   const int kg = tid % S::KGW;
@@ -1286,22 +1232,11 @@ __device__ __forceinline__ void wgrad_store(
 #pragma unroll
   for (int i = 0; i < S::AW; ++i) {
     float v[4];
-    if constexpr (Elem<E>::kLow) {
-      float x[4] = {s.a[i][0], s.a[i][1], s.a[i][2], s.a[i][3]};
-      if (pairs) Affine::pairs<E>(x, s.sa[i], s.st[i]);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        v[j] = (s.mask >> (4 * i + j)) & 1u
-                   ? (pairs ? x[j]
-                            : Affine::apply<E>(x[j], s.sa[i][j], s.st[i][j]))
-                   : 0.f;
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        v[j] = (s.mask >> (4 * i + j)) & 1u
-                   ? fmaf(s.a[i][j], s.sa[i][j], s.st[i][j])
-                   : 0.f;
-    }
+    for (int j = 0; j < 4; ++j)
+      v[j] = (s.mask >> (4 * i + j)) & 1u
+                 ? fmaf(s.a[i][j], s.sa[i][j], s.st[i][j])
+                 : 0.f;
     *reinterpret_cast<float4*>(As + (pr + i * S::RSTEP) * T::SA + 4 * kg) =
         make_float4(v[0], v[1], v[2], v[3]);
   }
@@ -1309,11 +1244,9 @@ __device__ __forceinline__ void wgrad_store(
   for (int i = 0; i < S::DI; ++i) {
     const int u = tid + i * T::NP;
     if (S::DU % T::NP != 0 && u >= S::DU) break;
-    float d[4] = {s.d[i][0], s.d[i][1], s.d[i][2], s.d[i][3]};
-    if constexpr (Elem<E>::kLow) DL::finish(d, s.dv[i], w);
+    const float* d = s.d[i];
     *reinterpret_cast<float4*>(Bs + (u / S::DG) * T::SB + 4 * (u % S::DG)) =
-        make_float4(Elem<E>::rnd(d[0]), Elem<E>::rnd(d[1]),
-                    Elem<E>::rnd(d[2]), Elem<E>::rnd(d[3]));
+        make_float4(d[0], d[1], d[2], d[3]);
 #pragma unroll
     for (int j = 0; j < 4; ++j) bsum[i][j] += d[j];
   }
@@ -1331,7 +1264,6 @@ __device__ __forceinline__ void wgrad_produce(float* smem,
   const int tid = threadIdx.x - T::NC;
   const int pr = tid / S::KGW;
   const Geom& g = w.g;
-  const bool pairs = Elem<E>::kLow && w.vec_a;
   float* As = smem;
   float* Bs = smem + 2 * T::A_WORDS;
   KGroup kg;
@@ -1348,15 +1280,10 @@ __device__ __forceinline__ void wgrad_produce(float* smem,
 #pragma unroll
   for (int i = 0; i < S::AW; ++i) {
     s.lb[i] = -1;
-    if (pairs) {
-      Elem<E>::one4(s.sa[i]);
-      Elem<E>::zero4(s.st[i]);
-    } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s.sa[i][j] = 1.f;
-        s.st[i][j] = 0.f;
-      }
+    for (int j = 0; j < 4; ++j) {
+      s.sa[i][j] = 1.f;
+      s.st[i][j] = 0.f;
     }
     const int64_t q = q0 + pr + i * S::RSTEP;
     const int p = (int)(q % ((int64_t)g.H * g.W));
@@ -1371,14 +1298,14 @@ __device__ __forceinline__ void wgrad_produce(float* smem,
     for (int j = 0; j < 4; ++j) bsum[i][j] = 0.f;
   }
   wgrad_load<T, DL>(s, kg, w, cin0, q0, q1, n0);
-  wgrad_store<T, DL>(s, As, Bs, bsum, pairs, w);
+  wgrad_store<T, DL, E>(s, As, Bs, bsum);
   if (nk > 1) wgrad_load<T, DL>(s, kg, w, cin0, q0 + T::BK, q1, n0);
   block_sync<T::NT>();
   for (int i = 0; i < nk; ++i) {
     const int nxt = (i + 1) & 1;
     if (i + 1 < nk)
-      wgrad_store<T, DL>(s, As + nxt * T::A_WORDS, Bs + nxt * T::B_WORDS,
-                         bsum, pairs, w);
+      wgrad_store<T, DL, E>(s, As + nxt * T::A_WORDS, Bs + nxt * T::B_WORDS,
+                            bsum);
     if (i + 2 < nk)
       wgrad_load<T, DL>(s, kg, w, cin0, q0 + (int64_t)(i + 2) * T::BK, q1,
                         n0);

@@ -25,8 +25,8 @@ import torch.nn.functional as F
 
 from ucdir_tpu_torch.ops import _build
 from ucdir_tpu_torch.ops.conv import (affine_grads, dswish, rounded,
-                                     staged_affine, swish, vjp_of_plain,
-                                     wgrad_workspace)
+                                     staged_affine, swish, tc_merge,
+                                     vjp_of_plain, wgrad_workspace)
 from ucdir_tpu_torch.ops.stats import fold_stats_grad, gn1_stats_plain
 
 
@@ -234,6 +234,31 @@ def permuted_columns(w):
                                  w.device)].contiguous()
 
 
+def tc_pixel_tiles(H, W):
+    """Pixel tiles of an H x W image on the tensor cores (`csrc/igemm_tc.cuh`:
+    8 x 16 output pixels), the rows of K5's bf16 (B, tiles, G) workspace of
+    dattw."""
+    return -(-H // 8) * -(-W // 16)
+
+
+def tc_merged_weights(w, nset: int):
+    """K5's z recompute weights (9 * C / G, C * G) for the tensor cores: where
+    a group's C / G channels are no multiple of 8, `conv.tc_merge` m groups
+    become one of m * C / G channels with block-diagonal weights (9 * m * C
+    / G, C * G): row tap * m cg + u cg + ci, column g C + c, nonzero where
+    g % m == u. Unchanged where m is 1."""
+    cg = w.shape[0] // 9
+    C = w.shape[1] // nset
+    m = tc_merge(cg)
+    if m == 1:
+        return w
+    wv = w.reshape(9, cg, nset, C)
+    wm = w.new_zeros(9, m, cg, nset, C)
+    for u in range(m):
+        wm[:, u, :, u::m] = wv[:, :, u::m]
+    return wm.reshape(9 * m * cg, nset * C)
+
+
 def akgm_block_tail_backward_kernel(h, att_sp, w, bias, go, nset,
                                      norm_scale, norm_shift, attw):
     """K5 on CUDA tensors, every operand float32 or every one bfloat16:
@@ -248,9 +273,16 @@ def akgm_block_tail_backward_kernel(h, att_sp, w, bias, go, nset,
     # per-group weights of the transposed conv: (G, 9 * C, C / G), taps
     # flipped, wf[g][tap * C + n][ci] = w[(8 - tap) * C/G + ci][g * C + n]
     wf = (w.reshape(9, cg, nset, C).flip(0).permute(2, 0, 3, 1).contiguous())
-    # the z recompute's weights and bias, columns permuted within each tile
-    cols = _tile_columns_on(C * nset, tail_tile(C)[1], w.device)
-    wp, bp = w[:, cols].contiguous(), bias[cols].contiguous()
+    # the z recompute's weights and bias: on the FMA core (float32) the
+    # columns permuted within each tile; on the tensor cores (bf16) as they
+    # are (a channel's 8 candidates are one 8-column slab of wgmma's
+    # accumulator), narrow groups merged (`tc_merged_weights`)
+    tc = dt == torch.bfloat16
+    if tc:
+        wp, bp = tc_merged_weights(w, nset).contiguous(), bias
+    else:
+        cols = _tile_columns_on(C * nset, tail_tile(C)[1], w.device)
+        wp, bp = w[:, cols].contiguous(), bias[cols].contiguous()
     do = torch.empty_like(h)             # scratch: go * swish'(o)
     # scratch: att * attw in float32 (in bf16 also without attw)
     aa = (None if attw is None and dt == torch.float32 else
@@ -263,9 +295,11 @@ def akgm_block_tail_backward_kernel(h, att_sp, w, bias, go, nset,
     if attw is not None:
         dattw = torch.empty_like(attw)
         # per pixel tile sums of dattw, added in a fixed order
-        wsa = torch.empty(B, stats_tiles(H * W, C), nset, device=dev,
-                          dtype=torch.float32)
-    splits, ws = wgrad_workspace(9 * cg, C * nset, C, B * H * W, dev)
+        tiles = (tc_pixel_tiles(H, W) if tc
+                 else stats_tiles(H * W, C))
+        wsa = torch.empty(B, tiles, nset, device=dev, dtype=torch.float32)
+    splits, ws = wgrad_workspace(9 * cg, C * nset, C, B * H * W, dev,
+                                 tensor_cores=tc)
     _build.launch(kernel, h.data_ptr(), go.data_ptr(),
                   att_sp.data_ptr(), _build.ptr(attw), wp.data_ptr(),
                   wf.data_ptr(), bp.data_ptr(), _build.ptr(norm_scale),

@@ -194,24 +194,31 @@ def conv3x3_backward_plain(x, w, bias, go, *, act=None, norm_scale=None,
     return grads if low is None else tuple(g.to(low) for g in grads)
 
 
-# The weight gradients of K5 and K6 (`csrc/igemm_pc.cuh`, wgrad_pc_kernel)
-# cut the batch's pixels into S chunks and reduce the S partial tiles in a
-# fixed order from a workspace of S x (K + 1) x N floats, which the wrapper
-# allocates. The plan below mirrors the kernel's tile rule (launch_wgrad: by
-# width for one group, as K2's by cout; for K5's groups the widest tile whose
-# columns divide a group's) and holds the workspace under WGRAD_CAP_BYTES.
+# The weight gradients of K5 and K6 (`csrc/igemm_pc.cuh`, wgrad_pc_kernel;
+# in bf16 `csrc/igemm_tc.cuh`, wgrad_tc_kernel) cut the batch's pixels into S
+# chunks and reduce the S partial tiles in a fixed order from a workspace of
+# S x (K + 1) x N floats, which the wrapper allocates. The plan below mirrors
+# the kernels' tile rules (launch_wgrad: by width for one group, as K2's by
+# cout; for K5's groups the widest tile whose columns divide a group's;
+# launch_wgrad_tc: 128 rows of dW by 128 columns for K6 from 128, else 64)
+# and holds the workspace under WGRAD_CAP_BYTES.
 WGRAD_CAP_BYTES = 64 * 2 ** 20
-WGRAD_MIN_CHUNK = 256        # pixels: 16 slices of 16 per block at least
+WGRAD_MIN_CHUNK = 256        # pixels per block at least
 
 
-def wgrad_tile(group_cols, K, N):
+def wgrad_tile(group_cols, K, N, tensor_cores=False):
     """(BM, BN, blocks an SM holds) of the weight-gradient tile of K rows and
     N columns in groups of `group_cols`, as the kernel chooses (by its D
     loader: K6's is one group, group_cols = N; K5's groups of C < N): one
     group by width, 128 x 128, 64 x 64 (K <= 64), 96 x 64 (K <= 96), 256 x
     64 or 128 x 8; several (K5) the widest of those whose columns divide a
     group's, else 32, 16 or 8 columns by 64 rows (K <= 64) or 128, so that
-    no tile straddles two groups."""
+    no tile straddles two groups. On the tensor cores (bf16): 128 rows by
+    128 columns for one group of 128 or more (K6), else by 64 (K5 loads its
+    rebuilt dz a slice ahead into registers), one block an SM; a tile holds
+    min(BN, group_cols) columns of one group."""
+    if tensor_cores:
+        return 128, 128 if group_cols >= max(N, 128) else 64, 1
     one = group_cols >= N
     if (group_cols >= 128 if one else group_cols % 128 == 0):
         return 128, 128, 1
@@ -229,14 +236,41 @@ def wgrad_tile(group_cols, K, N):
     return 128, bn, 1 if bn == 32 else 2
 
 
-def wgrad_splits(K, N, group_cols, npix, sms=132):
+def tc_merge(cin):
+    """How many groups of `cin` channels the tensor cores' grouped products
+    (K5's z recompute and weight gradient) merge into one, so that a merged
+    group's channels are a multiple of 8 (the vector staging): the least
+    power of two that makes them so."""
+    m = 1
+    while (m * cin) % 8 and m < 8:
+        m *= 2
+    return m
+
+
+def wgrad_tiles(K, N, group_cols, tensor_cores=False, ones=False):
+    """The tiles of a (K x N) weight gradient's grid: on the tensor cores
+    K + 1 rows where the bias is a row of the product (`ones`: K6), and
+    min(BN, group_cols) columns of one group a tile, K5's groups merged by
+    `tc_merge` (m times the rows and the columns a group)."""
+    bm, bn, _ = wgrad_tile(group_cols, K, N, tensor_cores)
+    if not tensor_cores:
+        return -(-K // bm) * -(-N // bn)
+    m = tc_merge(K // 9) if group_cols < N else 1
+    K, group_cols = m * K, m * group_cols
+    width = min(bn, group_cols)
+    return (-(-(K + ones) // bm) * (N // group_cols)
+            * -(-group_cols // width))
+
+
+def wgrad_splits(K, N, group_cols, npix, sms=132, tensor_cores=False,
+                 ones=False):
     """The number of pixel chunks S of a (K x N) weight gradient over `npix`
     pixels: the least S whose grid fills the `sms` SMs (as many blocks as an
     SM holds) to 90% in its last wave and in all, within the workspace cap
     and the least chunk; the most that the cap and the chunk allow where
     none does."""
-    bm, bn, per_sm = wgrad_tile(group_cols, K, N)
-    tiles = -(-K // bm) * -(-N // bn)
+    per_sm = wgrad_tile(group_cols, K, N, tensor_cores)[2]
+    tiles = wgrad_tiles(K, N, group_cols, tensor_cores, ones)
     slots = sms * per_sm
     most = max(1, min(WGRAD_CAP_BYTES // (4 * (K + 1) * N),
                       -(-npix // WGRAD_MIN_CHUNK)))
@@ -247,10 +281,11 @@ def wgrad_splits(K, N, group_cols, npix, sms=132):
     return most
 
 
-def wgrad_workspace(K, N, group_cols, npix, device):
+def wgrad_workspace(K, N, group_cols, npix, device, tensor_cores=False,
+                    ones=False):
     """(S, the (S, K + 1, N) workspace) for a weight gradient on `device`."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    s = wgrad_splits(K, N, group_cols, npix, sms)
+    s = wgrad_splits(K, N, group_cols, npix, sms, tensor_cores, ones)
     return s, torch.empty(s, K + 1, N, device=device, dtype=torch.float32)
 
 
@@ -274,7 +309,10 @@ def conv3x3_backward_kernel(x, w, bias, go, act, norm_scale, norm_shift):
     dxh = torch.empty_like(x)
     dw = torch.empty_like(w)
     dbias = torch.empty_like(bias)
-    splits, ws = wgrad_workspace(9 * cin, cout, cout, B * H * W, dev)
+    # bf16: the tensor cores' weight gradient, its bias a row of ones
+    tc = dt == torch.bfloat16
+    splits, ws = wgrad_workspace(9 * cin, cout, cout, B * H * W, dev,
+                                 tensor_cores=tc, ones=tc)
     _build.launch(kernel, x.data_ptr(), go.data_ptr(), w.data_ptr(),
                   wf.data_ptr(), bias.data_ptr(), _build.ptr(norm_scale),
                   _build.ptr(norm_shift), _build.ptr(dz), dxh.data_ptr(),

@@ -264,7 +264,7 @@ def main(argv=None):
     from ucdir_tpu_torch import config as Logger
     from ucdir_tpu_torch import data as Data
     from ucdir_tpu_torch.metrics import core as Metrics
-    from ucdir_tpu_torch.trainer import Trainer
+    from ucdir_tpu_torch.trainer import create_model
     from ucdir_tpu_torch.utils.logging import setup_logger
 
     if args.device.startswith('cuda') and not torch.cuda.is_available():
@@ -299,7 +299,7 @@ def main(argv=None):
     val_set = Data.create_dataset(val_opt, 'val')
     val_loader = Data.create_dataloader(val_set, val_opt, 'val')
     logger.info('Initial Dataset Finished')
-    diffusion = Trainer(opt, device=args.device, seed=args.seed)
+    diffusion = create_model(opt, device=args.device, seed=args.seed)
     logger.info('Initial Model Finished')
 
     if args.phase == 'train':

@@ -199,3 +199,39 @@ class Trainer:
         sd = torch.load(path, map_location='cpu', weights_only=True)
         sd = {k: v for k, v in sd.items() if k not in SCHEDULE_BUFFERS}
         self.model.load_state_dict(sd, strict=True)
+
+
+class TrainerBNoise(Trainer):
+    """DDPM_bnoise: adds sigma = 50/255 Gaussian noise, twice over, to the
+    degraded input of every fed batch (reference model.py:270-280; the JAX
+    package's `TrainerBNoise`). The draws come from a generator of the
+    trainer's own, seeded from its seed, on the host where the batch is."""
+
+    def __init__(self, opt, device, seed: int = 0):
+        super().__init__(opt, device, seed)
+        self.noise_generator = torch.Generator().manual_seed(seed + 2)
+
+    def draw_noise(self, shape):
+        """Standard normal draws of `shape` (float32 numpy) from the
+        trainer's noise generator."""
+        return torch.randn(tuple(shape), generator=self.noise_generator,
+                           dtype=torch.float32).numpy()
+
+    def feed_data(self, data):
+        super().feed_data(data)
+        sr = np.asarray(self.data['SR'], np.float32)
+        self.data['SR'] = sr + self.draw_noise(sr.shape) * 2 * (50. / 255.)
+
+
+MODELS = {'DDPM': Trainer, 'DDPM_bnoise': TrainerBNoise}
+
+
+def create_model(opt, **kwargs):
+    """The trainer that opt['model']['name'] names (reference
+    model/__init__.py:5-10; the JAX package's `create_model`): DDPM (the
+    default) builds `Trainer`, DDPM_bnoise `TrainerBNoise`. DDPM_realsr and
+    any other name raise NotImplementedError."""
+    name = (opt.get('model') or {}).get('name', 'DDPM') or 'DDPM'
+    if name not in MODELS:
+        raise _unsupported('model.name %r' % (name,))
+    return MODELS[name](opt, **kwargs)
