@@ -36,10 +36,13 @@ on any failure:
               in bf16 (cuDNN, cuBLAS), the bound the larger of the counted
               bytes at 2 a value and the counted FLOP at 989 TFLOP/s (bf16
               on the tensor cores, dense), with the fp32 FMA product's issue
-              time at 67 TFLOP/s printed beside it (K1's and K4's bf16
-              forms run that product; K2's, K3's, K5's, K6's and K7's run
-              on the tensor cores, csrc/igemm_tc.cuh, and K2's bf16
-              statistics must be equal bit for bit in a second call); the
+              time at 67 TFLOP/s printed beside it (K1's, K2's, K3's, K5's,
+              K6's and K7's bf16 forms run on the tensor cores,
+              csrc/igemm_tc.cuh; K1's and K2's bf16 statistics and K4's
+              bf16 sums, added in a fixed order, must be equal bit for bit
+              in a second call); K1 in bf16 also at C = 8, 16, 24, 32 and
+              192 on the frame's /8 level (its groups merged below 8
+              channels, and the inner_channel 24 model's widths); the
               edges of that core
               in bf16 (ragged last tiles at 195 x 283, cout 24 and 96, cin 6
               and 96, stride 2 at 391 x 567, K3 at 1568 x 2271 with cin 96,
@@ -68,10 +71,10 @@ on any failure:
               and generator): seconds, ms per DY3h step, peak memory,
               launches, every bf16 kernel launched, and its distance from
               phase 5's float32 frame, mean abs within 0.05 (the JAX
-              package's test of bf16 against fp32); every launch of K2, K3
-              and K7 in bf16 there and on the `dropout: 0` slice must have
-              gone through the tensor-core core, and no other launch, of
-              the bf16 or the float32 frame.
+              package's test of bf16 against fp32); every launch of K1, K2,
+              K3 and K7 in bf16 there and on the `dropout: 0` slice must
+              have gone through the tensor-core core, and no other launch,
+              of the bf16 or the float32 frame.
   6. train_slice  full width, crop 64, batch 2, dropout off, injected gammas
               and noise, 2 AdamW steps on the card and on the host: the loss
               of each step, every gradient of the first step and every
@@ -92,8 +95,8 @@ on any failure:
               96 x 96 input.
   7b. train_bf16  the same steps with --compute_dtype bf16 (5, the first a
               warm-up): seconds per step, peak memory, only the bf16 forms
-              of K1..K6 launched, every call of K5, K6 (and K2, K3) in bf16
-              through the tensor-core core, masters, gradients, AdamW
+              of K1..K6 launched, every call of K1, K2, K3, K5 and K6 in
+              bf16 through the tensor-core core, masters, gradients, AdamW
               state, EMA and the saved weights float32.
   8. variants the full-width model with `dropout: 0` (folded head, K7) and
               each AKGM tail ('fused' K1, 'mix' K8, 'packed' K9) restores a
@@ -314,6 +317,7 @@ def kernel_cases(gen, dev):
             plain=lambda: akgm.akgm_block_tail_plain(h, att, w, b, res, G,
                                                      emit_stats=True, **kw),
             library=None, stats=2, fixed=(1, 2), flop=flop,
+            bits=None if dtype == f32 else 0.99,
             bytes=nbytes(h, att, w, b, res, h, *kw.values()) + 8 * C))
         return h, att, w, b, res, kw, flop
 
@@ -465,12 +469,14 @@ def kernel_cases(gen, dev):
 
     def k4_case(gen=gen, dtype=f32):
         xs = rnd(1, h8, w8, 1024, gen=gen, dtype=dtype)
+        # bf16: added per slab of pixels in a fixed order, the same bits
+        # again
         cases.append(dict(
             **kind('gn1_stats', dtype), label='C=1024 %dx%d' % (h8, w8),
             kernel=lambda: stats.gn1_stats(xs),
             plain=lambda: stats.gn1_stats_plain(xs),
-            library=None, stats=2, flop=3 * xs.numel(),
-            bytes=nbytes(xs) + 8 * 1024))
+            library=None, stats=2, fixed=() if dtype == f32 else (0, 1),
+            flop=3 * xs.numel(), bytes=nbytes(xs) + 8 * 1024))
 
     k4_case()
 
@@ -522,6 +528,12 @@ def kernel_cases(gen, dev):
                torch.bfloat16)
     for C, s in levels:
         k1_case(C, H0 // s, W0 // s, gen=g16, dtype=bf)
+    # K1 in bf16 at the narrow widths (groups below 8 channels merged on the
+    # tensor cores) and the inner_channel 24 model's /8 width, on the
+    # frame's /8 level, from a generator of their own
+    g_k1 = torch.Generator(dev).manual_seed(gen.initial_seed() + 12)
+    for C in (8, 16, 24, 32, 192):
+        k1_case(C, h8, w8, gen=g_k1, dtype=bf)
     for label, H, W, cin, cout, opts in val_convs:
         conv_case(label, 1, H, W, cin, cout, gen=g16, dtype=bf, **opts)
     conv1x1_case(H0, W0, 192, 64, gen=g16, dtype=bf)
@@ -590,7 +602,7 @@ def phase_kernels(dev, seed, results):
                  % (name, label, len(got), len(want)))
         stat_scale = want[-1].abs().max().item()
         out_rel, stat_rel = case.get('tol', (1e-4, 1e-5))
-        errs, rels = [], []
+        errs, rels, shares = [], [], []
         for i, (g, w) in enumerate(zip(got, want)):
             if g.shape != w.shape or g.dtype != w.dtype:
                 fail('%s %s: result %d has shape %s %s, plain %s %s'
@@ -604,9 +616,18 @@ def phase_kernels(dev, seed, results):
                 fail('%s %s: result %d max abs err %.3e > tol %.3e'
                      % (name, label, i, errs[-1], tol))
             rels.append(errs[-1] / max(big, 1e-30))
-        # K1's statistics, the weight and bias gradients of K5 and K6, and
-        # K5's attention gradients are added in a fixed order: a second call
-        # gives the same bits
+            # K1 in bf16: also at least this share of the plain version's
+            # bits (as the GPU tests hold every bf16 form)
+            if i < n_out and case.get('bits'):
+                same = (g == w).float().mean().item()
+                shares.append(same)
+                if not same >= case['bits']:
+                    fail('%s %s: result %d has %.4f of the plain version\'s '
+                         'bits, below %.2f' % (name, label, i, same,
+                                               case['bits']))
+        # K1's statistics (and in bf16 K2's and K4's sums), the weight and
+        # bias gradients of K5 and K6, and K5's attention gradients are added
+        # in a fixed order: a second call gives the same bits
         if case.get('fixed'):
             again = flat(case['kernel']())
             for i in case['fixed']:
@@ -622,7 +643,7 @@ def phase_kernels(dev, seed, results):
         t_bytes = 1e3 * case['bytes'] / HBM_BYTES_PER_S
         rate = case.get('flop_per_s', FP32_FLOP_PER_S)
         t_flop = 1e3 * case['flop'] / rate
-        # a bf16 form's product as fp32 FMA (K1's): its issue time alone
+        # a bf16 form's product as fp32 FMA: its issue time, for comparison
         t_fma = 1e3 * case['flop'] / FP32_FLOP_PER_S
         r = results.setdefault(name, {
             'max_abs_err': 0.0, 'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0,
@@ -636,7 +657,8 @@ def phase_kernels(dev, seed, results):
         if lib_ms is not None:
             r['library_ms'] = (r['library_ms'] or 0.0) + lib_ms
         say('kernels', '%-13s %-44s max_abs_err %.3e (largest rel %s)  '
-            'kernel %.3f ms  plain %.3f ms  library %s  bound %.3f ms (%s)%s%s'
+            'kernel %.3f ms  plain %.3f ms  library %s  bound %.3f ms '
+            '(%s)%s%s%s'
             % (name, label, err,
                ' '.join('%.1e' % v for v in rels) if case.get('fixed')
                else '%.1e' % max(rels), ms, plain_ms,
@@ -648,7 +670,9 @@ def phase_kernels(dev, seed, results):
                '  fp32 FMA issue %.3f ms at 67 TFLOP/s' % t_fma,
                '; results %s bit-identical in a second call'
                % (case['fixed'],)
-               if case.get('fixed') else ''))
+               if case.get('fixed') else '',
+               "; share of the plain version's bits %s"
+               % ' '.join('%.4f' % v for v in shares) if shares else ''))
         torch.cuda.empty_cache()
 
 
@@ -909,7 +933,7 @@ def phase_bf16(dev, seed, counts, sr32):
              % missing)
     if counts['bf16_head']['conv3x3_preact_bf16'] == 0:
         fail('bf16: the dropout: 0 model never launched conv3x3_preact_bf16')
-    # K2, K3 and K7 in bf16 run on the tensor cores at every launch; no
+    # K1, K2, K3 and K7 in bf16 run on the tensor cores at every launch; no
     # other kernel of the frame does, and none of the float32 frame
     for path in ('bf16', 'bf16_head', 'sid'):
         tensor_cores_only(path, counts[path])
@@ -1201,7 +1225,8 @@ def phase_train(dev, seed):
 
 def tensor_cores_only(path, launches):
     """Fails unless every launch on `path` of an entry point of the
-    tensor-core core (`_build.TC_ENTRIES`: K2, K3, K5, K6 and K7 in bf16)
+    tensor-core core (`_build.TC_ENTRIES`: K1, K2, K3, K5, K6 and K7 in
+    bf16)
     went through it, and no other entry point's did."""
     from ucdir_tpu_torch.ops import _build
     wrong = {k: (TC[path][k], n) for k, n in launches.items()

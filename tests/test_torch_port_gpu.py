@@ -30,7 +30,12 @@ K2 and K3 run on tiles of 128 pixels by 128 or 8 columns, or 256 by 64, in k
 slices of 16: their cases include cout 3, 8, 9 and 130, cin 4, 6 and 70, P
 one short of and one past a pixel tile, stride 2 on odd sizes and B = 3.
 The bf16 forms of K1, K2, K3, K4 and K7 (`_bf16` tests) take the same cases
-in bfloat16 against the bf16 plain versions; K2, K3 and K7 in bf16 run on
+in bfloat16 against the bf16 plain versions. K1 in bf16 runs on the tensor
+cores on K5's grouped product (groups below 8 channels merged: C = 8, 16,
+24, 32; the 64- and 128-column tiles; ragged 195 x 283), its statistics and
+K4's bf16 sums added in a fixed order (the same bits in a second call; K4
+also at C % 8 != 0 and from a misaligned pointer, its scalar loads); K2, K3
+and K7 in bf16 run on
 the tensor-core core (`csrc/igemm_tc.cuh`: wgmma, tiles of 8 x 16 pixels for
 the 3x3 convolutions, 128 for the 1x1, by 128, 64 or 8 columns), every
 launch of theirs counted through it, and its edges have tests of their own
@@ -630,18 +635,47 @@ def launched(name, fn):
     return out
 
 
-@pytest.mark.parametrize('B,H,W,C', [(2, 13, 21, 64), (1, 9, 130, 128),
-                                     (1, 5, 7, 512)] + NARROW)
+# K1 in bf16 on the tensor cores: the frame's widths, the narrow ones (groups
+# merged), and ragged 8 x 16 pixel tiles at the /8 level of the frame
+K1_BF16_SHAPES = [(2, 13, 21, 64), (1, 9, 130, 128), (1, 5, 7, 512)] + \
+    NARROW + [(1, 195, 283, 64), (1, 195, 283, 24), (1, 195, 283, 256)]
+
+
+@pytest.mark.parametrize('B,H,W,C', K1_BF16_SHAPES)
 @pytest.mark.parametrize('fold', [False, True])
-def test_akgm_tail_bf16(dev, B, H, W, C, fold):
+@pytest.mark.parametrize('emit_stats', [False, True])
+def test_akgm_tail_bf16(dev, B, H, W, C, fold, emit_stats):
+    """K1 in bf16 against its bf16 plain version; every call through the
+    tensor cores (`launched`: 'akgm_tail_bf16' is a TC entry)."""
+    assert 'akgm_tail_bf16' in _build.TC_ENTRIES
     gen, G = torch.Generator(dev).manual_seed(15), 8
     h, att, w, b, res, kw = tail_operands(gen, B, H, W, C, fold)
     h, att, w, b, res = bf16(h, att, w, b, res)
     kw = {k: v.to(BF) for k, v in kw.items()}
     got = launched('akgm_tail', lambda: akgm.akgm_block_tail(
-        h, att, w, b, res, G, emit_stats=True, **kw))
-    check_bf16(got, akgm.akgm_block_tail_plain(h, att, w, b, res, G,
-                                               emit_stats=True, **kw), 2)
+        h, att, w, b, res, G, emit_stats=emit_stats, **kw))
+    check_bf16(got, akgm.akgm_block_tail_plain(
+        h, att, w, b, res, G, emit_stats=emit_stats, **kw),
+        2 if emit_stats else 0)
+
+
+@pytest.mark.parametrize('B,H,W,C', [(2, 40, 37, 64), (1, 33, 65, 128),
+                                     (3, 9, 13, 8), (1, 7, 300, 512),
+                                     (1, 195, 283, 24)])
+def test_akgm_tail_bf16_statistics_repeat_bit_for_bit(dev, B, H, W, C):
+    """K1 in bf16 adds its statistics per 8 x 16 pixel tile and then over
+    the tiles in a fixed order, with no atomics: a second call gives the
+    same bits, and the output itself is the same too."""
+    gen, G = torch.Generator(dev).manual_seed(14), 8
+    h, att, w, b, res, kw = tail_operands(gen, B, H, W, C, True)
+    h, att, w, b, res = bf16(h, att, w, b, res)
+    kw = {k: v.to(BF) for k, v in kw.items()}
+    one, two = (flat(akgm.akgm_block_tail(h, att, w, b, res, G,
+                                          emit_stats=True, **kw))
+                for _ in range(2))
+    assert all(torch.equal(x, y) for x, y in zip(one, two))
+    check_bf16(tuple(one), akgm.akgm_block_tail_plain(
+        h, att, w, b, res, G, emit_stats=True, **kw), 2)
 
 
 @pytest.mark.parametrize('B,H,W,cin,cout,stride', CONV3X3_SHAPES)
@@ -677,12 +711,38 @@ def test_conv1x1_bf16(dev, B, H, W, cin, cout, act):
                conv.conv1x1_plain(x, w, b, act=act), 0)
 
 
-@pytest.mark.parametrize('shape', [(2, 17, 19, 40), (1, 33, 65, 1024)])
+# K4 in bf16: 16-byte loads (C % 8 == 0), 5 to 32 chunks of 8 channels a
+# block, two channel blocks (C = 1024, 320), and the scalar loads (C = 37)
+GN1_BF16_SHAPES = [(2, 17, 19, 40), (1, 33, 65, 1024), (2, 9, 11, 8),
+                   (1, 31, 29, 320), (2, 13, 7, 37)]
+
+
+@pytest.mark.parametrize('shape', GN1_BF16_SHAPES)
 def test_gn1_stats_bf16(dev, shape):
     gen = torch.Generator(dev).manual_seed(4)
     x = rnd(gen, *shape, off=0.3).to(BF)
     check_bf16(launched('gn1_stats', lambda: stats.gn1_stats(x)),
                stats.gn1_stats_plain(x), 2)
+
+
+@pytest.mark.parametrize('shape', GN1_BF16_SHAPES)
+@pytest.mark.parametrize('offset', [0, 1])
+def test_gn1_stats_bf16_repeat_bit_for_bit(dev, shape, offset):
+    """K4 in bf16 adds per slab of pixels and then over the slabs in a fixed
+    order, no atomics: a second call gives the same bits; from a pointer one
+    element past 16-byte alignment (offset 1) it takes the scalar loads, in
+    the same order, so the same bits again."""
+    gen = torch.Generator(dev).manual_seed(21)
+    n = torch.Size(shape).numel()
+    base = (rnd(gen, n + 1, off=0.3) * 2.0).to(BF)
+    x = base[offset:offset + n].view(shape)
+    one, two = stats.gn1_stats(x), stats.gn1_stats(x)
+    for a, b in zip(one, two):
+        assert torch.equal(a, b)
+    check_bf16(one, stats.gn1_stats_plain(x), 2)
+    if offset:   # the same values from an aligned copy
+        for a, b in zip(one, stats.gn1_stats(x.clone())):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize('B,H,W,cin,cout', PREACT_SHAPES)

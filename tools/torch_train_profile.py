@@ -14,8 +14,9 @@ times three steps with the host clock around `torch.cuda.synchronize()`, then
 traces one more step with `torch.profiler` and prints: seconds per step, peak
 memory, the device's busy time and idle share inside the traced step, the
 time of each CUDA kernel by name (top 30), the port's kernels by launch (K1's
-two and K2 bf16's two: the product and its statistics' reduction; K2, K3,
-K5, K6 and K7 in bf16 on the tensor cores apart from their FMA forms; K5's
+two, K2 bf16's and K4 bf16's two: the product or the sums, and the
+statistics' reduction; K1, K2, K3, K5, K6 and K7 in bf16 on the tensor
+cores apart from their FMA forms; K5's
 and K6's three: z recompute, weight gradient and its reduction, input
 gradient) and the
 launches of K1..K6 in that step, and the casts' time (`aten::_to_copy` and
@@ -113,6 +114,7 @@ def main(argv=None):
 # kernel name -> the port's kernel and launch (csrc/*.cu), first match wins
 PARTS = (
     # the bf16 forms of K5 and K6 on the tensor cores (igemm_tc.cuh)
+    (('gconv_tc_kernel', 'TailEpi'), 'K1 bf16 (tensor cores)'),
     (('gconv_tc_kernel', 'MixEpi'), 'K5 bf16 do (z recompute, tensor cores)'),
     (('gconv_tc_kernel', 'Dz'), 'K5 bf16 dh (input gradient, tensor cores)'),
     (('wgrad_tc_kernel', ', true'), 'K5 bf16 dW (tensor cores)'),
@@ -140,8 +142,9 @@ PARTS = (
     (('conv_tc_kernel', 'Affine'), 'K2 bf16 (tensor cores)'),
     (('conv_stats_kernel',), 'K2 bf16 statistics reduction'),
     (('akgm_tail_kernel', ', true,'), 'K1'),
-    (('stats_reduce_kernel',), 'K1 statistics reduction'),
+    (('stats_reduce_kernel',), 'K1 and K4 bf16 statistics reductions'),
     (('akgm_tail_kernel', ', false,'), 'K8'),
+    (('gn1_slab',), 'K4 bf16'),
     (('gn1_stats',), 'K4'),
     (('akgm_packed_kernel',), 'K9'),
 )

@@ -20,8 +20,8 @@
 // (ucdir_tpu/ops/akgm_pallas.py _akgm_forward, which densified the grouped
 // weights 8x and summed the candidates with a selection matmul).
 //
-// Both run on the producer/consumer core of igemm_pc.cuh, K5's z recompute's
-// product (akgm_tail_bwd.cu):
+// In float32 both run on the producer/consumer core of igemm_pc.cuh, K5's
+// z recompute's product (akgm_tail_bwd.cu):
 // - The wrapper permutes the weights' columns within each column tile
 //   (ops/akgm.py tile_columns), so that a consumer thread's two groups of 4
 //   columns, half a tile apart, are one channel's candidates 0..7. The bias
@@ -51,36 +51,60 @@
 //   and stored plainly into a (B, pixel tiles, 2, C) workspace;
 //   stats_reduce_kernel adds the tiles in a fixed order. The sums have the
 //   same bits from call to call.
-// - K1 in bf16 (the TPU kernel's bf16 instantiation, validation under
-//   --compute_dtype bf16): the operands are bf16 in device memory and
-//   converted to float as the producers stage them; the product is the same
-//   fp32 FMA. It rounds where B1 rounds in bf16: the staged h * a, then + t;
-//   att * attw; each candidate z = acc + b_j, then z * (att * attw); the
-//   mix of the 8 rounded terms, swish and the residual in float, the output
-//   rounded once (to nearest even), and its statistics the float sums of
-//   the rounded values. K8 takes float only.
 // Bound: fp32 FMA issue at 2 * 9 * C/G * C * G FLOP per pixel.
-#include "igemm_pc.cuh"
+//
+// K1 in bf16 (ucdir_akgm_tail_bf16) replaces B1's bf16 instantiation
+// (validation and training under --compute_dtype bf16) and runs on the
+// tensor cores of igemm_tc.cuh instead: K5's bf16 z recompute
+// (akgm_tail_bwd.cu) run forward, gconv_tc_kernel's grouped 3x3 product
+// over the folded input, h * a then + t each rounded to bf16 as the
+// producers stage it (pc::Affine), with tc::TailEpi as its epilogue.
+// - The weights in natural column order (c * 8 + j): a channel's 8
+//   candidates are one 8-column slab of wgmma's accumulator, 2 on each lane
+//   of a quad, so no permutation; groups below 8 channels (C < 64) merged
+//   m at a time into groups of a multiple of 8 channels with block-diagonal
+//   weights (ops/akgm.py tc_merged_weights), so that every C % 8 == 0 takes
+//   the vector staging (flat slices below 64 channels a group).
+// - The epilogue rounds where B1 rounds in bf16: att * attw; each candidate
+//   z = acc + b_j, then z * A; the mix of the 8 rounded terms ((m0 + m1) +
+//   (m2 + m3)) + ((m4 + m5) + (m6 + m7)) by two quad shuffles, swish and the
+//   residual in float, the output rounded once and stored 16 bytes a run.
+//   The residual and the bias are loaded before the tile's product.
+// - Statistics in a fixed order, no atomics: per channel over the tile's
+//   128 rows (a lane's 2, the warp's 8 quads by shuffles, the 8 warps in
+//   warp order), stored plainly into a (B, 8 x 16 pixel tiles, 2, C)
+//   workspace, then stats_reduce_kernel (tile_sums.cuh) over the tiles.
+// - z is the tensor core's own sum over all of K, on 128-column tiles: K5's
+//   per-slice sum (consume_promoted), which caps the tile at 64 columns,
+//   measured 1.2x to 1.3x slower at C >= 128 (PERF.md §6).
+// Bound: bf16 FLOP at 989 TFLOP/s on the tensor cores (2 * 9 * C/G * C * G
+// a pixel), or at C = 64 the bytes at 3.35 TB/s (h, att, res, out: 6 C + 16
+// bytes a pixel). What it does about that bound: no candidate tensor, every
+// operand read once per tile, the product on the tensor cores, and at C =
+// 64 (K = 72, two flat slices a tile) the epilogue's shuffles shared by a
+// quad's 4 slabs.
+#include "igemm_tc.cuh"
+#include "tile_sums.cuh"
 
 namespace {
 
 namespace pc = ucdir::pc;
 using ucdir::Elem;
+using ucdir::bf16;
 constexpr int G = 8;       // candidates per channel; a consumer thread's TN
 constexpr int MAX_CW = 8;  // column tiles a block walks, at most
 
-// E: the operands' element type (float, or bf16 for K1).
-template <class E>
+// K1's and K8's operands on the FMA core (float32).
 struct TailArgs {
-  const E* h;         // (B, H, W, C)
-  const E* att;       // (B, H, W, G)
-  const E* attw;      // (B, G) or null
-  const E* w;         // (9 * C / G, C * G), columns permuted in each tile
-  const E* bias;      // (C * G), in its own order
-  const E* res;       // (B, H, W, C); K8: null
-  const E* a;         // (B, C) or null
-  const E* t;
-  E* out;             // (B, H, W, C)
+  const float* h;     // (B, H, W, C)
+  const float* att;   // (B, H, W, G)
+  const float* attw;  // (B, G) or null
+  const float* w;     // (9 * C / G, C * G), columns permuted in each tile
+  const float* bias;  // (C * G), in its own order
+  const float* res;   // (B, H, W, C); K8: null
+  const float* a;     // (B, C) or null
+  const float* t;
+  float* out;         // (B, H, W, C)
   float* ws;          // (B, ntp, 2, C) per-tile sums, or null
   ucdir::Geom g;      // g.C = C, g.cin = C / G, g.K = 9 * C / G
   int ncw;            // column tiles per block; blockIdx.y * ncw is the first
@@ -110,33 +134,33 @@ struct Layout {
 };
 
 // The producers' staging for the epilogues (pc::grouped_produce's Stage):
-// att * attw of the block's pixels (rounded to E), and a column tile's bias
-// and residual, as float. (Loading the residual in one iteration of the
-// product and storing it in the next measured no faster: PERF.md §6.)
-template <class T, bool TAIL, class E>
+// att * attw of the block's pixels, and a column tile's bias and residual.
+// (Loading the residual in one iteration of the product and storing it in
+// the next measured no faster: PERF.md §6.)
+template <class T, bool TAIL>
 struct TailStage {
   using L = Layout<T>;
-  const TailArgs<E>* c;
+  const TailArgs* c;
   float* smem;
   int b, m0, nt0, P;
 
   __device__ __forceinline__ void block(int nt) const {
     const int tid = threadIdx.x - T::NC;
-    const E* att = c->att + ((int64_t)b * P + m0) * G;
+    const float* att = c->att + ((int64_t)b * P + m0) * G;
     float* as = smem + L::ATT;
     float aw[2][4] = {{1.f, 1.f, 1.f, 1.f}, {1.f, 1.f, 1.f, 1.f}};
     if (TAIL && c->attw) {
-      Elem<E>::ld4(aw[0], c->attw + b * G);
-      Elem<E>::ld4(aw[1], c->attw + b * G + 4);
+      Elem<float>::ld4(aw[0], c->attw + b * G);
+      Elem<float>::ld4(aw[1], c->attw + b * G + 4);
     }
     for (int u = tid; u < 2 * T::BM; u += T::NP) {
       const int m = u / 2;
       float v[4] = {0.f, 0.f, 0.f, 0.f};
       if (m0 + m < P) {
-        Elem<E>::ld4(v, att + 4 * u);
+        Elem<float>::ld4(v, att + 4 * u);
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          v[j] = Elem<E>::rnd(__fmul_rn(v[j], aw[u % 2][j]));
+          v[j] = __fmul_rn(v[j], aw[u % 2][j]);
       }
       *reinterpret_cast<float4*>(as + 4 * u) =
           make_float4(v[0], v[1], v[2], v[3]);
@@ -149,19 +173,19 @@ struct TailStage {
     float* buf = smem + L::BUF + ((nt - nt0) & 1) * L::BUF_WORDS;
     for (int u = tid; u < T::BN / 4; u += T::NP) {
       float v[4];
-      Elem<E>::ld4(v, c->bias + nt * T::BN + 4 * u);
+      Elem<float>::ld4(v, c->bias + nt * T::BN + 4 * u);
       reinterpret_cast<float4*>(buf + T::BM * L::RS)[u] =
           make_float4(v[0], v[1], v[2], v[3]);
     }
     if (!TAIL) return;
     const int C = c->g.C;
-    const E* res = c->res + ((int64_t)b * P + m0) * C + nt * T::NCX;
+    const float* res = c->res + ((int64_t)b * P + m0) * C + nt * T::NCX;
     if (T::NCX % 4 == 0 && c->vec_res) {
       constexpr int Q = T::NCX / 4;  // 4-wide loads a pixel
       for (int u = tid; u < T::BM * Q; u += T::NP) {
         const int m = u / Q, q = u % Q;
         float v[4] = {0.f, 0.f, 0.f, 0.f};
-        if (m0 + m < P) Elem<E>::ld4(v, res + (int64_t)m * C + 4 * q);
+        if (m0 + m < P) Elem<float>::ld4(v, res + (int64_t)m * C + 4 * q);
         float* r = buf + m * L::RS + 4 * q;
         r[0] = v[0]; r[1] = v[1]; r[2] = v[2]; r[3] = v[3];
       }
@@ -169,7 +193,7 @@ struct TailStage {
       for (int e = tid; e < T::BM * T::NCX; e += T::NP) {
         const int m = e / T::NCX, l = e % T::NCX;
         buf[m * L::RS + l] =
-            m0 + m < P ? Elem<E>::ld(res + (int64_t)m * C + l) : 0.f;
+            m0 + m < P ? Elem<float>::ld(res + (int64_t)m * C + l) : 0.f;
       }
     }
   }
@@ -178,9 +202,9 @@ struct TailStage {
 // The consumers' epilogue of column tile n0 / BN, the block's it-th: a
 // thread's TM rows of channel n0 / G + tn. TAIL: K1's (swish, residual, and
 // with red the warp's per-channel sums into red (warps, NCX, 2)); else K8's.
-template <class T, bool TAIL, class E>
+template <class T, bool TAIL>
 __device__ __forceinline__ void tail_epilogue(const float (&acc)[T::TM][T::TN],
-                                              const TailArgs<E>& c,
+                                              const TailArgs& c,
                                               const float* smem, int it,
                                               int b, int m0, int n0,
                                               float* red) {
@@ -214,21 +238,13 @@ __device__ __forceinline__ void tail_epilogue(const float (&acc)[T::TM][T::TN],
     // ap[j] is att * attw, rounded as the product the mix takes
     float mix = 0.f;
 #pragma unroll
-    for (int j = 0; j < G; ++j) {
-      if constexpr (Elem<E>::kLow) {
-        // z rounded, then z * att rounded, as B1 mixes in bf16
-        mix += Elem<E>::rnd(
-            __fmul_rn(Elem<E>::rnd(__fadd_rn(acc[i][j], bj[j])), ap[j]));
-      } else {
-        mix += (acc[i][j] + bj[j]) * ap[j];
-      }
-    }
+    for (int j = 0; j < G; ++j) mix += (acc[i][j] + bj[j]) * ap[j];
     if (!TAIL) {
-      Elem<E>::st(c.out + pix * C + ch, mix);
+      Elem<float>::st(c.out + pix * C + ch, mix);
       continue;
     }
-    const float v = Elem<E>::rnd(ucdir::swishf(mix) + buf[m * L::RS + tn]);
-    Elem<E>::st(c.out + pix * C + ch, v);
+    const float v = ucdir::swishf(mix) + buf[m * L::RS + tn];
+    Elem<float>::st(c.out + pix * C + ch, v);
     s += v;
     q += v * v;
   }
@@ -248,8 +264,8 @@ __device__ __forceinline__ void tail_epilogue(const float (&acc)[T::TM][T::TN],
 
 // One pixel tile (blockIdx.x) of image blockIdx.z by column tiles
 // blockIdx.y * ncw .. + ncw - 1, one pipeline across them.
-template <class T, bool TAIL, class E>
-__global__ void __launch_bounds__(T::NT) akgm_tail_kernel(TailArgs<E> c) {
+template <class T, bool TAIL>
+__global__ void __launch_bounds__(T::NT) akgm_tail_kernel(TailArgs c) {
   using L = Layout<T>;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -261,14 +277,14 @@ __global__ void __launch_bounds__(T::NT) akgm_tail_kernel(TailArgs<E> c) {
   const bool stats = TAIL && c.ws != nullptr;
   const int nk = pc::igemm_setup<T>(smem, c.g, m0);
   if (threadIdx.x >= T::NC) {
-    const TailStage<T, TAIL, E> st = {&c, smem, b, m0, nt0, c.g.H * c.g.W};
+    const TailStage<T, TAIL> st = {&c, smem, b, m0, nt0, c.g.H * c.g.W};
     pc::grouped_produce<T>(smem, c.h, c.a, c.t, c.w, c.g, b, nt0,
                            nt0 + c.ncw, nk, c.vec_a, st);
   } else {
     for (int i = 0; i < c.ncw; ++i) {
       float acc[T::TM][T::TN];
       pc::consume<T>(acc, smem, nk);
-      tail_epilogue<T, TAIL, E>(acc, c, smem, i, b, m0, (nt0 + i) * T::BN,
+      tail_epilogue<T, TAIL>(acc, c, smem, i, b, m0, (nt0 + i) * T::BN,
                              stats ? red + i * L::NW * T::NCX * 2 : nullptr);
     }
   }
@@ -291,48 +307,13 @@ __global__ void __launch_bounds__(T::NT) akgm_tail_kernel(TailArgs<E> c) {
   }
 }
 
-// ssum, ssq (B, C) from the (B, ntp, 2, C) per-tile sums: warp w of block
-// (channels 32 * blockIdx.x .., image blockIdx.y) adds the tiles
-// [w * run, (w + 1) * run) in ascending order, run = ceil(ntp / 32), then
-// the 32 runs are added in ascending order.
-__global__ void __launch_bounds__(1024)
-    stats_reduce_kernel(const float* __restrict__ ws, float* __restrict__ ssum,
-                        float* __restrict__ ssq, int ntp, int C) {
-  __shared__ float part[32][2][32];
-  const int lane = threadIdx.x & 31;
-  const int w = threadIdx.x >> 5;
-  const int b = blockIdx.y;
-  const int ch = blockIdx.x * 32 + lane;
-  const int run = (ntp + 31) / 32;
-  const int t1 = min(ntp, (w + 1) * run);
-  float s = 0.f, q = 0.f;
-  if (ch < C) {
-    for (int tile = w * run; tile < t1; ++tile) {
-      const float* r = ws + ((int64_t)b * ntp + tile) * 2 * C + ch;
-      s += __ldg(r);
-      q += __ldg(r + C);
-    }
-  }
-  part[w][0][lane] = s;
-  part[w][1][lane] = q;
-  __syncthreads();
-  if (w != 0 || ch >= C) return;
-  float S = 0.f, Q = 0.f;
-  for (int k = 0; k < 32; ++k) {
-    S += part[k][0][lane];
-    Q += part[k][1][lane];
-  }
-  ssum[(int64_t)b * C + ch] = S;
-  ssq[(int64_t)b * C + ch] = Q;
-}
-
-template <class T, bool TAIL, class E>
-int launch_tile(TailArgs<E> c, float* ssum, float* ssq, int B,
+template <class T, bool TAIL>
+int launch_tile(TailArgs c, float* ssum, float* ssq, int B,
                 cudaStream_t st) {
   constexpr int bytes = Layout<T>::BYTES;
   if (bytes > 48 * 1024) {
     const int err = (int)cudaFuncSetAttribute(
-        akgm_tail_kernel<T, TAIL, E>,
+        akgm_tail_kernel<T, TAIL>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err) return err;
   }
@@ -347,19 +328,19 @@ int launch_tile(TailArgs<E> c, float* ssum, float* ssq, int B,
   c.ncw = MAX_CW;
   while (c.ncw > 1 && (int64_t)B * c.ntp * (ntn / c.ncw) < 4 * sms)
     c.ncw /= 2;
-  akgm_tail_kernel<T, TAIL, E>
+  akgm_tail_kernel<T, TAIL>
       <<<dim3(c.ntp, ntn / c.ncw, B), T::NT, bytes, st>>>(c);
   if (TAIL && c.ws != nullptr) {
     const int err = (int)cudaGetLastError();
     if (err) return err;
-    stats_reduce_kernel<<<dim3((c.g.C + 31) / 32, B), 1024, 0, st>>>(
+    ucdir::stats_reduce_kernel<<<dim3((c.g.C + 31) / 32, B), 1024, 0, st>>>(
         c.ws, ssum, ssq, c.ntp, c.g.C);
   }
   return (int)cudaGetLastError();
 }
 
-template <bool TAIL, class E>
-int launch(TailArgs<E> c, float* ssum, float* ssq, int B, int H, int W, int C,
+template <bool TAIL>
+int launch(TailArgs c, float* ssum, float* ssq, int B, int H, int W, int C,
            cudaStream_t st) {
   c.g.H = H;
   c.g.W = W;
@@ -370,7 +351,7 @@ int launch(TailArgs<E> c, float* ssum, float* ssq, int B, int H, int W, int C,
   c.g.stride = 1;
   c.g.cin = C / G;
   c.g.K = 9 * (C / G);
-  constexpr uintptr_t run = 4 * sizeof(E);  // a 4-wide load
+  constexpr uintptr_t run = 4 * sizeof(float);  // a 4-wide load
   c.vec_a = c.g.cin % 4 == 0 && pc::aligned(c.h, run) &&
             (c.a == nullptr ||
              (pc::aligned(c.a, run) && pc::aligned(c.t, run)));
@@ -384,11 +365,11 @@ int launch(TailArgs<E> c, float* ssum, float* ssq, int B, int H, int W, int C,
   return launch_tile<pc::Thin<8>, TAIL>(c, ssum, ssq, B, st);
 }
 
-template <class E>
-int tail(const E* h, const E* att, const E* attw, const E* w, const E* bias,
-         const E* res, const E* a, const E* t, E* out, float* ssum,
-         float* ssq, float* ws, int B, int H, int W, int C, void* stream) {
-  TailArgs<E> c = {};
+int tail(const float* h, const float* att, const float* attw, const float* w,
+         const float* bias, const float* res, const float* a, const float* t,
+         float* out, float* ssum, float* ssq, float* ws, int B, int H, int W,
+         int C, void* stream) {
+  TailArgs c = {};
   c.h = h;
   c.att = att;
   c.attw = attw;
@@ -400,6 +381,53 @@ int tail(const E* h, const E* att, const E* attw, const E* w, const E* bias,
   c.out = out;
   c.ws = ws;
   return launch<true>(c, ssum, ssq, B, H, W, C, (cudaStream_t)stream);
+}
+
+// K1 in bf16 on the tensor cores (the header's bf16 paragraph): K5's z
+// recompute (akgm_tail_bwd.cu) with TailEpi as its epilogue, then the
+// statistics over the tiles.
+int tail_tc(const bf16* h, const bf16* att, const bf16* attw, const bf16* w,
+            const bf16* bias, const bf16* res, const bf16* a, const bf16* t,
+            bf16* out, float* ssum, float* ssq, float* ws, int B, int H,
+            int W, int C, cudaStream_t st) {
+  namespace tc = ucdir::tc;
+  const int cg = C / G;
+  // m groups merged into one of m * cg channels on the caller's
+  // block-diagonal weights (ops/akgm.py k1_tc_merge, tc_merged_weights):
+  // below 8 channels a group, and until a group fills a 128-column tile
+  int m = 1;
+  while ((m * cg) % 8 && m < G) m *= 2;
+  while (m * C < 128 && m < G) m *= 2;
+  tc::TcArgs p = {};
+  p.x = h;
+  p.w = w;
+  p.bias = bias;
+  p.a = a;
+  p.t = t;
+  p.g.H = p.g.Ho = H;
+  p.g.W = p.g.Wo = W;
+  p.g.C = C;
+  p.g.ks = 3;
+  p.g.stride = 1;
+  p.g.cin = m * cg;
+  p.g.K = 9 * m * cg;
+  p.cout = p.wld = C * G;
+  p.gw = m * C;
+  p.xgs = m * cg;
+  p.wgc = m * C;  // a group's weights: its columns
+  p.wrows = p.g.K;
+  const tc::TailArgs e = {att, attw, res, out, ws};
+  int err = tc::launch_grouped<pc::Affine, tc::TailEpi>(p, e, B, false, st);
+  if (err) return err;
+  if (ws != nullptr) {
+    const int ntp = (H + 7) / 8 * ((W + 15) / 16);
+    ucdir::stats_reduce_kernel<<<dim3((C + 31) / 32, B), 1024, 0, st>>>(
+        ws, ssum, ssq, ntp, C);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  ++tc::launch_count(tc::TC_AKGM_TAIL);
+  return 0;
 }
 
 }  // namespace
@@ -423,19 +451,19 @@ extern "C" int ucdir_akgm_tail(const float* h, const float* att,
               C, stream);
 }
 
-// K1 in bf16: every operand and out bf16; ssum, ssq and ws float, as above.
-extern "C" int ucdir_akgm_tail_bf16(const ucdir::bf16* h,
-                                    const ucdir::bf16* att,
-                                    const ucdir::bf16* attw,
-                                    const ucdir::bf16* w,
-                                    const ucdir::bf16* bias,
-                                    const ucdir::bf16* res,
-                                    const ucdir::bf16* a,
-                                    const ucdir::bf16* t, ucdir::bf16* out,
+// K1 in bf16 on the tensor cores: every operand and out bf16, w (9 * m *
+// C/8, 8 * C) in natural column order (c * 8 + j) with m groups below 8
+// channels merged (ops/akgm.py tc_merged_weights), bias unpermuted; ssum,
+// ssq float (B, C) and ws a float (B, ceil(H / 8) * ceil(W / 16), 2, C)
+// workspace, or all three null.
+extern "C" int ucdir_akgm_tail_bf16(const bf16* h, const bf16* att,
+                                    const bf16* attw, const bf16* w,
+                                    const bf16* bias, const bf16* res,
+                                    const bf16* a, const bf16* t, bf16* out,
                                     float* ssum, float* ssq, float* ws, int B,
                                     int H, int W, int C, void* stream) {
-  return tail(h, att, attw, w, bias, res, a, t, out, ssum, ssq, ws, B, H, W,
-              C, stream);
+  return tail_tc(h, att, attw, w, bias, res, a, t, out, ssum, ssq, ws, B, H,
+                 W, C, (cudaStream_t)stream);
 }
 
 // K8: out (B, H, W, C) = the mix of h's candidates under att; operands as
@@ -443,7 +471,7 @@ extern "C" int ucdir_akgm_tail_bf16(const ucdir::bf16* h,
 extern "C" int ucdir_akgm_mix(const float* h, const float* att, const float* w,
                               const float* bias, float* out, int B, int H,
                               int W, int C, void* stream) {
-  TailArgs<float> c = {};
+  TailArgs c = {};
   c.h = h;
   c.att = att;
   c.w = w;

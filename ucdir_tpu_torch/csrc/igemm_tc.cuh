@@ -1,15 +1,16 @@
 // Implicit-GEMM core of the bf16 convolutions on the H100's tensor cores
 // (sm_90a): the bf16 entry points of K2 (3x3 conv, stride 1 or 2, the
 // packed upsampling), K7 (the pre-activated 3x3 head) and K3 (1x1 conv),
-// and of the backward kernels K6 and K5 (the section at the end of this
-// file). It replaces the bf16 instantiation of the TPU kernels B2, B4, B5,
-// B3 and B6 (ucdir_tpu/ops/conv_pallas.py _conv3x3_forward_padfree,
+// of the backward kernels K6 and K5 and of the AKGM block tail K1 (the
+// grouped products: the section at the end of this file). It replaces the
+// bf16 instantiation of the TPU kernels B2, B4, B5, B3 and B6
+// (ucdir_tpu/ops/conv_pallas.py _conv3x3_forward_padfree,
 // _downconv_forward, upconv2x, conv3x3_preact_pallas, _conv1x1_forward), B9
-// (_conv3x3_backward) and B8 (ucdir_tpu/ops/akgm_pallas.py
-// _akgm_block_backward). Every fp32 kernel, and K1, K4, K8 and K9 in either
-// type, stay on the FMA core of igemm_pc.cuh, whose Geom, Elem<bf16>,
-// staging functors Affine, Preact, Raw, Dgrad and Dz and weight-gradient
-// reduction this core reuses.
+// (_conv3x3_backward), B8 and B1 (ucdir_tpu/ops/akgm_pallas.py
+// _akgm_block_backward, _akgm_block_forward_padfree). Every fp32 kernel
+// but K4, and K8 and K9, stay on the FMA core of igemm_pc.cuh, whose Geom,
+// Elem<bf16>, staging functors Affine, Preact, Raw, Dgrad and Dz and
+// weight-gradient reduction this core reuses.
 //
 // The product is the one of igemm_pc.cuh: A (P x K) * Wt (K x N), row p of A
 // output pixel p's receptive field (x * a + t, 0 outside the image after the
@@ -1185,7 +1186,8 @@ static __global__ void __launch_bounds__(256)
 // only, by entry point (TC_CONV3X3 ..): ucdir_tc_launches() reads them, so a
 // run can show which launches went through the tensor cores.
 enum Entry {
-  TC_CONV3X3, TC_PREACT, TC_CONV1X1, TC_CONV3X3_BWD, TC_AKGM_BWD, TC_ENTRIES
+  TC_CONV3X3, TC_PREACT, TC_CONV1X1, TC_CONV3X3_BWD, TC_AKGM_BWD, TC_AKGM_TAIL,
+  TC_ENTRIES
 };
 inline long long& launch_count(int entry) {
   static long long n[TC_ENTRIES] = {};
@@ -1383,7 +1385,8 @@ int launch_conv(TcArgs c, float* ssum, float* ssq, int B, cudaStream_t st,
 
 
 // ---- The backward's products in bf16 (K6: conv3x3_bwd.cu, K5:
-// akgm_tail_bwd.cu) on the same ring, tiles and consumers.
+// akgm_tail_bwd.cu), and K1's (akgm_tail.cu: K5's z recompute run
+// forward), on the same ring, tiles and consumers.
 //
 // gconv_tc_kernel is conv_tc_kernel's product for a 3x3, stride-1
 // convolution, with the same producers (produce), and
@@ -1391,16 +1394,17 @@ int launch_conv(TcArgs c, float* ssum, float* ssq, int B, cudaStream_t st,
 //     [g * xgs, + cin) of x, its weights from row g * wgr, column g * wgc
 //     of the (wrows, wld) matrix w; a
 //     column tile lies in one group (min(BN, gw) columns);
-//   - the staging X: Affine (K6's and K5's recomputed z), Dgrad (K6's input
-//     gradient: raw) or Dz (K5's input gradient: dz[c * 8 + j] = do[c] *
-//     A[j], rebuilt from do and the float32 A as it is staged, rounded
-//     once);
+//   - the staging X: Affine (K6's and K5's recomputed z, K1's z), Dgrad
+//     (K6's input gradient: raw) or Dz (K5's input gradient: dz[c * 8 + j]
+//     = do[c] * A[j], rebuilt from do and the float32 A as it is staged,
+//     rounded once);
 //   - the halo's slices flat (p.flat) below 64 channels: 64 consecutive k =
 //     tap * cin + ci, 64 / cin taps a slice (K5's z at cin = 8: 2 slices,
 //     not 9); cin % 8 != 0 takes the scalar staging;
 //   - the epilogue Epi: OutEpi (the output rounded once; DZ: dz = go *
-//     swish'(z + bias) in float32, rounded once) or MixEpi (K5's do, A and
-//     datt terms), a block walking units of tpu column tiles in a row.
+//     swish'(z + bias) in float32, rounded once), MixEpi (K5's do, A and
+//     datt terms; a block walking units of tpu column tiles in a row) or
+//     TailEpi (K1's mix, swish, residual and statistics).
 //
 // wgrad_tc_kernel is the weight gradient dW (K x N) = im2col(x * a + t)^T
 // D, reduced over pixels. Both operands are the NHWC rows as they lie, read
@@ -1766,6 +1770,172 @@ struct MixEpi {
     }
     consumer_sync<T::NC>();  // the terms are read before the next unit's
   }
+};
+
+// K1's tail (akgm_tail.cu) as the epilogue of the same product, run
+// forward: per slab and row the mix o as MixEpi forms it (z + bias and A
+// each rounded, z * A rounded, the 8 terms over the quad by two shuffles),
+// which leaves o of every slab on all 4 lanes of the quad; lane k then
+// takes its own run of LS = NS / 4 slabs (channels LS k ..): v = swish(o) +
+// res rounded once, stored LS channels a row, so the swish runs once a
+// value, not 4 times. With a workspace, the tile's sums of v and v * v per
+// channel in a fixed order: a lane's 2 rows, then the warp's 8 quads by
+// three shuffles, then the 8 consumer warps in warp order through epi (two
+// buffers, a tile each in turn, so one barrier a tile), stored plainly at
+// ws (B, pixel tiles, 2, C), which stats_reduce_kernel (tile_sums.cuh) adds
+// over the tiles. Rows outside the image store and add nothing. z is the
+// tensor core's own sum over all of K, on tiles of 128 columns where a
+// group is that wide (consume_promoted, K5's per-slice sum, would cap the
+// tile at 64 columns: measured slower, PERF.md §6).
+struct TailArgs {
+  const bf16* att;   // (B, H, W, 8)
+  const bf16* attw;  // (B, 8) or null
+  const bf16* res;   // (B, H, W, C)
+  bf16* out;         // (B, H, W, C)
+  float* ws;         // (B, pixel tiles, 2, C) per-tile sums, or null
+};
+
+struct TailEpi {
+  using Args = TailArgs;
+  static constexpr bool kPromote = false;
+  static constexpr int MAXS = 16;  // slabs a tile: 128 columns at most
+  static constexpr int MAXL = (MAXS + 3) / 4;  // a lane's slabs
+  float ap[2];     // A of the lane's 2 candidates, rounded and packed
+  int64_t pix[2];
+  bool in[2];
+  int turn = 0;    // the tile's buffer of warp sums in epi
+  uint32_t rr[2][(MAXL + 1) / 2];  // res of the lane's channels, rows a, b
+  uint32_t bb[MAXS];               // the bias of the lane's 2 columns a slab
+
+  // rows 16 warp + lane / 4 and + 8 of the tile
+  __device__ __forceinline__ void begin(const TcArgs& p, const TailArgs& e,
+                                        const TilePos& gq, uint8_t*) {
+    using EB = Elem<bf16>;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int j0 = 2 * (lane & 3);
+    float aw[2] = {1.f, 1.f};
+    if (e.attw != nullptr) EB::ld2(aw, e.attw + gq.b * 8 + j0);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = 16 * warp + (lane >> 2) + 8 * r;
+      const int y = gq.oy0 + row / p.tw, x = gq.ox0 + row % p.tw;
+      in[r] = y < p.g.Ho && x < p.g.Wo;
+      pix[r] = ((int64_t)gq.b * p.g.Ho + y) * p.g.Wo + x;
+      float v[2] = {0.f, 0.f};
+      if (in[r]) EB::ld2(v, e.att + pix[r] * 8 + j0);
+      ap[r] = EB::pack2(v[0] * aw[0], v[1] * aw[1]);
+    }
+  }
+
+  // before the tile's product: the residual of the lane's channels of its
+  // rows and the tile's bias, so that no load waits in the epilogue
+  template <class T>
+  __device__ __forceinline__ void prefetch(const TcArgs& p, const TailArgs& e,
+                                           const TilePos& gq) {
+    constexpr int NS = T::BN / 8, LS = (NS + 3) / 4;
+    static_assert(NS <= MAXS, "128 columns at most");
+    const int lane = threadIdx.x & 31, k = lane & 3;
+    const int C = p.cout / 8, nv = (gq.nend - gq.n0) / 8;
+    const int mine = min(max(nv - LS * k, 0), LS);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      uint32_t w[(LS + 1) / 2];
+      load_run<LS>(w, e.res + pix[r] * C + gq.n0 / 8 + LS * k,
+                   in[r] ? mine : 0);
+#pragma unroll
+      for (int i = 0; i < (LS + 1) / 2; ++i) rr[r][i] = w[i];
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+      bb[j] = j < nv ? __ldg(reinterpret_cast<const unsigned int*>(
+                           p.bias + gq.n0 + 8 * j + 2 * k))
+                     : 0u;
+  }
+
+  template <class T>
+  __device__ __forceinline__ void tile(const float (&acc)[T::BN / 2],
+                                       const TcArgs& p, const TailArgs& e,
+                                       const TilePos& gq, uint8_t* epi) {
+    using EB = Elem<bf16>;
+    constexpr int NS = T::BN / 8, LS = (NS + 3) / 4;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, k = lane & 3;
+    const int C = p.cout / 8, nv = (gq.nend - gq.n0) / 8;
+    float om[2][LS] = {};  // o of the lane's slabs LS k .. LS k + LS - 1
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      if (j >= nv) continue;  // the same for the whole block
+      const float b0 = EB::lo(bb[j]), b1 = EB::hi(bb[j]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float z0 = acc[4 * j + 2 * r] + b0;
+        const float z1 = acc[4 * j + 2 * r + 1] + b1;
+        const float m = EB::mul2(EB::pack2(z0, z1), ap[r]);
+        float o = EB::lof(m) + EB::hif(m);
+        o += pc::shfl_xor(o, 1);
+        o += pc::shfl_xor(o, 2);
+        if (j / LS == k) om[r][j % LS] = o;
+      }
+    }
+    float v[2][LS] = {};  // v of the lane's channels, bf16 values
+    float s[LS], q[LS];   // the lane's 2 rows' sums a channel
+#pragma unroll
+    for (int u = 0; u < LS; ++u) {
+      s[u] = q[u] = 0.f;
+      if (LS * k + u >= nv) continue;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const uint32_t rw = rr[r][u / 2];
+        const float res = (u & 1) ? EB::hi(rw) : EB::lo(rw);
+        v[r][u] = EB::rnd(swishf(om[r][u]) + res);
+        if (in[r]) {
+          s[u] += v[r][u];
+          q[u] += v[r][u] * v[r][u];
+        }
+      }
+    }
+    const int mine = min(max(nv - LS * k, 0), LS);
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (in[r] && mine > 0)
+        store_run<LS>(e.out + pix[r] * C + gq.n0 / 8 + LS * k, v[r], mine);
+    if (e.ws == nullptr) return;
+    // the sums over the warp's 8 quads, the lane's LS channels each
+    float* red = reinterpret_cast<float*>(epi) + turn * (T::NC / 32) * 2 * NS;
+    static_assert(T::EPI_BYTES >= 2 * (T::NC / 32) * 2 * MAXS * 4,
+                  "two buffers of warp sums fit");
+#pragma unroll
+    for (int u = 0; u < LS; ++u) {
+#pragma unroll
+      for (int d = 4; d < 32; d <<= 1) {
+        s[u] += pc::shfl_xor(s[u], d);
+        q[u] += pc::shfl_xor(q[u], d);
+      }
+      const int j = LS * lane + u;
+      if (lane < 4 && j < NS) {
+        red[(warp * 2) * NS + j] = s[u];
+        red[(warp * 2 + 1) * NS + j] = q[u];
+      }
+    }
+    consumer_sync<T::NC>();
+    if ((int)threadIdx.x < nv) {
+      const int j = threadIdx.x;
+      float S = 0.f, Q = 0.f;
+#pragma unroll
+      for (int w = 0; w < T::NC / 32; ++w) {
+        S += red[(w * 2) * NS + j];
+        Q += red[(w * 2 + 1) * NS + j];
+      }
+      float* o = e.ws + ((int64_t)gq.b * p.ntp + gq.mt) * 2 * C + gq.n0 / 8;
+      o[j] = S;
+      o[C + j] = Q;
+    }
+    turn ^= 1;  // the next tile writes the other buffer; the barrier of
+                // the one after it waits for this one's reads
+  }
+
+  template <class T>
+  __device__ __forceinline__ void end(const TcArgs&, const TailArgs&,
+                                      const TilePos&, uint8_t*) {}
 };
 
 // A persistent block walks its units of p.tpu tiles (columns fastest) of

@@ -11,10 +11,10 @@ Every C entry point launches on the stream it is given, allocates nothing,
 does not synchronise, and returns `cudaGetLastError()`; `launch` raises when
 that is not 0 and counts the launch in `LAUNCHES`. K1..K7 have a second
 entry point for bfloat16 operands, `ucdir_<kernel>_bf16` (`entry`), counted
-under its own name; K8 and K9 take float32. The bf16 forms of K2, K3, K5, K6
-and K7 run on the tensor-core core `csrc/igemm_tc.cuh`, which counts its own
-successful calls per entry point (`ucdir_tc_launches`; a call of K5 or K6
-once all its launches have gone out); `tc_launches()` reads them.
+under its own name; K8 and K9 take float32. The bf16 forms of K1, K2, K3, K5,
+K6 and K7 run on the tensor-core core `csrc/igemm_tc.cuh`, which counts its own
+successful calls per entry point (`ucdir_tc_launches`; a call of K1, K5 or
+K6 once all its launches have gone out); `tc_launches()` reads them.
 """
 from __future__ import annotations
 
@@ -44,7 +44,7 @@ LAUNCHES = {'akgm_tail': 0, 'conv3x3': 0, 'conv1x1': 0, 'gn1_stats': 0,
 # the entry points on the tensor-core core, in the order of the library's
 # counters (`ucdir_tc_launches(i)`), and the counts at the last reset
 TC_ENTRIES = ('conv3x3_bf16', 'conv3x3_preact_bf16', 'conv1x1_bf16',
-              'conv3x3_bwd_bf16', 'akgm_tail_bwd_bf16')
+              'conv3x3_bwd_bf16', 'akgm_tail_bwd_bf16', 'akgm_tail_bf16')
 _tc_base = [0] * len(TC_ENTRIES)
 # the kernels with a bfloat16 entry point, `<kernel>_bf16`
 BF16_KERNELS = ('akgm_tail', 'conv3x3', 'conv1x1', 'gn1_stats',
@@ -64,8 +64,9 @@ _SIGNATURES = {
     'akgm_packed': [_P] * 9 + [_I] * 4 + [_P],
 }
 _SIGNATURES.update({k + '_bf16': _SIGNATURES[k] for k in BF16_KERNELS})
-# K2's bf16 form takes a workspace for its fixed-order statistics
+# K2's and K4's bf16 forms take a workspace for their fixed-order sums
 _SIGNATURES['conv3x3_bf16'] = [_P] * 9 + [_I] * 7 + [_P]
+_SIGNATURES['gn1_stats_bf16'] = [_P] * 4 + [_I] * 3 + [_P]
 
 
 def reset_launches():

@@ -89,13 +89,18 @@ def _akgm_block_tail_forward(h, att_sp, w, bias, res, nset, norm_scale,
                           norm_shift, attw, dtype=h.dtype)
     _build.check('res', res, (B, H, W, C), device=dev, dtype=h.dtype)
     out = torch.empty_like(h)
-    wp = permuted_columns(w)
+    # the FMA core (float32) takes the columns permuted within each tile and
+    # sums per tile of `tail_tile`; the tensor cores (bf16) the natural
+    # columns with narrow groups merged, and sum per 8 x 16 pixel tile
+    tc = h.dtype == torch.bfloat16
+    wp = (tc_merged_weights(w, nset, k1_tc_merge(C, nset)).contiguous() if tc
+          else permuted_columns(w))
     s = q = ws = None
     if emit_stats:
         s = torch.empty(B, C, device=dev, dtype=torch.float32)
         q = torch.empty_like(s)
-        ws = torch.empty(B, stats_tiles(H * W, C), 2, C, device=dev,
-                         dtype=torch.float32)
+        tiles = tc_pixel_tiles(H, W) if tc else stats_tiles(H * W, C)
+        ws = torch.empty(B, tiles, 2, C, device=dev, dtype=torch.float32)
     _build.launch(kernel, h.data_ptr(), att_sp.data_ptr(),
                   _build.ptr(attw), wp.data_ptr(), bias.data_ptr(),
                   res.data_ptr(), _build.ptr(norm_scale),
@@ -201,10 +206,10 @@ def tail_tile(C):
 
 
 def stats_tiles(P, C):
-    """Pixel tiles of an image of P pixels in K1's product: the rows of its
-    (B, tiles, 2, C) statistics workspace, one partial sum and sum of
-    squares per tile and channel, and of K5's (B, tiles, G) workspace of
-    dattw."""
+    """Pixel tiles of an image of P pixels in K1's float32 product: the rows
+    of its (B, tiles, 2, C) statistics workspace, one partial sum and sum of
+    squares per tile and channel, and of K5's float32 (B, tiles, G)
+    workspace of dattw."""
     return -(-P // tail_tile(C)[0])
 
 
@@ -236,27 +241,49 @@ def permuted_columns(w):
 
 def tc_pixel_tiles(H, W):
     """Pixel tiles of an H x W image on the tensor cores (`csrc/igemm_tc.cuh`:
-    8 x 16 output pixels), the rows of K5's bf16 (B, tiles, G) workspace of
-    dattw."""
+    8 x 16 output pixels), the rows of K1's bf16 (B, tiles, 2, C) workspace
+    of statistics and of K5's bf16 (B, tiles, G) workspace of dattw."""
     return -(-H // 8) * -(-W // 16)
 
 
-def tc_merged_weights(w, nset: int):
-    """K5's z recompute weights (9 * C / G, C * G) for the tensor cores: where
-    a group's C / G channels are no multiple of 8, `conv.tc_merge` m groups
-    become one of m * C / G channels with block-diagonal weights (9 * m * C
-    / G, C * G): row tap * m cg + u cg + ci, column g C + c, nonzero where
-    g % m == u. Unchanged where m is 1."""
+def k1_tc_merge(C, nset: int = 8):
+    """The groups K1's bf16 product merges into one (`csrc/akgm_tail.cu`
+    tail_tc): `conv.tc_merge`'s, then doubled (up to nset) while a merged
+    group is narrower than the product's 128-column tile."""
+    m = tc_merge(C // nset)
+    while m * C < 128 and m < nset:
+        m *= 2
+    return m
+
+
+def tc_merged_weights(w, nset: int, m=None):
+    """The weights (9 * C / G, C * G) of K1's bf16 product and K5's z
+    recompute on the tensor cores, in natural column order: where a group's
+    C / G channels are no multiple of 8, `conv.tc_merge` m groups become one
+    of m * C / G channels with block-diagonal weights (9 * m * C / G, C *
+    G): row tap * m cg + u cg + ci, column g C + c, nonzero where g % m ==
+    u. Unchanged where m is 1. m: `tc_merge`'s unless given (K1's
+    `k1_tc_merge`)."""
     cg = w.shape[0] // 9
     C = w.shape[1] // nset
-    m = tc_merge(cg)
+    m = tc_merge(cg) if m is None else m
     if m == 1:
         return w
-    wv = w.reshape(9, cg, nset, C)
-    wm = w.new_zeros(9, m, cg, nset, C)
-    for u in range(m):
-        wm[:, u, :, u::m] = wv[:, :, u::m]
+    wm = w.new_zeros(9 * m * cg * nset * C)
+    wm.index_copy_(0, _merge_index(cg, C, nset, m, w.device), w.reshape(-1))
     return wm.reshape(9 * m * cg, nset * C)
+
+
+@functools.lru_cache(maxsize=None)
+def _merge_index(cg, C, nset, m, device):
+    """Where each element of the grouped weights (9 * cg, nset * C), in
+    row-major order, lies in the merged (9, m, cg, nset, C): (tap, g % m,
+    ci, g, c), flat."""
+    tap, ci, g, c = torch.meshgrid(torch.arange(9), torch.arange(cg),
+                                   torch.arange(nset), torch.arange(C),
+                                   indexing='ij')
+    return ((((tap * m + g % m) * cg + ci) * nset + g) * C + c).reshape(
+        -1).to(device)
 
 
 def akgm_block_tail_backward_kernel(h, att_sp, w, bias, go, nset,

@@ -238,9 +238,9 @@ def wgrad_tile(group_cols, K, N, tensor_cores=False):
 
 def tc_merge(cin):
     """How many groups of `cin` channels the tensor cores' grouped products
-    (K5's z recompute and weight gradient) merge into one, so that a merged
-    group's channels are a multiple of 8 (the vector staging): the least
-    power of two that makes them so."""
+    (K1's bf16 product, K5's z recompute and weight gradient) merge into
+    one, so that a merged group's channels are a multiple of 8 (the vector
+    staging): the least power of two that makes them so."""
     m = 1
     while (m * cin) % 8 and m < 8:
         m *= 2

@@ -1,6 +1,8 @@
 """One-pass GroupNorm(1) statistics: kernel K4 (`csrc/gn1_stats.cu`) and its
 plain version. Counterpart of `ucdir_tpu/ops/stats_pallas.py`. x may be
-float32 or bfloat16; the sums are float32 either way."""
+float32 or bfloat16; the sums are float32 either way. The bf16 form adds in
+a fixed order (the same bits from call to call); the float32 one with
+atomics."""
 from __future__ import annotations
 
 import torch
@@ -15,16 +17,33 @@ def gn1_stats_plain(x: torch.Tensor):
     return xf.sum(dim=(1, 2)), (xf * xf).sum(dim=(1, 2))
 
 
+def gn1_slab(C):
+    """Pixels of a slab of K4's bf16 form (`csrc/gn1_stats.cu`): a block of
+    256 threads holds min(ceil(C / 8), 32) chunks of 8 channels, so 256 over
+    that many pixel rows, each thread adding 32 of them."""
+    return 256 // min(-(-C // 8), 32) * 32
+
+
 def _gn1_stats_forward(x):
     if _build.on_host(x):
         return gn1_stats_plain(x)
     B, H, W, C = x.shape
     kernel = _build.entry('gn1_stats', x)
     _build.check('x', x, dtype=x.dtype)
-    s = torch.zeros(B, C, device=x.device, dtype=torch.float32)
-    q = torch.zeros_like(s)
+    if x.dtype == torch.float32:
+        # atomics into zeroed sums
+        s = torch.zeros(B, C, device=x.device, dtype=torch.float32)
+        q = torch.zeros_like(s)
+        _build.launch(kernel, x.data_ptr(), s.data_ptr(), q.data_ptr(),
+                      B, H * W, C, _build.stream(x))
+        return s, q
+    # bf16: per slab sums, added in a fixed order
+    s = torch.empty(B, C, device=x.device, dtype=torch.float32)
+    q = torch.empty_like(s)
+    ws = torch.empty(B, -(-H * W // gn1_slab(C)), 2, C, device=x.device,
+                     dtype=torch.float32)
     _build.launch(kernel, x.data_ptr(), s.data_ptr(), q.data_ptr(),
-                  B, H * W, C, _build.stream(x))
+                  ws.data_ptr(), B, H * W, C, _build.stream(x))
     return s, q
 
 
