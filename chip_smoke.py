@@ -117,6 +117,29 @@ on any failure:
               bf16 with 2 steps, its peak below the float32 frame's; and the
               tiled path ({skip: 128, padding: 16}, 200 x 260 input, 2 DDPM
               steps) card against host.
+ 11. tasks    the gop-deblur and jpg-restore configurations through the
+              validation entry points (the port's config.parse, create_model,
+              Trainer.feed_data and test; random weights, the SID model's
+              full width, the schedule parse sets): one 720 x 1280 GoPro
+              frame, 10 steps (a 10-step schedule, as `sid` runs); one 368 x
+              496 ImageNet frame (375 x 500 after the /16 crop) degraded by
+              the port's DiffJPEG at quality 10, 50 steps, in float32 and in
+              bf16: seconds per frame, ms per step, peak memory, launches;
+              every forward kernel (or its bf16 form) must launch.
+ 12. realsr   DDPM_realsr at full width with the `dopt` preset: batch 12,
+              items of RealESRGANDataset (its kernel and sinc draws) made from
+              generated 400 x 400 images, gt_size 256, a queue of 180; 16
+              feeds (15 fill the queue, the 16th swaps), one
+              optimize_parameters after each of the last 4 (the first a
+              warm-up), then 4 feeds and steps on a bf16 trainer: median ms
+              per feed, s per step, losses (finite), peak memory, launches of
+              K1..K6 (or their bf16 forms; each must launch); usm_sharp at the
+              feed's radius 15 and at the reference's default 50 (a 51 x 51
+              filter); then the feed at 2 images, crop 128, gt_size 64, a
+              queue of 4, on the host and on the card with the same coins and
+              the host's per-sample draws replayed: HR within 1e-4, SR within
+              1e-3 mean abs and 99% of it on the same 1/255 level
+              (`realsr.FEED_LIMIT`).
 Then one JSON line of kernel results (each kernel's launches from the path
 that owns it: K1..K4 the main phase, K5 and K6 the train phase, K7 the
 fewstep phase, K8 and K9 their variants run, the bf16 forms the bf16 frame,
@@ -160,6 +183,15 @@ KERNEL_BATCH = 8                  # batch of K5's and K6's phase-2 cases
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12          # H100 SXM bf16 on the tensor cores, dense
+GOPRO_FRAME = (720, 1280)         # a GoPro test frame, H x W
+TASK_STEPS = 10                   # DDPM steps of the GoPro frame
+JPEG_FRAME = (368, 496)           # a 375 x 500 ImageNet image, /16-cropped
+JPEG_QUALITY = 10.                # config.parse's jpg- validation factor
+REALSR_BATCH = 12                 # Real-ESRGAN's train batch
+REALSR_CROP = 400                 # its dataset crop (gt_size 256)
+REALSR_FEEDS = 16                 # 15 fill the queue of 180, the 16th swaps
+REALSR_STEPS = 4                  # steps after the last feeds, the first a
+                                  # warm-up; in bf16 the feeds too
 
 # kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
@@ -1529,6 +1561,285 @@ def phase_hires(dev, seed, counts):
         'DDPM steps: card vs host max abs err %.3e (tol 1e-5), %d tiles per '
         'step' % (err, n['conv3x3_preact'] // 2))
 
+# ------------------------------------------------------------ phases 11-12
+# K1..K4, the forward kernels of the validation path, and K5, K6
+FORWARD = ('akgm_tail', 'conv3x3', 'conv1x1', 'gn1_stats')
+TRAIN = FORWARD + ('akgm_tail_bwd', 'conv3x3_bwd')
+
+
+def launched(phase, launches, names, compute_dtype):
+    """Fails unless each kernel of `names` (in `compute_dtype`'s form)
+    launched."""
+    sfx = '' if compute_dtype is None else '_bf16'
+    missing = [k + sfx for k in names if launches[k + sfx] == 0]
+    if missing:
+        fail('%s: kernels never launched: %s' % (phase, missing))
+
+
+def task_opt(task, compute_dtype=None):
+    """The options `sr.py -p val -c ucdir_tpu/configs/<task>.yaml` runs:
+    the port's config.parse (its per-task validation overrides: 50 steps,
+    linear_end 0.4), random weights, `compute_dtype`."""
+    from ucdir_tpu_torch import config
+    opt = config.parse(os.path.join(ROOT, 'ucdir_tpu', 'configs',
+                                    task + '.yaml'), phase='val',
+                       make_dirs=False)
+    sched = opt['model']['beta_schedule']['val']
+    if (sched['n_timestep'], sched['linear_end']) != (50, 0.4):
+        fail('tasks: config.parse set %s for %s' % (sched, task))
+    opt['compute_dtype'] = compute_dtype
+    return opt
+
+
+def task_frame(dev, seed, task, hr, lq, compute_dtype=None, steps=None):
+    """Trainer.test on one frame of `task` (create_model, feed_data, test),
+    on the schedule config.parse sets, or its first `steps` steps as the
+    `sid` phase runs them (a schedule of `steps`). Returns the launches."""
+    import numpy as np
+    import torch
+    from ucdir_tpu_torch.metrics import core as Metrics
+    from ucdir_tpu_torch.ops import _build
+    from ucdir_tpu_torch.trainer import create_model
+
+    opt = task_opt(task, compute_dtype)
+    torch.manual_seed(seed)
+    trainer = create_model(opt, device=dev, seed=seed)
+    if steps is not None:
+        trainer.set_new_noise_schedule(
+            dict(opt['model']['beta_schedule']['val'], n_timestep=steps),
+            'val', force=True)
+    steps = trainer.schedules['val'].num_timesteps
+    trainer.feed_data({'SR': lq, 'HR': hr})
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t = time.perf_counter()
+    trainer.test(continous=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    sr = trainer.get_current_visuals()['SR']
+    if sr.shape != hr.shape or not np.isfinite(sr).all():
+        fail('tasks: %s output has shape %s or non-finite values'
+             % (task, sr.shape))
+    launched('tasks', launches, FORWARD, compute_dtype)
+    psnr = Metrics.calculate_psnr(Metrics.tensor2img(sr[0]),
+                                  Metrics.tensor2img(hr[0]))
+    say('tasks', '%s, frame %dx%d, %d steps%s, full width: %.3f s per '
+        'frame, %.1f ms per step (the predictor and the guide maps '
+        'included), PSNR %.4f dB (random weights), peak %.3f GiB, launches %s'
+        % ((task,) + hr.shape[1:3] + (
+            steps, '' if compute_dtype is None else ' in ' + compute_dtype,
+            secs, 1e3 * secs / steps, psnr, peak, json.dumps(launches))))
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_tasks(dev, seed, counts):
+    """The gop-deblur and jpg-restore configurations through the validation
+    entry points: one GoPro frame, 10 steps; one Imagenet frame after the
+    /16 crop, JPEG at quality 10 (config.parse's jpg- factor) by the port's
+    DiffJPEG, 50 steps, in float32 and in bf16."""
+    import torch
+    from ucdir_tpu_torch.data.diffjpeg import diff_jpeg
+
+    hr, lq = pattern(*GOPRO_FRAME, seed + 9)
+    counts['tasks_gop'] = task_frame(dev, seed, 'gop-deblur', hr, lq,
+                                     steps=TASK_STEPS)
+    hr, _ = pattern(*JPEG_FRAME, seed + 10)
+    with torch.no_grad():
+        hr01 = (torch.from_numpy(hr).to(dev) + 1) / 2
+        lq = (diff_jpeg(hr01, JPEG_QUALITY, differentiable=False) * 2 - 1
+              ).cpu().numpy()
+    for dtype in (None, 'bf16'):
+        counts['tasks_jpg' + ('' if dtype is None else '_bf16')] = \
+            task_frame(dev, seed, 'jpg-restore', hr, lq, dtype)
+
+
+def realsr_images(seed, n):
+    """`n` generated REALSR_CROP x REALSR_CROP images, HWC float32 in
+    [0, 1]: smooth colour fields with texture."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:REALSR_CROP, 0:REALSR_CROP] / (REALSR_CROP - 1.0)
+    out = []
+    for i in range(n):
+        img = np.stack([np.sin((2 + i) * xx + c) * np.cos((3 + i) * yy - c)
+                        for c in range(3)], -1) * 0.4 + 0.5
+        img += rng.normal(0, 0.05, img.shape)
+        out.append(np.clip(img, 0, 1).astype(np.float32))
+    return out
+
+
+def realsr_batches(ds, images, feeds):
+    """`feeds` batches of RealESRGANDataset items made from `images` (its
+    flips, crop and kernel draws; no file read), collated as the loader
+    does."""
+    import numpy as np
+    out = []
+    for _ in range(feeds):
+        items = [ds.from_image(img, i) for i, img in enumerate(images)]
+        out.append({k: np.stack([it[k] for it in items])
+                    for k in ('gt', 'kernel1', 'kernel2', 'sinc_kernel')})
+    return out
+
+
+def realsr_trainer(dev, seed, tmp, compute_dtype=None, **unet):
+    """A DDPM_realsr trainer (the SID model, or `unet` overrides) with the
+    `dopt` preset, through create_model."""
+    import torch
+    from ucdir_tpu_torch.trainer import create_model
+    opt = train_opt(tmp, compute_dtype)
+    opt['model']['name'] = 'DDPM_realsr'
+    opt['model']['unet'].update(unet)
+    opt['dopt'] = 'dopt'
+    torch.manual_seed(seed)
+    return create_model(opt, device=dev, seed=seed)
+
+
+def realsr_steps(dev, seed, tmp, batches, steps, compute_dtype=None):
+    """Feeds every batch, and after each of the last `steps` feeds one
+    optimize_parameters (the first a warm-up). Returns (ms per feed, s per
+    step, losses, peak GiB, the launches of the timed steps)."""
+    import torch
+    from ucdir_tpu_torch.ops import _build
+
+    trainer = realsr_trainer(dev, seed, tmp, compute_dtype)
+    feed_ms, step_s, losses = [], [], []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trainer.feed_data(batch)
+        torch.cuda.synchronize()
+        feed_ms.append(1e3 * (time.perf_counter() - t))
+        sr = trainer.data['SR']
+        if (not torch.is_tensor(sr) or sr.device != dev
+                or tuple(sr.shape) != (REALSR_BATCH, 256, 256, 3)):
+            fail('realsr: feed %d gave SR %s' % (i, type(sr)))
+        if i < len(batches) - steps:
+            continue
+        if i == len(batches) - steps + 1:
+            _build.reset_launches()   # after the warm-up step
+        t = time.perf_counter()
+        trainer.optimize_parameters()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        losses.append(trainer.get_current_log()['l_pix'])
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    if not all(math.isfinite(l) for l in losses):
+        fail('realsr: non-finite loss in %s' % losses)
+    launched('realsr', launches, TRAIN, compute_dtype)
+    queue = trainer.queue_ptr
+    del trainer
+    torch.cuda.empty_cache()
+    return feed_ms, step_s[1:], losses, peak, launches, queue
+
+
+def phase_realsr(dev, seed, counts):
+    """DDPM_realsr at the SID model's full width: Real-ESRGAN's batch 12,
+    400 x 400 dataset crops, gt_size 256, a queue of 180, the `dopt`
+    preset; 16 feeds (15 fill the queue, the 16th swaps) with a step after
+    each of the last 4, then 4 feeds and steps in bf16; the USM filter's
+    time; the feed card against host at a small size."""
+    import random
+    import statistics
+    import numpy as np
+    import torch
+    from ucdir_tpu_torch.data.degradations import usm_sharp
+    from ucdir_tpu_torch.realsr import RealESRGANDataset, feed_agreement
+
+    with tempfile.TemporaryDirectory() as tmp:
+        txt = os.path.join(tmp, 'list.txt')
+        with open(txt, 'w') as f:
+            f.write('\n'.join('%d.png' % i for i in range(REALSR_BATCH)))
+        ds = RealESRGANDataset({'root': tmp, 'txt': txt}, split='train',
+                               crop_size=REALSR_CROP)
+        images = realsr_images(seed + 11, REALSR_BATCH)
+        random.seed(seed), np.random.seed(seed)
+        batches = realsr_batches(ds, images, REALSR_FEEDS)
+        for dtype, n_feeds in ((None, REALSR_FEEDS), ('bf16', REALSR_STEPS)):
+            feed_ms, step_s, losses, peak, launches, queue = realsr_steps(
+                dev, seed, tmp, batches[:n_feeds], REALSR_STEPS, dtype)
+            counts['realsr' + ('' if dtype is None else '_bf16')] = launches
+            say('realsr', 'DDPM_realsr%s, full width, batch %d, dataset crop '
+                '%d, gt_size 256, queue %d of 180 filled: %d feeds, median '
+                '%.1f ms per feed (%s); %.3f s per optimizer step (mean of '
+                '%d after a warm-up), losses %s, peak %.3f GiB, launches of '
+                'the timed steps %s'
+                % ('' if dtype is None else ' in bf16', REALSR_BATCH,
+                   REALSR_CROP, queue, n_feeds, statistics.median(feed_ms),
+                   ' '.join('%.1f' % v for v in feed_ms),
+                   sum(step_s) / len(step_s), len(step_s),
+                   json.dumps([round(l, 6) for l in losses]), peak,
+                   json.dumps(launches)))
+
+        # the sharpening filter alone: the feed's (radius 15) and the
+        # reference USMSharp's default (radius 50, a 51 x 51 filter)
+        gt = torch.from_numpy(batches[0]['gt']).to(dev)
+        for radius in (15, 50):
+            usm_sharp(gt, radius=radius)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(5):
+                usm_sharp(gt, radius=radius)
+            torch.cuda.synchronize()
+            say('realsr', 'usm_sharp radius %d (%d x %d filter) on %d x %d x '
+                '%d x 3: %.3f ms' % (radius, radius | 1, radius | 1,
+                                     REALSR_BATCH, REALSR_CROP, REALSR_CROP,
+                                     1e3 * (time.perf_counter() - t) / 5))
+        del gt, batches
+
+        # the feed on the card and on the host: 2 images, crop 128, gt_size
+        # 64, a queue of 4 (3 feeds: two fill it, one swaps), the same coins
+        # and the host's per-sample draws replayed on the card
+        small = RealESRGANDataset({'root': tmp, 'txt': txt}, split='train',
+                                  crop_size=128)
+        images = [img[:128, :128] for img in images[:2]]
+        random.seed(seed + 1), np.random.seed(seed + 1)
+        batches = realsr_batches(small, images, 3)
+        feeds, tape = {}, []
+
+        def record(name, img, make):
+            d = make()
+            tape.append((name, d))
+            return d
+
+        def replay(name, img, make):
+            was, d = tape.pop(0)
+            if was != name:
+                fail('realsr: the card drew at %s, the host at %s'
+                     % (name, was))
+            return {k: v.to(img.device) for k, v in d.items()}
+
+        for d, draws in (('cpu', record), (dev, replay)):
+            trainer = realsr_trainer(d, seed, tmp, inner_channel=8,
+                                     channel_mults=[1, 2], attn_res=[],
+                                     res_blocks=1)
+            trainer.dopt = dict(trainer.dopt, gt_size=64, queue_size=4)
+            trainer.queue_size = 4
+            random.seed(seed + 2), np.random.seed(seed + 2)
+            feeds[str(d)] = []
+            for batch in batches:
+                trainer.feed_data(batch, draws=draws)
+                feeds[str(d)].append(dict(trainer.data))
+        for i, (card, host) in enumerate(zip(feeds[str(dev)], feeds['cpu'])):
+            a = feed_agreement(card, host)
+            if not a['ok']:
+                fail('realsr: feed %d card vs host outside the feed limit: %s'
+                     % (i, a))
+            say('realsr', 'feed %d (%s), 2 x 128 x 128 -> gt_size 64, card vs '
+                'host: HR max abs %.3e (limit 1e-4), SR mean abs %.3e (limit '
+                '1e-3), %.5f of SR on the same 1/255 level (limit 0.99), SR '
+                'max abs %.3e' % (i, 'fills the queue' if i < 2 else 'swaps',
+                                  a['hr_max_abs'], a['sr_mean_abs'],
+                                  a['sr_same_level'], a['sr_max_abs']))
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
@@ -1572,6 +1883,8 @@ def main(argv=None):
     phase_variants(dev, args.seed, counts)
     phase_fewstep(dev, args.seed, counts)
     phase_hires(dev, args.seed, counts)
+    phase_tasks(dev, args.seed, counts)
+    phase_realsr(dev, args.seed, counts)
     unlaunched = [k for k in KERNELS if counts[OWNER[k]][k] == 0]
     if unlaunched:
         fail('kernels never launched on the path that owns them: %s'

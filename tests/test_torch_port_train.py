@@ -34,6 +34,7 @@ from ucdir_tpu_torch.schedule import make_schedule
 from ucdir_tpu_torch.train import (create_train_state, make_optimizer,
                                    train_step)
 from ucdir_tpu_torch.train.optim import finetune_select
+from ucdir_tpu_torch.realsr import TrainerRealSR
 from ucdir_tpu_torch.trainer import Trainer, TrainerBNoise, create_model
 from ucdir_tpu_torch.utils import checkpoint as ckpt_util
 from ucdir_tpu_torch.utils.convert_jax import from_jax_params
@@ -338,22 +339,22 @@ def test_trainer_trains_validates_and_round_trips_checkpoints(rng, tmp_path):
 
 
 @pytest.mark.parametrize('name, cls', [(None, Trainer), ('DDPM', Trainer),
-                                       ('DDPM_bnoise', TrainerBNoise)])
+                                       ('DDPM_bnoise', TrainerBNoise),
+                                       ('DDPM_realsr', TrainerRealSR)])
 def test_create_model_builds_the_trainer_model_name_names(tmp_path, name,
                                                           cls):
     """create_model picks the trainer by opt['model']['name'] as the JAX
-    package's does (no name: DDPM)."""
+    package's does (no name: DDPM; DDPM_realsr from realsr.py)."""
     opt = trainer_opt(tmp_path)
     if name is not None:
         opt['model']['name'] = name
     assert type(create_model(opt, device='cpu', seed=1)) is cls
 
 
-@pytest.mark.parametrize('name', ['DDPM_realsr', 'DDPM_unknown'])
+@pytest.mark.parametrize('name', ['DDPM_unknown'])
 def test_create_model_refuses_names_it_does_not_build(tmp_path, name):
-    """DDPM_realsr is not ported and an unknown name is no model: both raise
-    (the JAX package raises KeyError on the unknown one) rather than train
-    another model."""
+    """An unknown name is no model: it raises (the JAX package raises
+    KeyError) rather than train another model."""
     opt = trainer_opt(tmp_path)
     opt['model']['name'] = name
     with pytest.raises(NotImplementedError, match=name):
@@ -497,16 +498,15 @@ def test_cli_train_refuses_a_missing_card():
 
 
 def test_unported_dataset_kinds_point_at_the_roadmap():
+    """Every dataset kind of the JAX package is ported now: what still
+    raises is a name that is neither a dataset kind nor registered, with the
+    JAX registry's KeyError."""
     from ucdir_tpu_torch.data import create_dataset
-    for opt in ({'datasetname': 'RealESRGANDataset', 'data_args': {}},
-                {'datasetname': 'SomethingRegistered', 'data_args': {}},
-                {'dataroot': 'x'},
-                {'datasetname': 'PairDataset', 'data_args': {
-                    'dataroot': {'lq': '.', 'gt': '.'}, 'datatype': 'lmdb'}},
-                {'datasetname': 'PairDataset', 'data_args': {
-                    'dataroot': {'lq': '.', 'gt': '.'}, 'mask': 1}}):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            create_dataset(opt, 'train')
+    with pytest.raises(KeyError, match="No object named "
+                                       "'SomethingRegistered' found in "
+                                       "'dataset' registry"):
+        create_dataset({'datasetname': 'SomethingRegistered',
+                        'data_args': {}}, 'train')
 
 
 @pytest.mark.parametrize('what', ['config', 'sampler', 'metrics_core',

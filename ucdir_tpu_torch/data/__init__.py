@@ -4,4 +4,6 @@ the reference's `create_dataset` / `create_dataloader` string dispatch."""
 from ucdir_tpu_torch.data.loader import (create_dataset, create_dataloader,
                                          DataLoader)
 from ucdir_tpu_torch.data.sampler import EnlargedSampler
-from ucdir_tpu_torch.data.datasets import PairDataset
+from ucdir_tpu_torch.data.datasets import (
+    LRHRDataset, PairDataset, SingleDataset, ImagenetSRDataset,
+    ImagenetJPGDataset, ImagenetColorDataset)

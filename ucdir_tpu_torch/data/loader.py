@@ -2,7 +2,8 @@
 `ucdir_tpu/data/loader.py` (the port keeps its own copy).
 
 `create_dataset` mirrors data/__init__.py:55-75 (string
-dispatch on `datasetname` + `data_args`); only PairDataset is ported.
+dispatch on `datasetname` + `data_args`, RealESRGANDataset from realsr.py,
+user-registered names through DATASET_REGISTRY, LRHRDataset fallback).
 `create_dataloader` mirrors :24-52: train = sharded sampler + drop_last,
 val = batch_size 1, also sharded (each process scores its shard).
 
@@ -23,13 +24,25 @@ from ucdir_tpu_torch.data import datasets as _datasets
 
 
 def create_dataset(dataset_opt: Dict[str, Any], phase: str):
-    name = dataset_opt.get('datasetname') or 'LRHRDataset'
-    if name != 'PairDataset':
-        what = ('dataset %s' % name if name in _datasets.NOT_PORTED
-                else 'the dataset registry (for %s)' % name)
-        raise NotImplementedError('%s is not ported yet; see ROADMAP.md'
-                                  % what)
-    dataset = _datasets.PairDataset(**dict(dataset_opt['data_args']))
+    if dataset_opt.get('datasetname'):
+        name = dataset_opt['datasetname']
+        if hasattr(_datasets, name):
+            cls = getattr(_datasets, name)
+        elif name == 'RealESRGANDataset':
+            from ucdir_tpu_torch.realsr import RealESRGANDataset as cls
+        else:
+            from ucdir_tpu_torch.utils.registry import DATASET_REGISTRY
+            cls = DATASET_REGISTRY.get(name)  # user-registered datasets
+        dataset = cls(**dict(dataset_opt['data_args']))
+    else:
+        dataset = _datasets.LRHRDataset(
+            dataroot=dataset_opt['dataroot'],
+            datatype=dataset_opt.get('datatype', 'img'),
+            l_resolution=dataset_opt.get('l_resolution', 16),
+            r_resolution=dataset_opt.get('r_resolution', 128),
+            split=phase,
+            data_len=dataset_opt.get('data_len', -1) or -1,
+            need_LR=(dataset_opt.get('mode') == 'LRHR'))
     logging.getLogger('base').info(
         'Dataset [%s - %s] is created.', type(dataset).__name__,
         dataset_opt.get('name'))

@@ -14,7 +14,6 @@ import random
 from typing import List, Sequence, Tuple
 
 import numpy as np
-from PIL import Image
 
 IMG_EXTENSIONS = ('.jpg', '.JPG', '.jpeg', '.JPEG',
                   '.png', '.PNG', '.ppm', '.PPM', '.bmp', '.BMP')
@@ -37,6 +36,7 @@ def get_paths_from_images(path: str) -> List[str]:
 
 def load_img(path: str) -> np.ndarray:
     """PIL load -> uint8 HWC RGB."""
+    from PIL import Image
     return np.asarray(Image.open(path).convert('RGB'))
 
 

@@ -40,6 +40,11 @@ def _unsupported(what: str):
     return NotImplementedError('%s is not ported yet; see ROADMAP.md' % what)
 
 
+def _host(a):
+    """A fed array or tensor as a host numpy array."""
+    return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
 class Trainer:
     """phase 'train': optimizer steps on fed batches, validation with the
     live weights, checkpoints as the reference's triple. phase 'val':
@@ -97,7 +102,10 @@ class Trainer:
 
     def to_device(self, a):
         """A host array as a float32 tensor on the trainer's device; to the
-        card through pinned memory, without waiting for the copy."""
+        card through pinned memory, without waiting for the copy. A tensor
+        on the trainer's device passes through as it is."""
+        if torch.is_tensor(a):
+            return a.to(self.device, torch.float32)
         t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
         if self.device.type == 'cuda':
             t = t.pin_memory().to(self.device, non_blocking=True)
@@ -161,9 +169,9 @@ class Trainer:
     def get_current_visuals(self):
         out = OrderedDict()
         out['SR'] = self.SR
-        out['INF'] = np.asarray(self.data['SR'])
-        out['HR'] = np.asarray(self.data['HR'])
-        out['LR'] = np.asarray(self.data.get('LR', out['INF']))
+        out['INF'] = _host(self.data['SR'])
+        out['HR'] = _host(self.data['HR'])
+        out['LR'] = _host(self.data.get('LR', out['INF']))
         return out
 
     def save_network(self, epoch, iter_step):
@@ -229,9 +237,12 @@ MODELS = {'DDPM': Trainer, 'DDPM_bnoise': TrainerBNoise}
 def create_model(opt, **kwargs):
     """The trainer that opt['model']['name'] names (reference
     model/__init__.py:5-10; the JAX package's `create_model`): DDPM (the
-    default) builds `Trainer`, DDPM_bnoise `TrainerBNoise`. DDPM_realsr and
-    any other name raise NotImplementedError."""
+    default) builds `Trainer`, DDPM_bnoise `TrainerBNoise`, DDPM_realsr
+    `realsr.TrainerRealSR`. Any other name raises NotImplementedError."""
     name = (opt.get('model') or {}).get('name', 'DDPM') or 'DDPM'
+    if name == 'DDPM_realsr':
+        from ucdir_tpu_torch.realsr import TrainerRealSR
+        return TrainerRealSR(opt, **kwargs)
     if name not in MODELS:
         raise _unsupported('model.name %r' % (name,))
     return MODELS[name](opt, **kwargs)
