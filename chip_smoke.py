@@ -140,11 +140,33 @@ on any failure:
               the host's per-sample draws replayed: HR within 1e-4, SR within
               1e-3 mean abs and 99% of it on the same 1/255 level
               (`realsr.FEED_LIMIT`).
+ 13. dist     batched and data-parallel runs. val_batch: the jpg-restore
+              model of phase 11 restores 4 JPEG frames of 368 x 496, 10
+              steps, in one Trainer.test and each alone, every image with
+              injected draws of its own, in float32 and in bf16: each image
+              of the batch must agree with its batch-1 restoration (float32
+              1e-5 max abs, bf16 1e-3 mean abs; the kernels' tiles change
+              with the batch); s per image at batch 1 and 4, every forward
+              kernel launched at batch 4 (bf16 through the tensor cores); 2
+              SID frames in one Trainer.test, 10 steps, float32 and bf16: s
+              per image, peak. ddp: the SID train Trainer (crop 256, dropout
+              0.1), 3 steps on 2 ranks of batch 2 (subprocesses of this
+              script, `--ddp_worker`; NCCL with a card each where there are
+              two, else gloo, both on the one card) against one process at
+              batch 4, in float32 and in bf16: the losses (1e-5 rel, bf16
+              1e-3), the parameters after (4.04e-4, bf16 2 * lr a step),
+              the ranks' parameters, EMA and AdamW state bit for bit, their
+              kernels launched (bf16 through the tensor cores); and
+              `all_reduce_mean_` on a one-rank NCCL group keeps every bit of
+              the one-process float32 step's gradients. Prints the backend
+              and the number of cards.
 Then one JSON line of kernel results (each kernel's launches from the path
 that owns it: K1..K4 the main phase, K5 and K6 the train phase, K7 the
 fewstep phase, K8 and K9 their variants run, the bf16 forms the bf16 frame,
 K7's the bf16 `dropout: 0` slice and K5's and K6's the bf16 train steps;
-every path's counts beside them, and `tc_launches`, of a kernel's launches
+every path's counts beside them (phase 13's: `dist_valbatch` the batch of
+4, `dist_sid` the SID batch of 2, `dist_ddp` rank 0's steps, each also
+`_bf16`), and `tc_launches`, of a kernel's launches
 on its path those that went through the tensor-core core (None where the
 path's were not read);
 errors the largest and times summed over phase 2's shapes), the card's
@@ -192,6 +214,11 @@ REALSR_CROP = 400                 # its dataset crop (gt_size 256)
 REALSR_FEEDS = 16                 # 15 fill the queue of 180, the 16th swaps
 REALSR_STEPS = 4                  # steps after the last feeds, the first a
                                   # warm-up; in bf16 the feeds too
+VAL_BATCH = 4                     # the batched validation's --val_batch
+SID_BATCH = 2                     # its batch at the SID frame
+DDP_RANKS = 2                     # ranks of the data-parallel steps
+DDP_BATCH = 2                     # their batch a rank (a global batch of 4)
+DDP_STEPS = 3
 
 # kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
@@ -1841,10 +1868,396 @@ def phase_realsr(dev, seed, counts):
                                   a['sr_same_level'], a['sr_max_abs']))
 
 
+# ---------------------------------------------------------------- phase 13
+def per_image_noise(dev, seed, shape, n, images):
+    """For each of `images` images, `n` standard normal draws of one
+    image's `shape` (1, H, W, 3) on the card, from a generator of its own:
+    the same draws whatever batch the image is restored in."""
+    import torch
+    out = []
+    for j in range(images):
+        gen = torch.Generator(dev).manual_seed(seed * 1000 + j)
+        out.append([torch.randn(shape, generator=gen, device=dev)
+                    for _ in range(n)])
+    return out
+
+
+def stacked(draws, images):
+    """noise= for Trainer.test: at the k-th call, draw k of each image of
+    `images`, stacked in that order on the batch axis."""
+    import torch
+    k = iter(range(len(draws[0])))
+
+    def noise(shape):
+        i = next(k)
+        out = torch.cat([draws[j][i] for j in images])
+        if tuple(out.shape) != tuple(shape):
+            fail('dist: the sampler drew %s, the images have %s'
+                 % (tuple(shape), tuple(out.shape)))
+        return out
+    return noise
+
+
+def val_batch_agreement(dev, seed, counts, compute_dtype):
+    """The jpg-restore model (phase 11's) on VAL_BATCH 368 x 496 JPEG
+    frames, TASK_STEPS steps: Trainer.test on the batch, then on each image
+    alone, each image with the same injected draws; fails unless every image
+    agrees with its batch-1 restoration (float32 1e-5 max abs, bf16 1e-3
+    mean abs) and every forward kernel (bf16: through the tensor cores, as
+    at batch 1) launched at the batch."""
+    import numpy as np
+    import torch
+    from ucdir_tpu_torch.data.diffjpeg import diff_jpeg
+    from ucdir_tpu_torch.ops import _build
+    from ucdir_tpu_torch.trainer import create_model
+
+    opt = task_opt('jpg-restore', compute_dtype)
+    torch.manual_seed(seed)
+    trainer = create_model(opt, device=dev, seed=seed)
+    trainer.set_new_noise_schedule(
+        dict(opt['model']['beta_schedule']['val'], n_timestep=TASK_STEPS),
+        'val', force=True)
+    hr = np.concatenate([pattern(*JPEG_FRAME, seed + 30 + j)[0]
+                         for j in range(VAL_BATCH)])
+    with torch.no_grad():
+        lq = (diff_jpeg((torch.from_numpy(hr).to(dev) + 1) / 2, JPEG_QUALITY,
+                        differentiable=False) * 2 - 1).cpu().numpy()
+    shape = (1, JPEG_FRAME[0] + 2 * PAD, JPEG_FRAME[1] + 2 * PAD, 3)
+    draws = per_image_noise(dev, seed + 30, shape, TASK_STEPS + 1, VAL_BATCH)
+    path = 'dist_valbatch' + ('' if compute_dtype is None else '_bf16')
+
+    def restore(images):
+        trainer.feed_data({'SR': lq[images], 'HR': hr[images]})
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trainer.test(continous=True, noise=stacked(draws, images))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        sr = trainer.get_current_visuals()['SR'][-1]
+        return sr.reshape((len(images),) + sr.shape[-3:]), secs
+
+    one = [restore([j]) for j in range(VAL_BATCH)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    batch, secs = restore(list(range(VAL_BATCH)))
+    counts[path] = dict(_build.LAUNCHES)
+    TC[path] = _build.tc_launches()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    launched(path, counts[path], FORWARD, compute_dtype)
+    if compute_dtype is not None:
+        tensor_cores_only(path, counts[path])
+    errs = []
+    for j, (sr1, _) in enumerate(one):
+        got = batch[j]
+        if got.shape != sr1[0].shape or not np.isfinite(got).all():
+            fail('dist: image %d of the batch has shape %s or non-finite '
+                 'values' % (j, got.shape))
+        d = np.abs(got.astype(np.float64) - sr1[0])
+        errs.append(d.mean() if compute_dtype else d.max())
+    tol = 1e-3 if compute_dtype else 1e-5
+    if not max(errs) <= tol:
+        fail('dist: %s, batch %d against batch 1: %s abs %s > %.0e'
+             % (compute_dtype or 'float32', VAL_BATCH,
+                'mean' if compute_dtype else 'max', errs, tol))
+    t1 = sum(s for _, s in one) / VAL_BATCH
+    say('dist', 'val_batch: jpg-restore, %d frames %dx%d (network %dx%d), '
+        '%d steps%s, full width, each with its own injected draws: batch %d '
+        'against each image alone, per image %s abs %s (tol %.0e); s per '
+        'image %.3f at batch 1, %.3f at batch %d (ms per step per image '
+        '%.2f, %.2f); peak at batch %d %.3f GiB; launches at batch %d %s'
+        % (VAL_BATCH, JPEG_FRAME[0], JPEG_FRAME[1], -(-shape[1] // 32) * 32,
+           -(-shape[2] // 32) * 32, TASK_STEPS,
+           '' if compute_dtype is None else ' in ' + compute_dtype,
+           VAL_BATCH, 'mean' if compute_dtype else 'max',
+           ' '.join('%.3e' % e for e in errs), tol, t1, secs / VAL_BATCH,
+           VAL_BATCH, 1e3 * t1 / TASK_STEPS,
+           1e3 * secs / VAL_BATCH / TASK_STEPS, VAL_BATCH, peak, VAL_BATCH,
+           json.dumps(counts[path])))
+    del trainer, draws
+    torch.cuda.empty_cache()
+
+
+def sid_batch(dev, seed, counts):
+    """SID_BATCH SID frames in one Trainer.test, SID_STEPS steps, float32
+    and bf16: s per image (phase `sid` and `bf16` give batch 1), peak."""
+    import numpy as np
+    import torch
+    from ucdir_tpu_torch.ops import _build
+    from ucdir_tpu_torch.trainer import Trainer
+
+    rng = np.random.default_rng(seed + 40)
+    lq = rng.uniform(-1, 1, (SID_BATCH,) + SID_FRAME + (3,)).astype(
+        np.float32)
+    for dtype in (None, 'bf16'):
+        opt = {'phase': 'val', 'model': sid_model(), 'compute_dtype': dtype,
+               'path': {'resume_state': None},
+               'train': {'ema_scheduler': {'use': True}}}
+        torch.manual_seed(seed)
+        trainer = Trainer(opt, device=dev, seed=seed)
+        trainer.set_new_noise_schedule(
+            dict(opt['model']['beta_schedule']['val'], n_timestep=SID_STEPS),
+            'val', force=True)
+        trainer.feed_data({'SR': lq, 'HR': lq})
+        path = 'dist_sid' + ('' if dtype is None else '_bf16')
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t = time.perf_counter()
+        trainer.test(continous=False)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        counts[path] = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        sr = trainer.get_current_visuals()['SR']
+        if sr.shape != lq.shape or not np.isfinite(sr).all():
+            fail('dist: SID batch output has shape %s or non-finite values'
+                 % (sr.shape,))
+        launched(path, counts[path], FORWARD, dtype)
+        say('dist', 'val_batch: SID frames %dx%d, batch %d, %d steps%s: %.3f '
+            's per image (%.1f ms per step per image), peak %.3f GiB, '
+            'launches %s' % (SID_FRAME + (SID_BATCH, SID_STEPS,
+                                          '' if dtype is None else ' in bf16',
+                                          secs / SID_BATCH,
+                                          1e3 * secs / SID_BATCH / SID_STEPS,
+                                          peak, json.dumps(counts[path]))))
+        del trainer
+        torch.cuda.empty_cache()
+
+
+def _digest(tensors):
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def train_state(trainer):
+    """The trainer's parameters, EMA shadow and AdamW state, in a fixed
+    order."""
+    import torch
+    state = trainer.state
+    params = [p for _, p in trainer.model.named_parameters()]
+    return (params, [state.ema_params[k] for k in sorted(state.ema_params)],
+            [v for p in params for _, v in
+             sorted(state.optimizer.state.get(p, {}).items())
+             if torch.is_tensor(v)])
+
+
+def ddp_worker(job_path):
+    """One rank of the data-parallel steps (`--ddp_worker <job.json>`, a
+    subprocess of phase_dist; torchrun's variables in the environment): the
+    SID train Trainer on its rows (job['batch'] a rank) of the global batch,
+    DDP_STEPS steps.
+    Writes rank<r>.json (losses, step times, launches, the digests of its
+    parameters, EMA and AdamW state) and, on rank 0, the parameters."""
+    import torch
+    from ucdir_tpu_torch.ops import _build
+    from ucdir_tpu_torch.trainer import Trainer
+    from ucdir_tpu_torch.utils.dist import exit_dist, get_dist_info, init_dist
+
+    with open(job_path) as f:
+        job = json.load(f)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = init_dist('pytorch', backend=job['backend'], device='cuda')
+    rank, world = get_dist_info()
+    hr, lq = train_batch(job['seed'])
+    rows = slice(rank * job['batch'], (rank + 1) * job['batch'])
+    # each rank builds other weights: the trainer starts from rank 0's
+    torch.manual_seed(job['seed'] + rank)
+    trainer = Trainer(train_opt(job['out'], job['dtype']), device=dev,
+                      seed=job['seed'])
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    losses, secs = [], []
+    for _ in range(DDP_STEPS):
+        trainer.feed_data({'HR': hr[rows], 'SR': lq[rows]})
+        t = time.perf_counter()
+        trainer.optimize_parameters()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        losses.append(trainer.get_current_log()['l_pix'])
+    launches, tc = dict(_build.LAUNCHES), _build.tc_launches()
+    params, ema, adam = train_state(trainer)
+    if rank == 0:
+        torch.save({k: v.detach().cpu() for k, v in
+                    trainer.model.state_dict().items()},
+                   os.path.join(job['out'], 'params.pt'))
+    with open(os.path.join(job['out'], 'rank%d.json' % rank), 'w') as f:
+        json.dump({'rank': rank, 'world': world, 'device': str(dev),
+                   'trainer_world': trainer.world_size, 'losses': losses,
+                   'secs': secs, 'launches': launches, 'tc': tc,
+                   'digests': [_digest(params), _digest(ema),
+                               _digest(adam)]}, f)
+    exit_dist()
+    return 0
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(job, tmp, ranks):
+    """Runs `ranks` processes of ddp_worker on `job`; fails unless each
+    ends with 0 within 600 s. Returns their rank<r>.json."""
+    path = os.path.join(tmp, 'job.json')
+    with open(path, 'w') as f:
+        json.dump(job, f)
+    port = free_port()
+    procs = []
+    try:
+        for r in range(ranks):
+            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(ranks),
+                       LOCAL_RANK=str(r), MASTER_ADDR='127.0.0.1',
+                       MASTER_PORT=str(port))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), '--ddp_worker',
+                 path], env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        for r, p in enumerate(procs):
+            out = p.communicate(timeout=600)[0]
+            if p.returncode != 0:
+                fail('dist: rank %d exited with %d:\n%s'
+                     % (r, p.returncode, out[-3000:]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out = []
+    for r in range(ranks):
+        with open(os.path.join(tmp, 'rank%d.json' % r)) as f:
+            out.append(json.load(f))
+    return out
+
+
+def nccl_one_rank(dev, trainer):
+    """all_reduce_mean_ on a one-rank NCCL group over the gradients of the
+    trainer's last step: fails unless every bit stays."""
+    import torch
+    import torch.distributed as dist
+    from ucdir_tpu_torch.parallel.mesh import all_reduce_mean_
+
+    grads = [p.grad for p in trainer.model.parameters()
+             if p.grad is not None]
+    before = [g.clone() for g in grads]
+    dist.init_process_group('nccl', init_method='tcp://127.0.0.1:%d'
+                            % free_port(), rank=0, world_size=1)
+    try:
+        all_reduce_mean_(grads)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    changed = sum(not torch.equal(a, b) for a, b in zip(grads, before))
+    if changed or not grads:
+        fail('dist: all_reduce_mean_ on one NCCL rank changed %d of %d '
+             'gradients' % (changed, len(grads)))
+    say('dist', 'ddp: all_reduce_mean_ on a one-rank NCCL group over the '
+        'float32 step\'s %d gradients (%d values): every bit kept'
+        % (len(grads), sum(g.numel() for g in grads)))
+
+
+def ddp(dev, seed, counts, compute_dtype, ranks=DDP_RANKS, batch=DDP_BATCH):
+    """`ranks` ranks, `batch` images each, against one process on the
+    global batch, DDP_STEPS steps of the SID train Trainer (crop 256,
+    dropout 0.1): the losses (float32 1e-5 rel, bf16 1e-3), the parameters
+    after (float32 4.04e-4, bf16 2 * lr a step), the ranks' parameters, EMA
+    and AdamW state bit for bit."""
+    import torch
+    from ucdir_tpu_torch.trainer import Trainer
+
+    backend = 'nccl' if torch.cuda.device_count() >= ranks else 'gloo'
+    hr, lq = train_batch(seed)
+    n = ranks * batch
+    path = 'dist_ddp' + ('' if compute_dtype is None else '_bf16')
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.manual_seed(seed)
+        one = Trainer(train_opt(tmp, compute_dtype), device=dev, seed=seed)
+        losses = []
+        for _ in range(DDP_STEPS):
+            one.feed_data({'HR': hr[:n], 'SR': lq[:n]})
+            one.optimize_parameters()
+            losses.append(one.get_current_log()['l_pix'])
+        if compute_dtype is None:
+            nccl_one_rank(dev, one)
+        want = {k: v.detach().cpu()
+                for k, v in one.model.state_dict().items()}
+        del one
+        torch.cuda.empty_cache()
+        outs = run_ranks({'seed': seed, 'dtype': compute_dtype,
+                          'backend': backend, 'out': tmp, 'batch': batch},
+                         tmp, ranks)
+        got = torch.load(os.path.join(tmp, 'params.pt'), weights_only=True)
+    if any(r['world'] != ranks or r['trainer_world'] != ranks
+           for r in outs):
+        fail('dist: ranks saw worlds %s' % [(r['world'], r['trainer_world'])
+                                            for r in outs])
+    if any(r['digests'] != outs[0]['digests'] for r in outs):
+        fail('dist: the ranks\' parameters, EMA or AdamW state differ: %s'
+             % [r['digests'] for r in outs])
+    if any(r['losses'] != outs[0]['losses'] for r in outs):
+        fail('dist: the ranks logged other losses: %s'
+             % [r['losses'] for r in outs])
+    rel = 1e-3 if compute_dtype else 1e-5
+    for i, (a, b) in enumerate(zip(outs[0]['losses'], losses)):
+        if not (math.isfinite(a) and abs(a - b) <= rel * abs(b)):
+            fail('dist: step %d loss %.8g on %d ranks, %.8g in one process'
+                 % (i, a, ranks, b))
+    lr = 1e-4
+    tol = 2 * lr * DDP_STEPS * 1.01 if compute_dtype else 4.04e-4
+    big = total = size = 0.0
+    for k, w in want.items():
+        d = (got[k] - w).abs()
+        big = max(big, d.max().item())
+        total += d.sum().item()
+        size += d.numel()
+    if not big <= tol:
+        fail('dist: parameters after %d steps differ by %.3e > %.3e'
+             % (DDP_STEPS, big, tol))
+    counts[path] = outs[0]['launches']
+    launched(path, counts[path], TRAIN, compute_dtype)
+    if compute_dtype is not None:
+        TC[path] = outs[0]['tc']
+        tensor_cores_only(path, counts[path])
+    say('dist', 'ddp%s: %d ranks (%s, %d card(s): %s) x batch %d against one '
+        'process at batch %d, SID model, crop %d, dropout 0.1, %d AdamW '
+        'steps: losses ranks %s one process %s (tol %.0e rel); parameters '
+        'after: max diff %.3e (tol %.3e), mean diff %.3e; parameters, EMA and '
+        'AdamW state the same bits on every rank; rank 0 s per step %s (a '
+        'correctness check: %s); launches of rank 0 %s'
+        % ('' if compute_dtype is None else ' in bf16', ranks, backend,
+           torch.cuda.device_count(),
+           ' '.join(r['device'] for r in outs), batch, n, TRAIN_CROP,
+           DDP_STEPS, json.dumps(outs[0]['losses']), json.dumps(losses), rel,
+           big, tol, total / size,
+           ' '.join('%.3f' % s for s in outs[0]['secs']),
+           'the ranks share one card' if backend == 'gloo'
+           else 'one card a rank', json.dumps(counts[path])))
+
+
+def phase_dist(dev, seed, counts):
+    """Batched validation (val_batch) and data-parallel training (ddp)."""
+    for dtype in (None, 'bf16'):
+        val_batch_agreement(dev, seed, counts, dtype)
+    sid_batch(dev, seed, counts)
+    for dtype in (None, 'bf16'):
+        ddp(dev, seed, counts, dtype)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
+    ap.add_argument('--ddp_worker', type=str, default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.ddp_worker:
+        sys.path.insert(0, ROOT)
+        return ddp_worker(args.ddp_worker)
 
     import torch
     if not torch.cuda.is_available():
@@ -1885,6 +2298,7 @@ def main(argv=None):
     phase_hires(dev, args.seed, counts)
     phase_tasks(dev, args.seed, counts)
     phase_realsr(dev, args.seed, counts)
+    phase_dist(dev, args.seed, counts)
     unlaunched = [k for k in KERNELS if counts[OWNER[k]][k] == 0]
     if unlaunched:
         fail('kernels never launched on the path that owns them: %s'

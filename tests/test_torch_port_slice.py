@@ -164,19 +164,27 @@ def test_cli_val_on_cpu(tmp_path):
     assert len(results) == 2
 
 
-def test_cli_refuses_what_is_not_ported():
+def test_cli_refuses_what_is_not_ported(monkeypatch):
     from ucdir_tpu_torch import sr
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        sr.main(['-p', 'val', '--val_batch', '2', '--device', 'cpu'])
-    # what the port carries by now is refused no longer, bf16 training too
+    # --distributed without a launcher's environment is refused: the run
+    # does not go on as one process
+    for k in ('RANK', 'WORLD_SIZE', 'LOCAL_RANK', 'MASTER_ADDR',
+              'SLURM_PROCID'):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match='torchrun'):
+        sr.main(['-p', 'val', '--val_batch', '2', '--device', 'cpu',
+                 '--distributed'])
+    # what the port carries by now is refused no longer: --val_batch above
+    # 1 (once refused), bf16 training, the data-parallel launchers
     args = sr._parser().parse_args(
         ['--sampler', 'dpmpp_sde', '--sampling_timesteps', '4', '--val_patch',
          '--patch_skip', '64', '--patch_padding', '8', '--search_params',
          '--search_steps', '2,3', '--search_ends', '0.2',
-         '--compute_dtype', 'bf16'])
-    sr._refuse(args)
-    sr._refuse(sr._parser().parse_args(['-p', 'train', '--compute_dtype',
-                                        'bf16']))
+         '--compute_dtype', 'bf16', '--val_batch', '2'])
+    assert args.val_batch == 2
+    args = sr._parser().parse_args(['-p', 'train', '--compute_dtype', 'bf16',
+                                    '--distributed'])
+    assert args.distributed and args.compute_dtype == 'bf16'
 
 
 def test_port_imports_no_jax():

@@ -5,7 +5,10 @@
 dispatch on `datasetname` + `data_args`, RealESRGANDataset from realsr.py,
 user-registered names through DATASET_REGISTRY, LRHRDataset fallback).
 `create_dataloader` mirrors :24-52: train = sharded sampler + drop_last,
-val = batch_size 1, also sharded (each process scores its shard).
+val = batch `val_batch` (1, the reference's, unless sr.py's --val_batch
+sets it; the images of one batch must share one size), also sharded (each
+rank scores its shard, padded to a multiple of the world size with repeated
+indices, as EnlargedSampler pads).
 
 The loader prefetches with a thread pool (PIL/cv2 release the GIL) and yields
 dict-of-numpy batches; the trainer copies them to the card through pinned
@@ -56,7 +59,13 @@ def _collate(items):
         if np.isscalar(vals[0]):
             out[k] = np.asarray(vals)
         else:
-            out[k] = np.stack([np.asarray(v) for v in vals], axis=0)
+            vals = [np.asarray(v) for v in vals]
+            shapes = sorted({v.shape for v in vals})
+            if len(shapes) > 1:
+                raise ValueError('a batch of %r needs items of one size, got '
+                                 '%s (--val_batch > 1 needs same-size '
+                                 'validation images)' % (k, shapes))
+            out[k] = np.stack(vals, axis=0)
     return out
 
 
@@ -124,7 +133,8 @@ def create_dataloader(dataset, dataset_opt: Dict[str, Any], phase: str,
                           num_workers=dataset_opt.get('num_workers', 1),
                           drop_last=True)
     if phase == 'val':
-        # reference val is batch 1 (data/__init__.py:46-49)
+        # reference val is batch 1 (data/__init__.py:46-49); sr.py's
+        # --val_batch sets val_batch
         return DataLoader(dataset,
                           batch_size=int(dataset_opt.get('val_batch') or 1),
                           sampler=sampler, num_workers=1, drop_last=False)

@@ -27,6 +27,7 @@ from ucdir_tpu_torch.models.layers import (Conv3, Downsample,
                                            PositionalEncoding, Upsample,
                                            crop_pad, pad_to_multiple)
 from ucdir_tpu_torch.ops.conv import conv3x3_preact, swish
+from ucdir_tpu_torch.parallel.mesh import DataShard
 
 
 class ResnetBlocWithAttn(nn.Module):
@@ -49,9 +50,15 @@ class ResnetBlocWithAttn(nn.Module):
 def dropout_mask(x, p: float, generator=None):
     """Inverted-dropout mask for x, in x's dtype: 0 with probability p, else
     1 / (1 - p), drawn in float32 from an explicit generator whatever x's
-    dtype, so that a bfloat16 step draws the float32 step's mask."""
-    keep = torch.rand(x.shape, device=x.device, dtype=torch.float32,
-                      generator=generator) >= p
+    dtype, so that a bfloat16 step draws the float32 step's mask. A
+    `parallel.mesh.DataShard` in place of the generator draws the global
+    batch's mask and keeps this rank's rows."""
+    if isinstance(generator, DataShard):
+        u = generator.rand(x.shape, device=x.device, dtype=torch.float32)
+    else:
+        u = torch.rand(x.shape, device=x.device, dtype=torch.float32,
+                       generator=generator)
+    keep = u >= p
     return keep.to(x.dtype) / (1. - p)
 
 
@@ -157,7 +164,8 @@ class DY3h(nn.Module):
         """x (B, H, W, in_channel) with H, W multiples of 32; guide_maps:
         optional {block name: maps} from compute_guide_maps. In train() mode
         the head's dropout draws its mask from `dropout_generator` (a
-        torch.Generator on x's device; None: the global generator)."""
+        torch.Generator on x's device, or a DataShard of one; None: the
+        global generator)."""
         gm = guide_maps or {}
         t = self.noise_level_mlp(noise_level)
 

@@ -1,2 +1,4 @@
-"""Evaluation of the denoiser over more than one launch of the network: the
-tiled high-resolution path. One card: nothing here is sharded."""
+"""Work spread over more than one launch or rank: the tiled high-resolution
+path (`tiled.py`, one card: one image's tiles in chunks) and the data axis
+across ranks (`mesh.py`: each rank its rows of the global batch, the
+gradients all-reduced)."""

@@ -17,7 +17,8 @@ Python's `random` and `np.random` in the JAX package's order, so the same
 seeds give the same coins in both packages. The per-sample draws (noise
 sigma or scale, gray, the noise itself, the Poisson counts, the JPEG
 quality) come from the trainer's own torch.Generator on its device, seeded
-from its seed; `feed_data(data, draws=...)` can inject them instead.
+from its seed and its rank (each rank degrades its own shard, as in the JAX
+package); `feed_data(data, draws=...)` can inject them instead.
 
 Hard rounding: the last `clip(round(out * 255)) / 255` is discontinuous; a
 sum in another order than the host's or the JAX package's moves a value by
@@ -44,7 +45,7 @@ from ucdir_tpu_torch.data.degradations import (circular_lowpass_kernel,
                                                random_add_gaussian_noise_pt,
                                                random_add_poisson_noise_pt)
 from ucdir_tpu_torch.data.diffjpeg import diff_jpeg
-from ucdir_tpu_torch.trainer import Trainer
+from ucdir_tpu_torch.trainer import Trainer, local_seed
 
 # degradation presets (reference LRHR_dataset.py:638-665)
 param = {
@@ -251,7 +252,7 @@ class TrainerRealSR(Trainer):
         if self.gt_usm_for_hr is None:
             self.gt_usm_for_hr = True
         self.feed_generator = torch.Generator(self.device).manual_seed(
-            seed + 3)
+            local_seed(seed + 3, self.rank))
 
     def _dequeue_and_enqueue(self, lq, gt):
         """Training-pair pool (reference model.py:405-444) on the device;

@@ -4,17 +4,25 @@ and result files of the repo's `sr.py`:
     python -m ucdir_tpu_torch.sr -p train -c ucdir_tpu/configs/sid.yaml \\
         [--seed N] [--device cuda] [-debug] [--compute_dtype bf16]
     python -m ucdir_tpu_torch.sr -p val -c ucdir_tpu/configs/sid.yaml \\
-        [--checkpoint <prefix>] [--seed N] [--device cuda] \\
+        [--checkpoint <prefix>] [--seed N] [--device cuda] [--val_batch N] \\
         [--sampler ddpm|ddim|dpmpp|dpmpp_sde] [--sampling_timesteps N] \\
         [--val_patch [--patch_skip 1024] [--patch_padding 64]] \\
         [--search_params [--search_steps 25,50,100] \\
                          [--search_ends 0.2,0.4,0.6]] [--compute_dtype bf16]
+    torchrun --nproc_per_node N -m ucdir_tpu_torch.sr -p train|val \\
+        --distributed ...
 
 Training saves the reference's checkpoint triple
 `I{iter}_E{epoch}_{gen,gen_ema,opt}.pth` and resumes from the prefix in the
 config's `path.resume_state`; `-p val --checkpoint <prefix>` validates a
 triple's EMA weights. Without a checkpoint the model starts from the random
-weights of --seed. One process, one card; float32, or `--compute_dtype bf16`:
+weights of --seed. One process on one card, or with --distributed one
+process per card, joined by torch.distributed (NCCL; gloo with --device
+cpu): the global batch of the config is split over the ranks, the gradients
+are averaged over them every step, each rank validates its shard of the
+validation set and the logged means are the whole set's; rank 0 saves. A
+validation batch (--val_batch) holds images of one size, each scored and
+saved under its own name. Float32, or `--compute_dtype bf16`:
 validation runs the networks in bfloat16 on a copy of the weights and the
 sampler in float32, training runs them on a bfloat16 cast of the float32
 weights, which with the optimizer state, the EMA and the checkpoints stay
@@ -31,6 +39,8 @@ import logging
 import os
 
 import numpy as np
+
+from ucdir_tpu_torch.parallel.mesh import barrier, global_sums
 
 
 def _parser():
@@ -50,7 +60,9 @@ def _parser():
                         '(default 20)')
     p.add_argument('--compute_dtype', type=str, default=None,
                    choices=['bf16'])
-    p.add_argument('--val_batch', type=int, default=1)
+    p.add_argument('--val_batch', type=int, default=1,
+                   help='validation images per step (-p val; they must '
+                        'share one size)')
     p.add_argument('--val_patch', action='store_true',
                    help='a whole reverse process per tile, then reassemble')
     p.add_argument('--patch_skip', type=int, default=1024,
@@ -69,23 +81,30 @@ def _parser():
     p.add_argument('--device', type=str, default='cuda',
                    help="'cuda' (default) or 'cpu' (the kernels' plain "
                         "versions)")
+    p.add_argument('--distributed', action='store_true',
+                   help='one rank of a data-parallel run: joins the process '
+                        'group of torchrun (or of srun without torchrun), '
+                        'NCCL on cuda, gloo on cpu')
     return p
 
 
-def _refuse(args):
-    """NotImplementedError for every option the port does not carry yet."""
-    todo = [(args.val_batch > 1, '--val_batch > 1')]
-    for hit, what in todo:
-        if hit:
-            raise NotImplementedError('%s is not ported yet; see ROADMAP.md'
-                                      % what)
+def _global_mean(*sums_and_count):
+    """The mean over every rank: [sum..., count] summed over the ranks in
+    float64, the sums divided by the count (JAX sr.py's `_global_mean`). The
+    reference logs each rank's shard mean only; this is the whole set's."""
+    vec = global_sums(sums_and_count)
+    count = max(vec[-1], 1.0)
+    return tuple(v / count for v in vec[:-1])
 
 
 def val_patch(opt, val_loader, val_set, diffusion, Metrics, logger,
               skip: int = 1024, padding: int = 64):
     """Outer-loop tiled sampling: each tile runs its own full reverse process
     (the reference's alternative loop `val_patch`, sr.py:17-57), unlike the
-    tiling inside every step of ucdir_tpu_torch.parallel.tiled."""
+    tiling inside every step of ucdir_tpu_torch.parallel.tiled. As in the
+    JAX package: a batch of --val_batch images is restored as one, scored
+    and saved as one grid image under the name of its first image, and
+    each rank logs its own shard's mean."""
     from ucdir_tpu_torch.parallel.tiled import _grid_pad, compute_tile_starts
     result_path = opt['path']['results']
     os.makedirs(result_path, exist_ok=True)
@@ -123,7 +142,9 @@ def search_params(opt, val_loader, diffusion, Metrics, logger,
     """Grid search over the validation schedule's length and linear_end on
     the first 3 images, with every cell's images saved (the reference's
     alternative loop `search_params`, sr.py:60-126). Returns {(steps,
-    linear_end): mean PSNR}."""
+    linear_end): mean PSNR}. As in the JAX package: with --val_batch the
+    first 3 batches, each scored and saved as one grid image, and each rank
+    searches on its own shard."""
     result_path = opt['path']['results']
     os.makedirs(result_path, exist_ok=True)
     found = {}
@@ -154,7 +175,11 @@ def search_params(opt, val_loader, diffusion, Metrics, logger,
 def _train(opt, diffusion, train_loader, val_loader, Metrics, logger):
     """The training loop of the repo's sr.py: print every print_freq steps,
     validate with the live weights every val_freq steps and at step 50, save
-    at save_models and save_checkpoint_freq."""
+    at save_models and save_checkpoint_freq. Under a process group each rank
+    validates its shard, the logged PSNR is the whole set's, the images are
+    named after `current_step + rank` (the JAX package's naming, kept), and
+    rank 0 saves while the others wait."""
+    rank = diffusion.rank
     current_step = diffusion.begin_step
     current_epoch = diffusion.begin_epoch
     n_iter = opt['train']['n_iter']
@@ -195,8 +220,8 @@ def _train(opt, diffusion, train_loader, val_loader, Metrics, logger):
                     visuals = diffusion.get_current_visuals()
                     sr_img = Metrics.tensor2img(visuals['SR'])
                     hr_img = Metrics.tensor2img(visuals['HR'])
-                    base = '{}/{}_{}_{}'.format(result_path, current_step,
-                                                idx, opt['name'])
+                    base = '{}/{}_{}_{}'.format(
+                        result_path, current_step + rank, idx, opt['name'])
                     Metrics.save_img(hr_img, base + '_hr.png')
                     Metrics.save_img(sr_img, base + '_sr.png')
                     Metrics.save_img(Metrics.tensor2img(visuals['LR']),
@@ -204,7 +229,7 @@ def _train(opt, diffusion, train_loader, val_loader, Metrics, logger):
                     Metrics.save_img(Metrics.tensor2img(visuals['INF']),
                                      base + '_inf.png')
                     avg_psnr += Metrics.calculate_psnr(sr_img, hr_img)
-                avg_psnr /= max(idx, 1)
+                (avg_psnr,) = _global_mean(avg_psnr, idx)
                 diffusion.set_new_noise_schedule(schedules['train'],
                                                  schedule_phase='train')
                 logger.info('# Validation # PSNR: {:.4e}'.format(avg_psnr))
@@ -212,15 +237,23 @@ def _train(opt, diffusion, train_loader, val_loader, Metrics, logger):
                     '<epoch:{:3d}, iter:{:8,d}> psnr: {:.4e}'.format(
                         current_epoch, current_step, avg_psnr))
 
+            # rank 0 saves; no rank goes on past a half-written triple
             if current_step % opt['train']['save_models'] == 0:
-                diffusion.save_network(current_epoch, current_step)
+                if rank == 0:
+                    diffusion.save_network(current_epoch, current_step)
+                barrier()
             if current_step % opt['train']['save_checkpoint_freq'] == 0:
-                logger.info('Saving models and training states.')
-                diffusion.save_network('latest', '')
+                if rank == 0:
+                    logger.info('Saving models and training states.')
+                    diffusion.save_network('latest', '')
+                barrier()
     logger.info('End of training.')
 
 
 def _validate(opt, diffusion, val_loader, val_set, Metrics, logger):
+    """Restores every image of the rank's shard, batch by batch, saves each
+    image's results under its own name and logs the mean PSNR and SSIM over
+    every rank's images (JAX sr.py:390-430)."""
     logger.info('Begin Model Evaluation. len ' + str(len(val_loader)))
     avg_psnr = avg_ssim = 0.0
     idx = 0
@@ -231,22 +264,27 @@ def _validate(opt, diffusion, val_loader, val_set, Metrics, logger):
         diffusion.feed_data(val_data)
         diffusion.test(continous=True)
         visuals = diffusion.get_current_visuals()
-        idx += 1
-        fname = ''.join(os.path.basename(
-            val_set.sr_path[int(val_data['Index'][0])]).split('.')[:-1])
-        hr_img = Metrics.tensor2img(visuals['HR'][0])
-        lr_img = Metrics.tensor2img(visuals['LR'][0])
-        fake_img = Metrics.tensor2img(diffusion.pre_initx[0])
-        sr_final = Metrics.tensor2img(visuals['SR'][-1])
-        base = '{}/{}_{}'.format(result_path, fname, opt['name'])
-        Metrics.save_jpg(sr_final, base + '_sr.png')
-        Metrics.save_jpg(hr_img, base + '_hr.png')
-        Metrics.save_jpg(lr_img, base + '_lr.png')
-        Metrics.save_jpg(fake_img, base + '_inf.png')
-        avg_psnr += Metrics.calculate_psnr(sr_final, hr_img)
-        avg_ssim += Metrics.calculate_ssim(sr_final, hr_img)
+        batch = visuals['HR'].shape[0]
+        # SR snapshots: (F, h, w, c) at batch 1, (F, b, h, w, c) above
+        sr_last = visuals['SR'][-1]
+        for j in range(batch):
+            idx += 1
+            fname = ''.join(os.path.basename(
+                val_set.sr_path[int(val_data['Index'][j])]).split('.')[:-1])
+            hr_img = Metrics.tensor2img(visuals['HR'][j])
+            lr_img = Metrics.tensor2img(visuals['LR'][j])
+            fake_img = Metrics.tensor2img(diffusion.pre_initx[j])
+            sr_final = Metrics.tensor2img(sr_last[j] if batch > 1
+                                          else sr_last)
+            base = '{}/{}_{}'.format(result_path, fname, opt['name'])
+            Metrics.save_jpg(sr_final, base + '_sr.png')
+            Metrics.save_jpg(hr_img, base + '_hr.png')
+            Metrics.save_jpg(lr_img, base + '_lr.png')
+            Metrics.save_jpg(fake_img, base + '_inf.png')
+            avg_psnr += Metrics.calculate_psnr(sr_final, hr_img)
+            avg_ssim += Metrics.calculate_ssim(sr_final, hr_img)
 
-    avg_psnr, avg_ssim = avg_psnr / max(idx, 1), avg_ssim / max(idx, 1)
+    avg_psnr, avg_ssim = _global_mean(avg_psnr, avg_ssim, idx)
     logger.info('# Validation # PSNR: {:.4e}'.format(avg_psnr))
     logger.info('# Validation # SSIM: {:.4e}'.format(avg_ssim))
     logging.getLogger('val').info(
@@ -257,35 +295,54 @@ def _validate(opt, diffusion, val_loader, val_set, Metrics, logger):
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    _refuse(args)
 
+    import torch
+
+    from ucdir_tpu_torch.utils.dist import exit_dist, init_dist
+
+    if args.device.startswith('cuda') and not torch.cuda.is_available():
+        raise RuntimeError('--device %s, but CUDA is not available; pass '
+                           '--device cpu to run the plain versions'
+                           % args.device)
+    if not args.distributed:
+        return _run(args, args.device)
+    # torchrun sets RANK; srun alone sets SLURM_PROCID
+    launcher = ('slurm' if 'SLURM_PROCID' in os.environ
+                and 'RANK' not in os.environ else 'pytorch')
+    device = init_dist(launcher, device=args.device.split(':')[0])
+    try:
+        return _run(args, str(device))
+    finally:
+        exit_dist()
+
+
+def _run(args, device):
     import torch
 
     from ucdir_tpu_torch import config as Logger
     from ucdir_tpu_torch import data as Data
     from ucdir_tpu_torch.metrics import core as Metrics
     from ucdir_tpu_torch.trainer import create_model
+    from ucdir_tpu_torch.utils.dist import get_dist_info
     from ucdir_tpu_torch.utils.logging import setup_logger
 
-    if args.device.startswith('cuda') and not torch.cuda.is_available():
-        raise RuntimeError('--device %s, but CUDA is not available; pass '
-                           '--device cpu to run the plain versions'
-                           % args.device)
     # full float32 in cuDNN's convolutions and in matmuls (no TF32), so the
     # card computes what the CPU and the JAX reference compute
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.manual_seed(args.seed)
+    rank, world_size = get_dist_info()
 
     opt = Logger.parse(args.config, phase=args.phase,
                        checkpoint=args.checkpoint, debug=args.debug,
-                       num_processes=1)
+                       num_processes=world_size)
     opt['sampler'] = args.sampler
     opt['sampling_timesteps'] = args.sampling_timesteps
     opt['compute_dtype'] = args.compute_dtype
     setup_logger('base', opt['path']['log'], 'train', level=logging.INFO,
-                 screen=True)
-    setup_logger('val', opt['path']['log'], 'val', level=logging.INFO)
+                 screen=True, process_index=rank)
+    setup_logger('val', opt['path']['log'], 'val', level=logging.INFO,
+                 process_index=rank)
     logger = logging.getLogger('base')
     logger.info(Logger.dict2str(opt))
 
@@ -293,13 +350,17 @@ def main(argv=None):
     if args.phase == 'train':
         train_opt = opt['datasets']['train']
         train_set = Data.create_dataset(train_opt, 'train')
-        train_loader = Data.create_dataloader(train_set, train_opt, 'train',
-                                              seed=args.seed)
+        train_loader = Data.create_dataloader(
+            train_set, train_opt, 'train', rank=rank, world_size=world_size,
+            seed=args.seed)
     val_opt = opt['datasets']['val']
+    if args.phase == 'val':
+        val_opt['val_batch'] = args.val_batch
     val_set = Data.create_dataset(val_opt, 'val')
-    val_loader = Data.create_dataloader(val_set, val_opt, 'val')
+    val_loader = Data.create_dataloader(val_set, val_opt, 'val', rank=rank,
+                                        world_size=world_size)
     logger.info('Initial Dataset Finished')
-    diffusion = create_model(opt, device=args.device, seed=args.seed)
+    diffusion = create_model(opt, device=device, seed=args.seed)
     logger.info('Initial Model Finished')
 
     if args.phase == 'train':

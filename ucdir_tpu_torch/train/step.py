@@ -2,7 +2,16 @@
 `ucdir_tpu/train/step.py` (reference: model/model.py:104-122): draw the noise
 level and the noise, `p_losses / (b * c * h * w)`, backward, clip, optimizer
 update, EMA blend; in float32, or in bfloat16 on float32 master weights
-(`compute_dtype`). `ucdir_tpu_torch/eval.py` holds the evaluation half."""
+(`compute_dtype`). `ucdir_tpu_torch/eval.py` holds the evaluation half.
+
+Data parallel (`world_size` > 1, `make_train_step(mesh=)`'s counterpart):
+each rank holds its rows of the global batch, draws the global batch's noise
+levels, noise and dropout mask from the step's generator, the same on every
+rank, and keeps its rows, so the loss is a function of the global batch
+alone. The gradients and the loss are then averaged over the ranks in one
+all-reduce before clipping; the mean of the ranks' losses, each divided by
+its own b * c * h * w, is the global batch's loss. One rank is the
+one-process step, bit for bit: no all-reduce is issued."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -10,6 +19,8 @@ from typing import Dict, Optional
 import torch
 
 from ucdir_tpu_torch.diffusion.sampler import sample_continuous_gamma
+from ucdir_tpu_torch.parallel.mesh import (DataShard, all_reduce_mean_,
+                                           data_shard)
 from ucdir_tpu_torch.schedule import NoiseSchedule
 from ucdir_tpu_torch.train.state import TrainState
 
@@ -17,11 +28,15 @@ from ucdir_tpu_torch.train.state import TrainState
 def step_loss(model, sched: NoiseSchedule, batch: Dict[str, torch.Tensor],
               generator: Optional[torch.Generator] = None,
               draws: Optional[Dict[str, torch.Tensor]] = None,
-              compute_dtype: Optional[torch.dtype] = None):
+              compute_dtype: Optional[torch.dtype] = None,
+              rank: int = 0, world_size: int = 1):
     """The loss of one step, `p_losses / (b * c * h * w)`, on batch {'HR',
-    'SR'} (B, H, W, C) tensors on the model's device. The noise level, the
-    noise and (in train() mode) the dropout mask come from `generator`, in
-    this order; `draws` may inject 'gammas' (B, 1) and 'noise' (like HR).
+    'SR'} (B, H, W, C) tensors on the model's device: rank `rank`'s rows of
+    a global batch of `world_size` * B. The noise level, the noise and (in
+    train() mode) the dropout mask come from `generator`, in this order,
+    drawn at the global batch, of which the rank keeps its rows; `draws` may
+    inject the global batch's 'gammas' (world_size * B, 1) and 'noise'
+    (world_size * B, H, W, C), of which it keeps its rows too.
 
     compute_dtype (e.g. torch.bfloat16): mixed precision, as the JAX
     package's `make_train_step(compute_dtype=)`. The float32 parameters stay
@@ -36,11 +51,16 @@ def step_loss(model, sched: NoiseSchedule, batch: Dict[str, torch.Tensor],
     b, h, w, c = hr.shape
     gammas = draws.get('gammas')
     if gammas is None:
-        gammas = sample_continuous_gamma(sched, b, generator)
+        gammas = sample_continuous_gamma(sched, b * world_size, generator)
     noise = draws.get('noise')
     if noise is None:
-        noise = torch.randn(hr.shape, device=hr.device, dtype=hr.dtype,
-                            generator=generator)
+        noise = torch.randn((b * world_size, h, w, c), device=hr.device,
+                            dtype=hr.dtype, generator=generator)
+    if world_size > 1:
+        gammas = data_shard(gammas, rank, world_size)
+        noise = data_shard(noise, rank, world_size)
+        if generator is not None:
+            generator = DataShard(generator, rank, world_size)
     if compute_dtype is None:
         loss = model.p_losses(batch, gammas, noise,
                               dropout_generator=generator)
@@ -59,14 +79,21 @@ def train_step(state: TrainState, sched: NoiseSchedule,
                batch: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator] = None,
                draws: Optional[Dict[str, torch.Tensor]] = None,
-               compute_dtype: Optional[torch.dtype] = None):
+               compute_dtype: Optional[torch.dtype] = None,
+               rank: int = 0, world_size: int = 1):
     """One optimizer step: `step_loss` (in `compute_dtype`, None: float32),
-    backward, clip, update, EMA blend, all on the float32 parameters.
-    Updates `state` in place and returns the loss as a 0-dim tensor."""
+    backward, with `world_size` > 1 the gradients and the loss averaged over
+    the ranks, clip, update, EMA blend, all on the float32 parameters.
+    Updates `state` in place and returns the loss (the global batch's) as a
+    0-dim tensor."""
     state.optimizer.zero_grad(set_to_none=True)
     loss = step_loss(state.model, sched, batch, generator, draws,
-                     compute_dtype)
+                     compute_dtype, rank, world_size)
     loss.backward()
+    loss = loss.detach()
+    if world_size > 1:
+        all_reduce_mean_([p.grad for p in state.model.parameters()
+                          if p.grad is not None] + [loss])
     if state.clip_norm is not None:
         torch.nn.utils.clip_grad_norm_(
             [p for p in state.model.parameters() if p.grad is not None],
@@ -74,4 +101,4 @@ def train_step(state: TrainState, sched: NoiseSchedule,
     state.optimizer.step()
     state.update_ema()
     state.step += 1
-    return loss.detach()
+    return loss

@@ -14,11 +14,13 @@ import torch
 
 from ucdir_tpu_torch.eval import eval_step
 from ucdir_tpu_torch.models.factory import define_G
+from ucdir_tpu_torch.parallel.mesh import broadcast_
 from ucdir_tpu_torch.schedule import make_schedule
 from ucdir_tpu_torch.train import (create_train_state, make_optimizer,
                                    train_step)
 from ucdir_tpu_torch.train.optim import finetune_select
 from ucdir_tpu_torch.utils import checkpoint as ckpt_util
+from ucdir_tpu_torch.utils.dist import get_dist_info
 
 logger = logging.getLogger('base')
 
@@ -45,6 +47,14 @@ def _host(a):
     return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
 
 
+def local_seed(seed: int, rank: int) -> int:
+    """The seed of a rank's own stream (the validation noise, the degraded
+    inputs' noise, the Real-SR feed), the counterpart of the JAX package's
+    `fold_in(PRNGKey(seed), process_index)`: `seed` itself on rank 0, so a
+    one-process run draws what it drew before there were ranks."""
+    return seed + rank * 0x9E3779B1
+
+
 class Trainer:
     """phase 'train': optimizer steps on fed batches, validation with the
     live weights, checkpoints as the reference's triple. phase 'val':
@@ -52,7 +62,13 @@ class Trainer:
     random weights the model is built with. Both in opt['compute_dtype']
     ('bf16': the networks in bfloat16 on a cast of the float32 weights,
     which with the optimizer state, the EMA shadow and the checkpoints stay
-    float32; None: float32)."""
+    float32; None: float32).
+
+    Under a process group (`utils.dist.init_dist`) each rank holds one; the
+    RNG contract is the JAX package's (`ucdir_tpu/trainer.py:45-55`): the
+    training draws are the same on every rank (seeded from the seed and the
+    step), the validation draws and the fed batches' noise are the rank's
+    own (`local_seed`). The initial weights are rank 0's."""
 
     def __init__(self, opt, device, seed: int = 0):
         name = opt.get('compute_dtype')
@@ -63,14 +79,17 @@ class Trainer:
         self.opt = opt
         self.device = torch.device(device)
         self.seed = seed
+        self.rank, self.world_size = get_dist_info()
         self.model = define_G(opt).to(self.device)
         self.schedules = {}
         self.schedule_phase = None
         self.set_new_noise_schedule(
             opt['model']['beta_schedule'][opt['phase']], opt['phase'])
-        # validation noise; the training draws are seeded per step instead
-        # (optimize_parameters), so a resumed run repeats them
-        self.generator = torch.Generator(self.device).manual_seed(seed + 1)
+        # validation noise, the rank's own; the training draws are seeded
+        # per step instead (optimize_parameters), so a resumed run repeats
+        # them
+        self.generator = torch.Generator(self.device).manual_seed(
+            local_seed(seed + 1, self.rank))
         self.train_generator = torch.Generator(self.device)
         self.iter = 0
         self.begin_step = 0
@@ -79,6 +98,9 @@ class Trainer:
         self.data: Dict[str, Any] = {}
         if opt['phase'] == 'train':
             self.model.train()
+            # every rank starts from rank 0's weights (a resume then loads
+            # the same triple on every rank)
+            broadcast_(self.model.state_dict().values())
             params = self.model.parameters()
             ft = opt['model'].get('finetune_norm')
             if ft:
@@ -113,11 +135,14 @@ class Trainer:
 
     def optimize_parameters(self):
         """One optimizer step on the fed batch (reference model.py:104-122),
-        the networks in opt['compute_dtype']."""
+        the networks in opt['compute_dtype']; under a process group the fed
+        batch is this rank's rows of the global batch, and the logged l_pix
+        the global batch's loss."""
         batch = {k: self.to_device(self.data[k]) for k in ('HR', 'SR')}
         loss = train_step(self.state, self.schedules['train'], batch,
                           generator=self.step_generator(self.iter),
-                          compute_dtype=self.compute_dtype)
+                          compute_dtype=self.compute_dtype, rank=self.rank,
+                          world_size=self.world_size)
         self.log_dict['l_pix'] = float(loss)
         self.iter += 1
 
@@ -136,11 +161,12 @@ class Trainer:
             self.schedules[schedule_phase] = make_schedule(schedule_opt,
                                                            self.device)
 
-    def test(self, continous: bool = False):
+    def test(self, continous: bool = False, noise=None):
         """Restores self.data['SR'] under the current schedule with noise from
-        this trainer's generator; in the train phase with the live weights.
-        opt['sampler'], opt['sampling_timesteps'] (default 20 for dpmpp,
-        else 5) and opt['tile'] choose the sampler and the tiled path, and
+        this trainer's generator (or `noise(shape)`, injected); in the train
+        phase with the live weights. opt['sampler'],
+        opt['sampling_timesteps'] (default 20 for dpmpp, else 5) and
+        opt['tile'] choose the sampler and the tiled path, and
         opt['compute_dtype'] the networks' dtype."""
         sr = self.to_device(self.data['SR'])
         sampler = self.opt.get('sampler') or 'ddpm'
@@ -150,7 +176,8 @@ class Trainer:
         self.model.eval()
         try:
             out = eval_step(self.model, self.schedules[self.schedule_phase],
-                            sr, continous=continous, generator=self.generator,
+                            sr, continous=continous, noise=noise,
+                            generator=self.generator,
                             sampler=sampler, sampling_timesteps=steps,
                             tile=self.opt.get('tile'),
                             compute_dtype=self.compute_dtype)
@@ -213,11 +240,13 @@ class TrainerBNoise(Trainer):
     """DDPM_bnoise: adds sigma = 50/255 Gaussian noise, twice over, to the
     degraded input of every fed batch (reference model.py:270-280; the JAX
     package's `TrainerBNoise`). The draws come from a generator of the
-    trainer's own, seeded from its seed, on the host where the batch is."""
+    trainer's own, seeded from its seed and its rank, on the host where the
+    batch is."""
 
     def __init__(self, opt, device, seed: int = 0):
         super().__init__(opt, device, seed)
-        self.noise_generator = torch.Generator().manual_seed(seed + 2)
+        self.noise_generator = torch.Generator().manual_seed(
+            local_seed(seed + 2, self.rank))
 
     def draw_noise(self, shape):
         """Standard normal draws of `shape` (float32 numpy) from the
