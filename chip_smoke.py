@@ -51,7 +51,19 @@ on any failure:
               their fp32 cases, held alike (their dW, dbias and K5's
               attention gradients bit-identical in a second call), the
               library `aten.convolution_backward` in bf16; they too run on
-              the tensor cores.
+              the tensor cores. The float32 K5 and K6 are held against
+              their plain versions evaluated in float64 (the float32 plain
+              version's weight gradients are 1.5e-4 of the largest from
+              float64, the kernels' 4e-6; `tools/torch_conv_accuracy.py
+              --gradients`); the plain time is the float32 one's. Last, the
+              forms that an AKGM block at
+              norm_groups > 1 runs (its GroupNorms apart, nothing folds):
+              K1 and K5 with attw and no fold, K2 and K6 with swish and no
+              fold, at the folded cases' SID shapes (K1 C = 64 at the frame
+              and 512 at its /8 level, K2 conv1 192 -> 64 and 1024 -> 512,
+              K5 and K6 at the train shapes at C = 64 and 512), in float32
+              and bf16, each a result of its own ('<kernel> nofold',
+              '<kernel> nofold+swish').
   3. slice    the full-width SID model (random weights from --seed) restores
               a 96 x 96 input with 2 steps and injected noise on the card and
               on the host (plain versions); the outputs must agree.
@@ -160,6 +172,30 @@ on any failure:
               `all_reduce_mean_` on a one-rank NCCL group keeps every bit of
               the one-process float32 step's gradients. Prints the backend
               and the number of cards.
+ 14. families every model define_G builds. The eight diffusion variants
+              at the SID width (AKGM, norm_groups 1; NoDiffusion's denoiser
+              on the 3-channel initx; PerceptualGaussianDiffusion on random
+              LPIPS weights written to a temp file): 2
+              Trainer.optimize_parameters at batch 4, crop 128, with
+              injected draws and dropout off, then the card's weights
+              restore one 256 x 256 input with 2 DDPM steps (NoDiffusion:
+              its refine pass) through Trainer.test, card against host
+              (train_slice's and variants' limits). Then the SR3-style
+              network (GaussianDiffusion, resname ResnetBlock,
+              GroupNorm(32)) and the AKGM network at norm_groups 32
+              (ResiGaussianGuideDY) restore phase 5's frame with 10 DDPM
+              steps in float32 and in bf16: ms per step, peak, launches per
+              kernel and per form (every K1 launch of the norm_groups 32
+              frame unfolded); both at 96 x 96 card against host in both
+              dtypes (slice's gate; bf16's 1e-3 for the AKGM network, and
+              for SR3's, which carries a flipped rounding further, bf16's
+              own distance from float32 on the host); the norm_groups 32
+              model's
+              train step (batch 32, crop 256, 4 steps, the first a
+              warm-up) in float32 and bf16: s per step, peak, launches per
+              form. Last, GaussianDiffusion with conditional: false on SR3's
+              blocks generates one 128 x 128 image with 10 steps through
+              Trainer.sample, card against host.
 Then one JSON line of kernel results (each kernel's launches from the path
 that owns it: K1..K4 the main phase, K5 and K6 the train phase, K7 the
 fewstep phase, K8 and K9 their variants run, the bf16 forms the bf16 frame,
@@ -169,7 +205,10 @@ every path's counts beside them (phase 13's: `dist_valbatch` the batch of
 `_bf16`), and `tc_launches`, of a kernel's launches
 on its path those that went through the tensor-core core (None where the
 path's were not read);
-errors the largest and times summed over phase 2's shapes), the card's
+errors the largest and times summed over phase 2's shapes; then one entry
+per unfolded form, its times phase 2's cases of that form and its launches
+the `families` path's that runs it: the norm_groups 32 frame, or its train
+steps for K5 and K6), the card's
 `nvidia-smi` name and power limit, and last `{"ok": true, "device": {...}}`.
 
 Needs torch, numpy and the repository beside this file, and imports nothing
@@ -336,6 +375,9 @@ def kernel_cases(gen, dev):
     def nchw(t):
         return t.permute(0, 3, 1, 2)
 
+    def f64(*tensors):
+        return [t.double() for t in tensors]
+
     def kind(name, dtype):
         """A case's name, tolerance and peak rate (float32: phase_kernels'
         defaults) for its operands' type: a bf16 form's outputs within one
@@ -363,21 +405,29 @@ def kernel_cases(gen, dev):
         flop = B * H * W * C * G * (2 * 9 * C // G + 2)
         return h, att, w, b, kw, flop
 
-    def k1_case(C, H, W, gen=gen, dtype=f32):
-        """K1 with fold, attw and statistics; returns its operands."""
+    def k1_case(C, H, W, gen=gen, dtype=f32, fold=True):
+        """K1 with fold, attw and statistics, or (fold=False) with attw
+        alone, as a block at norm_groups > 1 runs it; returns its
+        operands."""
         h, att, w, b, kw, flop = akgm_operands(1, H, W, C, gen=gen,
                                                dtype=dtype)
         res = rnd(1, H, W, C, scale=0.5, gen=gen, dtype=dtype)
+        if not fold:
+            kw = dict(attw=kw['attw'])
         cases.append(dict(
             **kind('akgm_tail', dtype),
-            label='C=%d %dx%d fold+attw+stats' % (C, H, W),
+            label='C=%d %dx%d %s' % (C, H, W, 'fold+attw+stats' if fold
+                                     else 'attw, no fold'),
+            form=None if fold else 'nofold',
             kernel=lambda: akgm.akgm_block_tail(h, att, w, b, res, G,
-                                                emit_stats=True, **kw),
+                                                emit_stats=fold, **kw),
             plain=lambda: akgm.akgm_block_tail_plain(h, att, w, b, res, G,
-                                                     emit_stats=True, **kw),
-            library=None, stats=2, fixed=(1, 2), flop=flop,
+                                                     emit_stats=fold, **kw),
+            library=None, stats=2 if fold else 0,
+            fixed=(1, 2) if fold else (), flop=flop,
             bits=None if dtype == f32 else 0.99,
-            bytes=nbytes(h, att, w, b, res, h, *kw.values()) + 8 * C))
+            bytes=nbytes(h, att, w, b, res, h, *kw.values())
+            + (8 * C if fold else 0)))
         return h, att, w, b, res, kw, flop
 
     levels = ((64, 1), (128, 2), (256, 4), (512, 8))
@@ -430,22 +480,33 @@ def kernel_cases(gen, dev):
         Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
         flop = 2 * 9 * cin * cout * B * Ho * Wo
         n_out = B * Ho * Wo * cout
+        # the unfolded swish form (no stats), as a block at norm_groups > 1
+        # runs conv1, is a form of its own in the results
+        form = None if fold or act is None else 'nofold+swish'
         if not backward:
-            kw = dict(stride=stride, act=act, emit_stats=True, norm_scale=a,
-                      norm_shift=t)
+            stats = form is None
+            kw = dict(stride=stride, act=act, emit_stats=stats,
+                      norm_scale=a, norm_shift=t)
             # bf16: statistics added in a fixed order, the same bits again
             cases.append(dict(
-                **kind('conv3x3', dtype), label=label,
+                **kind('conv3x3', dtype), label=label, form=form,
                 kernel=lambda: conv.conv3x3(x, w, b, **kw),
                 plain=lambda: conv.conv3x3_plain(x, w, b, **kw),
                 library=lambda: F.conv2d(nchw(x), k, b, stride=stride,
                                          padding=1),
-                stats=2, fixed=() if dtype == f32 else (1, 2), flop=flop,
+                stats=2 if stats else 0,
+                fixed=() if dtype == f32 or not stats else (1, 2), flop=flop,
                 bytes=(nbytes(x, w, b, a, t) + x.element_size() * n_out
-                       + 8 * B * cout)))
+                       + (8 * B * cout if stats else 0))))
             return
         go = rnd(B, H, W, cout, gen=gen_go, dtype=dtype)
         kw = dict(act=act, norm_scale=a, norm_shift=t)
+        # float32: held against the plain version in float64, as K5
+        reference = None if dtype != f32 else (
+            lambda: conv.conv3x3_backward_plain(
+                *f64(x, w, b, go), act=act,
+                **{k: v.double() for k, v in kw.items()
+                   if k != 'act' and v is not None}))
 
         def library():
             # the input and the weight gradient, and z again where swish
@@ -455,7 +516,8 @@ def kernel_cases(gen, dev):
                 [0, 0], 1, [True, True, True])
             return (out, F.conv2d(nchw(x), k, b, padding=1)) if act else out
         cases.append(dict(
-            **kind('conv3x3_bwd', dtype), label=label,
+            **kind('conv3x3_bwd', dtype), label=label, form=form,
+            reference=reference,
             kernel=lambda: conv.conv3x3_backward_kernel(x, w, b, go, act, a,
                                                         t),
             plain=lambda: conv.conv3x3_backward_plain(x, w, b, go, **kw),
@@ -542,16 +604,27 @@ def kernel_cases(gen, dev):
     # the backward kernels at the train path's shapes
     B, T = KERNEL_BATCH, TRAIN_NET
 
-    def k5_case(C, H, gen=gen, dtype=f32):
+    def k5_case(C, H, gen=gen, dtype=f32, fold=True):
         h, att, w, b, kw, flop = akgm_operands(B, H, H, C, gen=gen,
                                                dtype=dtype)
         go = rnd(B, H, H, C, gen=gen, dtype=dtype)
-        cases.append(dict(
+        if not fold:
+            kw = dict(attw=kw['attw'])
+        # float32: held against the plain version in float64 (its float32
+        # sums of up to 0.66 M pixels read 1.5e-4 of the largest weight
+        # gradient from float64, `tools/torch_conv_accuracy.py --gradients`)
+        reference = None if dtype != f32 else (
+            lambda: akgm.akgm_block_tail_backward_plain(
+                *f64(h, att, w, b, go), G,
+                **{k: v.double() for k, v in kw.items()}))
+        cases.append(dict(reference=reference,
             **kind('akgm_tail_bwd', dtype),
-            label='B=%d C=%d %dx%d fold+attw' % (B, C, H, H),
+            label='B=%d C=%d %dx%d %s' % (B, C, H, H, 'fold+attw' if fold
+                                          else 'attw, no fold'),
+            form=None if fold else 'nofold',
             kernel=lambda: akgm.akgm_block_tail_backward_kernel(
-                h, att, w, b, go, G, kw['norm_scale'], kw['norm_shift'],
-                kw['attw']),
+                h, att, w, b, go, G, kw.get('norm_scale'),
+                kw.get('norm_shift'), kw['attw']),
             plain=lambda: akgm.akgm_block_tail_backward_plain(
                 h, att, w, b, go, G, **kw),
             library=None, stats=0, fixed=(1, 2, 3, 4), flop=3 * flop,
@@ -632,6 +705,30 @@ def kernel_cases(gen, dev):
     for label, H, cin, cout, opts in k6_shapes:
         conv_case(label, B, H, H, cin, cout, backward=True, gen=g17,
                   gen_go=g17, dtype=bf, **opts)
+    # the forms an AKGM block at norm_groups > 1 runs, its GroupNorms apart
+    # (K1 and K5 with attw and no fold, K2 and K6 with swish and no fold),
+    # at the SID shapes of the folded cases, in float32 and in bf16, from a
+    # generator of their own
+    g25 = torch.Generator(dev).manual_seed(gen.initial_seed() + 25)
+    for dtype in (f32, bf):
+        for C, s in ((64, 1), (512, 8)):
+            k1_case(C, H0 // s, W0 // s, gen=g25, dtype=dtype, fold=False)
+        for label, H, W, cin, cout in (
+                ('conv1 192->64 %dx%d swish, no fold' % (H0, W0), H0, W0,
+                 192, 64),
+                ('conv1 1024->512 %dx%d swish, no fold' % (h8, w8), h8, w8,
+                 1024, 512)):
+            conv_case(label, 1, H, W, cin, cout, act='swish', gen=g25,
+                      dtype=dtype)
+        for C, s in ((64, 1), (512, 8)):
+            k5_case(C, T // s, gen=g25, dtype=dtype, fold=False)
+        for label, H, cin, cout in (
+                ('B=%d conv1 192->64 %dx%d swish, no fold' % (B, T, T), T,
+                 192, 64),
+                ('B=%d conv1 1024->512 %dx%d swish, no fold'
+                 % (B, T // 8, T // 8), T // 8, 1024, 512)):
+            conv_case(label, B, H, H, cin, cout, act='swish', backward=True,
+                      gen=g25, gen_go=g25, dtype=dtype)
     return cases
 
 
@@ -646,12 +743,17 @@ def phase_kernels(dev, seed, results):
     gen = torch.Generator(dev).manual_seed(seed)
     for case in kernel_cases(gen, dev):
         name, label = case['name'], case['label']
-        got, want = flat(case['kernel']()), flat(case['plain']())
+        # the plain version, or its float64 evaluation where a case gives
+        # one, rounded to float32
+        got = flat(case['kernel']())
+        want = flat((case.get('reference') or case['plain'])())
+        want = [w.float() if w.dtype == torch.float64 else w for w in want]
         torch.cuda.synchronize()
         # tolerances, float32 on both sides: a tensor output (the gradients
         # of K5 and K6 among them, whose weight, bias and attention parts
-        # are sums over up to 0.66 M pixels in another order) within 1e-4
-        # of max(1, its largest magnitude); (B, C) sums and sums of squares
+        # are sums over up to 0.66 M pixels, held against the plain version
+        # in float64) within 1e-4 of max(1, its largest magnitude); (B, C)
+        # sums and sums of squares
         # of up to 3.6 M values, added in another order (K1 per pixel tile,
         # then over the tiles; K2, K4 with atomics), within 1e-5 of the
         # largest sum of squares; a bf16 case's own `tol` (kernel_cases)
@@ -696,6 +798,8 @@ def phase_kernels(dev, seed, results):
             del again
         del got, want
         err = errs[0]   # the first output's (gn1_stats: the sums')
+        if case.get('form'):
+            name = '%s %s' % (name, case['form'])
         ms = timed(case['kernel'], 5)
         plain_ms = timed(case['plain'], 5)
         lib_ms = timed(case['library'], 5) if case['library'] else None
@@ -746,11 +850,16 @@ def sid_model(**unet):
     return model
 
 
-def build_model(seed, **unet):
+def build_model(seed, name=None, **unet):
+    """The SID model (`name`: another diffusion variant) with random weights
+    from `seed`, in eval()."""
     import torch
     from ucdir_tpu_torch.models.factory import define_G
     torch.manual_seed(seed)
-    return define_G({'model': sid_model(**unet)}).eval()
+    model = sid_model(**unet)
+    if name is not None:
+        model['diffusion_name'] = name
+    return define_G({'model': model}).eval()
 
 
 def injected(draws, d):
@@ -1129,11 +1238,11 @@ def phase_train_slice(dev, seed, compute_dtype=None, **unet):
     return launches
 
 
-def train_opt(tmp, compute_dtype=None):
-    """The SID train options of the `train` phases, checkpoints under
-    `tmp`."""
+def train_opt(tmp, compute_dtype=None, model=None):
+    """The SID train options of the `train` phases (`model`: other model
+    options), checkpoints under `tmp`."""
     from ucdir_tpu_torch.configs import SID_MODEL
-    return {'phase': 'train', 'model': copy.deepcopy(SID_MODEL),
+    return {'phase': 'train', 'model': copy.deepcopy(model or SID_MODEL),
             'compute_dtype': compute_dtype,
             'path': {'resume_state': None,
                      'checkpoint': os.path.join(tmp, 'checkpoint')},
@@ -2249,6 +2358,380 @@ def phase_dist(dev, seed, counts):
         ddp(dev, seed, counts, dtype)
 
 
+# ---------------------------------------------------------------- phase 14
+FAMILY_BATCH, FAMILY_CROP = 4, 128    # the variants' train steps
+FAMILY_SIZE = 256                     # their restoration's input
+NG = 32                               # SR3's GroupNorm(32)
+UNCOND_SIZE = 128                     # the unconditional images
+# per path, the launches of each kernel form (`_build.FORMS`)
+FORM_COUNTS = {}
+# the kernel forms an AKGM block at norm_groups > 1 runs, and the path of
+# the `families` phase whose run gives their launches
+FORM_OWNER = {
+    'akgm_tail nofold': 'families_ng', 'conv3x3 nofold+swish': 'families_ng',
+    'akgm_tail_bwd nofold': 'families_ng_train',
+    'conv3x3_bwd nofold+swish': 'families_ng_train',
+    'akgm_tail_bf16 nofold': 'families_ng_bf16',
+    'conv3x3_bf16 nofold+swish': 'families_ng_bf16',
+    'akgm_tail_bwd_bf16 nofold': 'families_ng_train_bf16',
+    'conv3x3_bwd_bf16 nofold+swish': 'families_ng_train_bf16'}
+
+
+def lpips_weights(path, seed):
+    """Random weights in the layout of a torch lpips.LPIPS(net='alex') state
+    dict, saved to `path`: what PerceptualGaussianDiffusion loads."""
+    import torch
+    from ucdir_tpu_torch.metrics.lpips import _ALEX_CFG
+    g = torch.Generator().manual_seed(seed)
+    sd, cin = {}, 3
+    for (cout, k, _, _), (sl, idx) in zip(
+            _ALEX_CFG, ((1, 0), (2, 3), (3, 6), (4, 8), (5, 10))):
+        sd['net.slice%d.%d.weight' % (sl, idx)] = torch.randn(
+            cout, cin, k, k, generator=g) / (cin * k * k) ** .5
+        sd['net.slice%d.%d.bias' % (sl, idx)] = 0.1 * torch.randn(
+            cout, generator=g)
+        sd['lin%d.model.1.weight' % (sl - 1)] = torch.rand(
+            1, cout, 1, 1, generator=g)
+        cin = cout
+    torch.save(sd, path)
+    return path
+
+
+def family_model(name, tmp, seed, **unet):
+    """The SID model options as variant `name` (NoDiffusion's denoiser
+    refines the 3-channel initx; PerceptualGaussianDiffusion's LPIPS on
+    random weights under `tmp`)."""
+    model = sid_model(**unet)
+    model['diffusion_name'] = name
+    if name == 'NoDiffusion':
+        model['unet']['in_channel'] = 3
+    if name == 'PerceptualGaussianDiffusion':
+        model['lpips_weights'] = lpips_weights(
+            os.path.join(tmp, 'lpips_alex.pth'), seed)
+    return model
+
+
+def family_variant(dev, seed, name, tmp):
+    """Variant `name` at the SID width: 2 Trainer.optimize_parameters at
+    FAMILY_BATCH x FAMILY_CROP with injected draws and dropout off, then the
+    card's weights restore one FAMILY_SIZE input with 2 DDPM steps
+    (NoDiffusion: its refine pass) through Trainer.test; on the card and on
+    the host, held to train_slice's and variants' limits. Returns the card's
+    launches."""
+    import numpy as np
+    import torch
+    from ucdir_tpu_torch.configs import SID_VAL_SCHEDULE
+    from ucdir_tpu_torch.ops import _build
+    from ucdir_tpu_torch.trainer import Trainer
+
+    rng = np.random.default_rng(seed + 11)
+    B, c = FAMILY_BATCH, FAMILY_CROP
+    hr = rng.uniform(-0.8, 0.8, (B, c, c, 3)).astype(np.float32)
+    lq = (0.2 * hr + rng.normal(0, 0.05, hr.shape)).astype(np.float32)
+    draws = [{'gammas': rng.uniform(0.3, 0.95, (B, 1)).astype(np.float32),
+              'noise': rng.standard_normal(hr.shape).astype(np.float32)}
+             for _ in range(2)]
+    x = rng.uniform(-1, 1, (1, FAMILY_SIZE, FAMILY_SIZE, 3)).astype(
+        np.float32)
+    side = FAMILY_SIZE + 2 * PAD
+    noise = [rng.standard_normal((1, side, side, 3)).astype(np.float32)
+             for _ in range(3)]
+    opt = train_opt(tmp, model=family_model(name, tmp, seed))
+    run, trainers = {}, {}
+    for d in (dev, 'cpu'):
+        torch.manual_seed(seed)
+        tr = trainers[d] = Trainer(opt, device=d, seed=seed)
+        tr.model.eval()       # dropout off: both sides run one network
+        tr.feed_data({'HR': hr, 'SR': lq})
+        if d is dev:
+            torch.cuda.synchronize()
+            _build.reset_launches()
+        t = time.perf_counter()
+        losses = []
+        for step in draws:
+            tr.optimize_parameters(draws={k: torch.from_numpy(v).to(d)
+                                          for k, v in step.items()})
+            losses.append(tr.get_current_log()['l_pix'])
+        if d is dev:
+            torch.cuda.synchronize()
+            launches = dict(_build.LAUNCHES)
+        run[d] = (losses, time.perf_counter() - t)
+    card, host = trainers[dev], trainers['cpu']
+    (l_c, s_c), (l_h, s_h) = run[dev], run['cpu']
+    for i, (a, b) in enumerate(zip(l_c, l_h)):
+        tol = 1e-5 if i == 0 else 1e-4
+        if not (math.isfinite(a) and abs(a - b) <= tol * abs(b)):
+            fail('families: %s step %d loss %.8g on the card, %.8g on the '
+                 'host' % (name, i, a, b))
+    p_err = 0.0
+    sd = card.model.state_dict()
+    for k, want in host.model.state_dict().items():
+        p_err = max(p_err, (sd[k].cpu() - want).abs().max().item())
+    if not p_err <= 4.04e-4:
+        fail('families: %s parameters differ by %.3e after 2 steps'
+             % (name, p_err))
+    missing = [k for k in TRAIN if launches[k] == 0]
+    if missing:
+        fail('families: %s never launched %s' % (name, missing))
+    # the restoration, from the card's weights on both sides
+    host.model.load_state_dict({k: v.cpu() for k, v in sd.items()})
+    out, secs = {}, {}
+    for d, tr in trainers.items():
+        tr.set_new_noise_schedule(dict(SID_VAL_SCHEDULE, n_timestep=2),
+                                  'val', force=True)
+        tr.feed_data({'SR': x, 'HR': x})
+        t = time.perf_counter()
+        tr.test(continous=False, noise=injected(noise, d))
+        secs[d] = time.perf_counter() - t
+        out[d] = (tr.SR, tr.pre_initx)
+    if (out[dev][1] is None) == card.model.has_predictor:
+        fail('families: %s test gave initx %s' % (name, out[dev][1]))
+    err = agree('families', '%s restoration card vs host' % name,
+                torch.from_numpy(out[dev][0]), torch.from_numpy(out['cpu'][0]))
+    say('families', '%s, full width: 2 optimize_parameters at batch %d, crop '
+        '%d: losses card %s host %s (tol 1e-5, 1e-4 rel), parameters after: '
+        'max diff %.3e (tol 4.04e-4), card %.2f s, host %.2f s; %s %dx%d: '
+        'card vs host max abs err %.3e (tol 1e-5), card %.2f s, host %.2f '
+        's; launches of the steps %s'
+        % (name, B, c, json.dumps(l_c), json.dumps(l_h), p_err, s_c, s_h,
+           'refine' if card.model.sample_mode == 'refine'
+           else '2 DDPM steps', FAMILY_SIZE, FAMILY_SIZE, err, secs[dev],
+           secs['cpu'], json.dumps(launches)))
+    return launches
+
+
+def family_frame(dev, seed, name, compute_dtype, path, **unet):
+    """Variant `name` with `unet` restores phase_sid's frame with SID_STEPS
+    DDPM steps; records the launches (per kernel and per form) under
+    `path`."""
+    import torch
+    from ucdir_tpu_torch.configs import SID_VAL_SCHEDULE
+    from ucdir_tpu_torch.diffusion.sampler import cast_model
+    from ucdir_tpu_torch.eval import eval_step
+    from ucdir_tpu_torch.models.dy3h import compute_guide_maps
+    from ucdir_tpu_torch.models.layers import pad_to_multiple, reflect_pad
+    from ucdir_tpu_torch.ops import _build
+    from ucdir_tpu_torch.schedule import make_schedule
+
+    model = build_model(seed, name, **unet).to(dev)
+    sched = make_schedule(dict(SID_VAL_SCHEDULE, n_timestep=SID_STEPS), dev)
+    gen = torch.Generator(dev).manual_seed(seed)
+    frame = torch.rand((1,) + SID_FRAME + (3,), generator=gen,
+                       device=dev) * 2 - 1
+    t_pre = 0.0
+    if model.has_predictor:
+        with torch.no_grad():
+            net = (model if compute_dtype is None
+                   else cast_model(model, compute_dtype))
+            x = reflect_pad(frame, PAD, PAD, PAD, PAD).to(
+                compute_dtype or frame.dtype)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            compute_guide_maps(net.denoise_fn,
+                               pad_to_multiple(net.predict_init(x), 32)[0])
+            torch.cuda.synchronize()
+            t_pre = time.perf_counter() - t
+            del x, net
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    t = time.perf_counter()
+    sr, _ = eval_step(model, sched, frame, pad=PAD, generator=gen,
+                      compute_dtype=compute_dtype)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = dict(_build.LAUNCHES)
+    FORM_COUNTS[path] = dict(_build.FORMS)
+    TC[path] = _build.tc_launches()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    if (sr.shape != frame.shape or sr.dtype != torch.float32
+            or not torch.isfinite(sr).all()):
+        fail('families: %s frame has shape %s, dtype %s or non-finite values'
+             % (path, tuple(sr.shape), sr.dtype))
+    launched('families', launches, ('conv3x3', 'gn1_stats'),
+             None if compute_dtype is None else 'bf16')
+    if compute_dtype is not None:
+        tensor_cores_only(path, launches)
+    say('families', '%s, %s, frame %dx%d (network %dx%d), %d DDPM steps%s: '
+        '%.3f s for the frame; predictor + guide maps %.1f ms, %.1f ms per '
+        'DY3h step, peak %.3f GiB, launches %s, per form %s'
+        % ((name, json.dumps(unet)) + SID_FRAME + NET_FRAME + (
+            SID_STEPS, '' if compute_dtype is None else ' in bf16', secs,
+            1e3 * t_pre, 1e3 * (secs - t_pre) / SID_STEPS, peak,
+            json.dumps(launches), json.dumps(FORM_COUNTS[path]))))
+    del sr, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def family_slice(dev, seed, name, **unet):
+    """phase_slice's 96 x 96 restoration (2 steps, injected draws) of
+    variant `name` with `unet`, card against host, in float32 (within 1e-5
+    max abs, `sid`'s gate) and in bf16. bf16: an AKGM network within 1e-3
+    mean abs (bf16_slice's gate); SR3's network (`resname: ResnetBlock`)
+    within bf16's own distance from float32 on the host, the mean abs of
+    the host's bf16 restoration from its float32 one: this network carries
+    a flip of a float32 sum's rounding further than the SID model does
+    (its float32 card-against-host reading is several times the SID
+    model's too), and its bf16 card against host reads the same with each
+    kernel or with each kernel's plain version on the card (PERF.md)."""
+    import numpy as np
+    import torch
+    from ucdir_tpu_torch.configs import SID_VAL_SCHEDULE
+    from ucdir_tpu_torch.eval import eval_step
+    from ucdir_tpu_torch.schedule import make_schedule
+
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1, 1, (1, 96, 96, 3)).astype(np.float32)
+    shape = (1, 96 + 2 * PAD, 96 + 2 * PAD, 3)
+    draws = [rng.standard_normal(shape).astype(np.float32) for _ in range(3)]
+    sched_opt = dict(SID_VAL_SCHEDULE, n_timestep=2)
+    host = build_model(seed, name, **unet)
+    card = copy.deepcopy(host).to(dev)
+    outs = {}
+    for dtype in (None, torch.bfloat16):
+        for d, model in ((dev, card), ('cpu', host)):
+            outs[d, dtype] = [None if o is None else o.cpu() for o in
+                              eval_step(model, make_schedule(sched_opt, d),
+                                        torch.from_numpy(x).to(d),
+                                        noise=injected(draws, d),
+                                        compute_dtype=dtype)]
+    sr3 = unet.get('resname') == 'ResnetBlock'
+    for i, out in enumerate(('sr', 'initx')):
+        what = '%s %s: %s' % (name, json.dumps(unet), out)
+        got, want = outs[dev, None][i], outs['cpu', None][i]
+        if got is None or want is None:
+            if (got is None) != (want is None) or card.has_predictor:
+                fail('families: %s missing' % what)
+            continue
+        err = agree('families', '%s card vs host' % what, got, want)
+        got, want = outs[dev, torch.bfloat16][i], outs['cpu', torch.bfloat16][i]
+        if not torch.isfinite(got).all() or got.shape != want.shape:
+            fail('families: %s in bf16 non-finite or misshapen' % what)
+        diff = (got - want).abs()
+        own = (want - outs['cpu', None][i]).abs().mean().item()
+        tol = own if sr3 else 1e-3
+        if not diff.mean().item() <= tol:
+            fail('families: %s in bf16 card vs host mean abs %.3e > %.3e'
+                 % (what, diff.mean().item(), tol))
+        say('families', '%s, 96x96, 2 steps: card vs host max abs err %.3e '
+            '(tol 1e-5); in bf16 mean abs %.3e (tol %.3e%s), max abs %.3e; '
+            'the host\'s bf16 from its float32 mean abs %.3e'
+            % (what, err, diff.mean().item(), tol,
+               ", bf16's own distance" if sr3 else '', diff.max().item(),
+               own))
+
+
+def family_train(dev, seed, dtype, path, **unet):
+    """`train`'s Trainer steps (batch 32, crop 256, dropout on) of the SID
+    model with `unet`: 4 steps, the first a warm-up."""
+    from ucdir_tpu_torch.ops import _build
+    from ucdir_tpu_torch.trainer import Trainer
+    hr, lq = train_batch(seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(train_opt(tmp, dtype, model=sid_model(**unet)),
+                          device=dev, seed=seed)
+        batch, secs, losses, again, peak, per_step, launches = train_steps(
+            dev, trainer, hr, lq, 4, path)
+        FORM_COUNTS[path] = dict(_build.FORMS)
+        launched('families', launches, TRAIN, dtype)
+        if dtype is not None:
+            tensor_cores_only(path, launches)
+        say('families', 'Trainer.optimize_parameters, %s%s, full width, '
+            'crop %d (network %dx%d), batch %d, dropout 0.1: %.3f s per step '
+            '(mean of 3 after the first), losses %s, the first step\'s draws '
+            'again after the last %.6f, peak %.3f GiB, launches in 4 steps '
+            '%s, per form %s'
+            % (json.dumps(unet), '' if dtype is None else ' in bf16',
+               TRAIN_CROP, TRAIN_NET, TRAIN_NET, batch, secs,
+               json.dumps([round(v, 6) for v in losses]), again, peak,
+               json.dumps(launches), json.dumps(FORM_COUNTS[path])))
+        del trainer
+    return launches
+
+
+def family_unconditional(dev, seed):
+    """GaussianDiffusion with conditional: false on SR3's blocks at the SID
+    width generates one UNCOND_SIZE image with SID_STEPS DDPM steps through
+    Trainer.sample, on the card and on the host with injected draws."""
+    import numpy as np
+    import torch
+    from ucdir_tpu_torch.configs import SID_VAL_SCHEDULE
+    from ucdir_tpu_torch.trainer import Trainer
+
+    model = sid_model(in_channel=3, resname='ResnetBlock', norm_groups=NG)
+    model['diffusion_name'] = 'GaussianDiffusion'
+    model['diffusion'].update(conditional=False, image_size=UNCOND_SIZE)
+    opt = {'phase': 'val', 'model': model, 'path': {'resume_state': None},
+           'train': {'ema_scheduler': {'use': True}}}
+    rng = np.random.default_rng(seed + 12)
+    shape = (1, UNCOND_SIZE, UNCOND_SIZE, 3)
+    draws = [rng.standard_normal(shape).astype(np.float32)
+             for _ in range(SID_STEPS + 1)]
+    out, secs = {}, {}
+    for d in (dev, 'cpu'):
+        torch.manual_seed(seed)
+        tr = Trainer(opt, device=d, seed=seed)
+        tr.set_new_noise_schedule(dict(SID_VAL_SCHEDULE,
+                                       n_timestep=SID_STEPS), 'val',
+                                  force=True)
+        t = time.perf_counter()
+        out[d] = tr.sample(batch_size=1, noise=injected(draws, d))
+        secs[d] = time.perf_counter() - t
+        if d is dev and tr.get_current_visuals(sample=True)['SAM'].shape \
+                != shape:
+            fail('families: Trainer.sample gave shape %s'
+                 % (out[d].shape,))
+    err = agree('families', 'unconditional sample card vs host',
+                torch.from_numpy(out[dev]), torch.from_numpy(out['cpu']))
+    say('families', 'unconditional GaussianDiffusion, ResnetBlock, '
+        'norm_groups %d, full width: Trainer.sample %dx%d, %d DDPM steps: '
+        'card vs host max abs err %.3e (tol 1e-5); card %.2f s, host %.2f s'
+        % (NG, UNCOND_SIZE, UNCOND_SIZE, SID_STEPS, err, secs[dev],
+           secs['cpu']))
+
+
+def phase_families(dev, seed, counts):
+    """Every model define_G builds: the eight variants, then the SR3-style
+    network and the AKGM network at norm_groups NG at full size, then
+    unconditional generation."""
+    import torch
+    from ucdir_tpu_torch.diffusion.base import DIFFUSIONS
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in DIFFUSIONS:
+            counts['families_' + name] = family_variant(dev, seed, name, tmp)
+            torch.cuda.empty_cache()
+    sr3 = dict(resname='ResnetBlock', norm_groups=NG)
+    ng = dict(norm_groups=NG)
+    for dtype in (None, torch.bfloat16):
+        sfx = '' if dtype is None else '_bf16'
+        counts['families_sr3' + sfx] = family_frame(
+            dev, seed, 'GaussianDiffusion', dtype, 'families_sr3' + sfx,
+            **sr3)
+        counts['families_ng' + sfx] = family_frame(
+            dev, seed, 'ResiGaussianGuideDY', dtype, 'families_ng' + sfx,
+            **ng)
+        forms = FORM_COUNTS['families_ng' + sfx]
+        k1 = 'akgm_tail' + sfx
+        if (forms.get(k1 + ' nofold') != BLOCKS * SID_STEPS
+                or forms.get(k1 + ' fold')):
+            fail('families: the norm_groups %d frame launched %s' % (NG,
+                                                                   forms))
+    for name, unet in (('GaussianDiffusion', sr3),
+                       ('ResiGaussianGuideDY', ng)):
+        family_slice(dev, seed, name, **unet)
+    for dtype in (None, 'bf16'):
+        path = 'families_ng_train' + ('' if dtype is None else '_bf16')
+        counts[path] = family_train(dev, seed, dtype, path, **ng)
+    family_unconditional(dev, seed)
+    missing = [k for k, path in FORM_OWNER.items()
+               if not FORM_COUNTS.get(path, {}).get(k)]
+    if missing:
+        fail('families: kernel forms never launched on their paths: %s'
+             % missing)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -2299,6 +2782,7 @@ def main(argv=None):
     phase_tasks(dev, args.seed, counts)
     phase_realsr(dev, args.seed, counts)
     phase_dist(dev, args.seed, counts)
+    phase_families(dev, args.seed, counts)
     unlaunched = [k for k in KERNELS if counts[OWNER[k]][k] == 0]
     if unlaunched:
         fail('kernels never launched on the path that owns them: %s'
@@ -2314,6 +2798,21 @@ def main(argv=None):
             # not read on that path)
             'tc_launches': TC.get(OWNER[name], {}).get(name),
             'launches_by_path': {k: v[name] for k, v in counts.items()},
+            'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
+            'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
+            'bound_by': ('bytes' if r['bytes_ms'] > r['flop_ms']
+                         else 'operations'),
+            'library_ms': r['library_ms']})
+    # the forms of K1, K2, K5 and K6 that a block at norm_groups > 1 runs:
+    # phase 2's cases of each form, launches from the `families` path
+    for name, path in FORM_OWNER.items():
+        kernel = name.split()[0]
+        r = results[name]
+        kernels.append({
+            'name': name, 'route': 'cuda', 'source': KERNELS[kernel][0],
+            'replaces': KERNELS[kernel][1],
+            'launches': FORM_COUNTS[path][name],
+            'tc_launches': TC.get(path, {}).get(kernel),
             'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
             'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
             'bound_by': ('bytes' if r['bytes_ms'] > r['flop_ms']

@@ -56,7 +56,10 @@ where it has the bits of the same roundings evaluated in float64);
 statistics, each side's float32
 sums of its own rounded output, within the sum over the pixels of the two
 outputs' differences (of their squares' differences) and 1e-5 of the
-largest sum of squares.
+largest sum of squares. The forms that an AKGM block at norm_groups > 1
+runs (`unfolded` tests: K1 and K5 with attw and no fold, K2 and K6 with
+swish and no fold, at C = 64 and 512) are held alike in both dtypes, each
+launch counted under its form in `_build.FORMS`.
 """
 import pytest
 import torch
@@ -565,7 +568,8 @@ BF = torch.bfloat16
 
 def check_bf16(got, want, n_stats, exact=None):
     """`exact`: {output index: the same output evaluated in float64 with the
-    same roundings}, for outputs of a few values (K5's dattw); a value there
+    same roundings}, for outputs of a few values (K5's dattw) or of long
+    sums (K6's dx of the unfolded form at cin 1024); a value there
     that differs from the plain version's bits agrees where it has the
     float64 evaluation's (the plain version's float32 sum, next to a
     rounding boundary, on the other side of it)."""
@@ -621,6 +625,21 @@ def akgm_dattw_bf16_exact(h, att, w, bias, go, nset, ns, nt, aw):
     do = r(go.to(f64) * conv.dswish(m.sum(dim=-1)))
     q = r(do[..., None] * z5).sum(dim=-2)
     return (q * att.to(f64)).sum(dim=(1, 2)).to(BF)
+
+
+def conv3x3_dx_bf16_exact(x, w, bias, go):
+    """K6's bf16 input gradient with swish and no fold as
+    `conv.conv3x3_backward_plain` rounds it (dz = go * swish'(z) rounded
+    once, then the transposed convolution rounded once), every sum in
+    float64."""
+    f64 = torch.float64
+    cin, cout = x.shape[-1], w.shape[1]
+    k = w.to(f64).reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
+    z = torch.nn.functional.conv2d(x.to(f64).permute(0, 3, 1, 2), k,
+                                   bias.to(f64), padding=1)
+    dz = (go.to(f64).permute(0, 3, 1, 2) * conv.dswish(z)).to(BF).to(f64)
+    return torch.nn.functional.conv_transpose2d(dz, k, padding=1).permute(
+        0, 2, 3, 1).to(BF)
 
 
 def launched(name, fn):
@@ -953,3 +972,78 @@ def test_kernels_without_a_bf16_form_refuse_bf16(dev):
     with pytest.raises(TypeError, match='float32'):
         akgm.akgm_block_tail_packed(h, att, akgm.pack_grouped_weight(w, G),
                                     b, h, G)
+
+
+# ---- the forms that an AKGM block at norm_groups > 1 runs (its GroupNorms
+# apart, so nothing folds): K1 with attw and no fold, K2 with swish and no
+# fold, K5 with attw and no fold, K6 with swish and no fold; in float32 on
+# the FMA core and in bf16 on the tensor cores, at the SID model's widths
+# (C = 64 and 512; conv1 192 -> 64 and 1024 -> 512), each launch counted
+# under its form
+UNFOLDED = [(2, 13, 21, 64, 192), (1, 9, 11, 512, 1024)]
+
+
+def unfolded_cases(gen, B, H, W, C, cin, dtype):
+    h, att, w, b = akgm_operands(gen, B, H, W, C)
+    res, go = rnd(gen, B, H, W, C, scale=0.5), rnd(gen, B, H, W, C)
+    aw = rnd(gen, B, 8, scale=0.3, off=1.0)
+    x = rnd(gen, B, H, W, cin, scale=0.5)
+    wc = rnd(gen, 9 * cin, C, scale=(9 * cin) ** -0.5)
+    bc = rnd(gen, C, scale=0.1)
+    if dtype == BF:
+        h, att, w, b, res, go, aw, x, wc, bc = bf16(
+            h, att, w, b, res, go, aw, x, wc, bc)
+    return {
+        'akgm_tail': (
+            lambda: akgm.akgm_block_tail(h, att, w, b, res, 8, attw=aw),
+            lambda: akgm.akgm_block_tail_plain(h, att, w, b, res, 8,
+                                               attw=aw), 'nofold'),
+        'conv3x3': (
+            lambda: conv.conv3x3(x, wc, bc, act='swish'),
+            lambda: conv.conv3x3_plain(x, wc, bc, act='swish'),
+            'nofold+swish'),
+        'akgm_tail_bwd': (
+            lambda: akgm.akgm_block_tail_backward_kernel(
+                h, att, w, b, go, 8, None, None, aw),
+            lambda: akgm.akgm_block_tail_backward_plain(
+                h, att, w, b, go, 8, attw=aw), 'nofold'),
+        'conv3x3_bwd': (
+            lambda: conv.conv3x3_backward_kernel(x, wc, bc, go, 'swish',
+                                                 None, None),
+            lambda: conv.conv3x3_backward_plain(x, wc, bc, go, act='swish'),
+            'nofold+swish'),
+    }, (h, att, w, b, go, aw, x, wc, bc)
+
+
+@pytest.mark.parametrize('kernel', ['akgm_tail', 'conv3x3', 'akgm_tail_bwd',
+                                    'conv3x3_bwd'])
+@pytest.mark.parametrize('B,H,W,C,cin', UNFOLDED)
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_unfolded_forms(dev, kernel, B, H, W, C, cin, dtype):
+    gen = torch.Generator(dev).manual_seed(25)
+    dt = getattr(torch, dtype)
+    cases, (h, att, w, b, go, aw, x, wc, bc) = unfolded_cases(
+        gen, B, H, W, C, cin, dt)
+    run, plain, form = cases[kernel]
+    _build.reset_launches()
+    if dt == BF:
+        got = launched(kernel, run)
+    else:
+        got = run()
+        assert _build.LAUNCHES[kernel] == 1
+    name = kernel + ('_bf16' if dt == BF else '')
+    assert _build.FORMS == {name + ' ' + form: 1}, _build.FORMS
+    want = plain()
+    if dt == torch.float32:
+        check(got, want, 0)
+    elif kernel == 'akgm_tail_bwd':
+        check_bf16(got, want, 0, {4: akgm_dattw_bf16_exact(
+            h, att, w, b, go, 8, None, None, aw)})
+    elif kernel == 'conv3x3_bwd':
+        # dx at cin 1024 sums 4608 products: the plain version's float32
+        # sum (cuDNN's, not the same bits from call to call on the card)
+        # lands on the other side of a rounding boundary for up to 2.6% of
+        # the values, where the kernel has the float64 evaluation's bits
+        check_bf16(got, want, 0, {0: conv3x3_dx_bf16_exact(x, wc, bc, go)})
+    else:
+        check_bf16(got, want, 0)

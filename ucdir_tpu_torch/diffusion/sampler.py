@@ -4,9 +4,12 @@
 
   * `p_sample_loop`: the ancestral DDPM reverse loop.
   * `ddim_sample`: DDIM(eta) over `sampling_timesteps` steps.
-  * `super_resolution`: predictor, guided reverse loop (whole image or
-    tiled), + initx; dispatches on `sampler` (the DPM-Solver++ forms live in
-    `diffusion/dpm_solver.py`).
+  * `super_resolution`: restoration for every variant of
+    `diffusion/base.py`: the predictor where there is one, the reverse loop
+    (whole image or tiled) with the variant's guide, + initx; or
+    NoDiffusion's one `refine` pass; dispatches on `sampler` (the
+    DPM-Solver++ forms live in `diffusion/dpm_solver.py`).
+  * `unconditional_sample`: generation from noise (conditional=False).
   * `sample_continuous_gamma`: the training-time noise level.
 
 Noise is injectable: `noise(shape)` is called once for the initial draw and
@@ -79,13 +82,16 @@ def _snapshot_slots(T: int):
 
 def p_sample_loop(denoise: Callable, x_cond: torch.Tensor,
                   sched: NoiseSchedule, noise: Noise,
-                  continous: bool = False, clip_denoised: bool = True):
+                  continous: bool = False, clip_denoised: bool = True,
+                  conditional: bool = True):
     """Ancestral reverse loop. denoise(img, noise_level (B, 1)) -> eps.
-    Returns the final image, or (final, snapshots) when continous: snapshot
-    0 is x_cond, then one every `1 | (T // 10)` steps."""
+    x_cond gives the shape (and, conditional, snapshot 0). Returns the final
+    image, or (final, snapshots) when continous: snapshot 0 is x_cond, or
+    the initial noise where not conditional, then one every `1 | (T // 10)`
+    steps."""
     shape = tuple(x_cond.shape)
     T = sched.num_timesteps
-    img = noise(shape)
+    img = img0 = noise(shape)
     slots, n_snap = _snapshot_slots(T)
     buf = x_cond.new_zeros((n_snap,) + shape) if continous else None
     for i, t in enumerate(range(T - 1, -1, -1)):
@@ -106,7 +112,8 @@ def p_sample_loop(denoise: Callable, x_cond: torch.Tensor,
         if buf is not None:
             buf[int(slots[i])] = img
     if continous:
-        return img, torch.cat([x_cond[None], buf], dim=0)
+        first = x_cond if conditional else img0
+        return img, torch.cat([first[None], buf], dim=0)
     return img
 
 
@@ -165,6 +172,13 @@ def cast_model(model: torch.nn.Module, dtype: torch.dtype):
     return copy.deepcopy(model, memo).to(dtype)
 
 
+def _nets(model, x_in, compute_dtype):
+    """(the model or its cast to compute_dtype, x_in in that dtype)."""
+    if compute_dtype is None:
+        return model, x_in
+    return cast_model(model, compute_dtype), x_in.to(compute_dtype)
+
+
 @torch.no_grad()
 def super_resolution(model, sched: NoiseSchedule, x_in: torch.Tensor,
                      noise: Optional[Noise] = None,
@@ -173,10 +187,15 @@ def super_resolution(model, sched: NoiseSchedule, x_in: torch.Tensor,
                      sampling_timesteps: int = 5, eta: float = 1.0,
                      tile_opts: Optional[dict] = None,
                      compute_dtype: Optional[torch.dtype] = None):
-    """Restoration for ResiGaussianGuideDY: initx = predictor(x_in); the
-    reverse loop conditioned on x_in with initx guiding AKGM (its guide maps
-    computed once); result + initx. Returns (sr, initx) or (sr, initx,
-    snapshots). Give `noise` or a `generator` for the draws.
+    """Restoration for a conditional variant of `diffusion/base.py`: initx =
+    predictor(x_in) where the variant has one (else None); the reverse loop
+    conditioned on x_in, its AKGM blocks guided by the variant's
+    `guide_in_sample` (initx, the degraded x_in, or with None the condition
+    itself), their guide maps computed once; result + initx. NoDiffusion
+    (`sample_mode` 'refine') instead returns its one refine pass at
+    sqrt_alphas_cumprod_prev[1], never tiled and not shifted by initx.
+    Returns (sr, initx) or (sr, initx, snapshots). Give `noise` or a
+    `generator` for the draws.
 
     sampler: 'ddpm' | 'ddim' | 'dpmpp' | 'dpmpp_sde'; the last three take
     `sampling_timesteps` steps, ddim also `eta`. tile_opts: {skip, padding,
@@ -184,17 +203,25 @@ def super_resolution(model, sched: NoiseSchedule, x_in: torch.Tensor,
     tiles, with the defaults, only inputs above UNTILED_MAX_PX.
     compute_dtype: e.g. torch.bfloat16 runs the networks in that dtype (the
     module docstring); the results stay float32."""
+    net, x_net = _nets(model, x_in, compute_dtype)
+    dt = x_net.dtype
+    initx = (net.predict_init(x_net).to(x_in.dtype) if model.has_predictor
+             else None)
+    if model.sample_mode == 'refine':
+        gammas = sched.sqrt_alphas_cumprod_prev[1].expand(x_in.shape[0], 1)
+        img = net.refine(initx.to(dt), gammas.to(dt)).to(x_in.dtype)
+        if continous:
+            return img, initx, torch.stack([x_in, img], dim=0)
+        return img, initx
     if noise is None:
         if generator is None:
             raise ValueError('super_resolution needs noise= or generator=')
         noise = generator_noise(generator)
-    net, x_net = model, x_in
-    if compute_dtype is not None:
-        net, x_net = cast_model(model, compute_dtype), x_in.to(compute_dtype)
-    dt = x_net.dtype
-    initx = net.predict_init(x_net).to(x_in.dtype)
-    guide = {'initx': initx, 'degraded': x_in}[model.guide_in_sample]
-    guide_net = guide.to(dt)
+    guide = {'initx': initx, 'degraded': x_in,
+             None: None}[model.guide_in_sample]
+    # no guide: the denoiser reads its input's first 3 channels, the
+    # condition, the same in every step
+    guide_net = x_net if guide is None else guide.to(dt)
 
     h, w = x_in.shape[1], x_in.shape[2]
     if tile_opts is None and h * w > UNTILED_MAX_PX:
@@ -232,7 +259,37 @@ def super_resolution(model, sched: NoiseSchedule, x_in: torch.Tensor,
                                    sde=(sampler == 'dpmpp_sde'))
     else:
         raise NotImplementedError(sampler)
-    if continous:
-        img, snaps = out
-        return img + initx, initx, snaps + initx[None]
-    return out + initx, initx
+    img, snaps = out if continous else (out, None)
+    if initx is not None:
+        img = img + initx
+        snaps = None if snaps is None else snaps + initx[None]
+    return (img, initx, snaps) if continous else (img, initx)
+
+
+@torch.no_grad()
+def unconditional_sample(model, sched: NoiseSchedule, shape,
+                         noise: Optional[Noise] = None,
+                         generator: Optional[torch.Generator] = None,
+                         continous: bool = False,
+                         compute_dtype: Optional[torch.dtype] = None):
+    """Generation from noise (reference GaussianDiffusion.sample,
+    diffusion.py:296-300) for a model with conditional=False: the ancestral
+    loop over an image of `shape` (B, H, W, C) on the schedule's device, the
+    denoiser seeing the noisy image alone, its AKGM blocks (if any) guided
+    by that image, so nothing is hoisted out of the steps. Returns the
+    image, or (image, snapshots: the initial noise, then one every
+    `1 | (T // 10)` steps) when continous."""
+    if noise is None:
+        if generator is None:
+            raise ValueError('unconditional_sample needs noise= or '
+                             'generator=')
+        noise = generator_noise(generator)
+    dummy = torch.zeros(shape, device=sched.betas.device)
+    net, _ = _nets(model, dummy, compute_dtype)
+    dt = compute_dtype or dummy.dtype
+
+    def denoise(img, noise_level):
+        return net.denoise(img.to(dt), noise_level.to(dt)).to(img.dtype)
+
+    return p_sample_loop(denoise, dummy, sched, noise, continous=continous,
+                         conditional=False)

@@ -33,7 +33,8 @@ def eval_step(model, sched: NoiseSchedule, sr_img: torch.Tensor, *,
               tile: Optional[dict] = None,
               compute_dtype: Optional[torch.dtype] = None):
     """sr_img (B, H, W, 3) in [-1, 1] -> (sr, initx) or (sr, initx,
-    snapshots), each cropped back to H x W. tile: {skip, padding,
+    snapshots), each cropped back to H x W; initx None for a variant with no
+    predictor. NoDiffusion's refine pass is never tiled. tile: {skip, padding,
     tile_chunk} for the tiled path (defaults 1024, 64, 1). compute_dtype:
     the networks' dtype (None: the weights', float32), as
     `super_resolution` takes it; the results are float32."""
@@ -47,5 +48,6 @@ def eval_step(model, sched: NoiseSchedule, sr_img: torch.Tensor, *,
                            sampling_timesteps=sampling_timesteps,
                            tile_opts=tile_opts, compute_dtype=compute_dtype)
     if pad:
-        out = tuple(o[..., pad:-pad, pad:-pad, :] for o in out)
+        out = tuple(None if o is None else o[..., pad:-pad, pad:-pad, :]
+                    for o in out)
     return out

@@ -14,7 +14,10 @@ candidates and input groups differently and so computes another network).
 Both GroupNorm(1) layers fold into the following kernel as a per-(batch,
 channel) affine x * a + t; their statistics come chained from the producer of
 x and h (`in_stats`, conv1's emitted sums) or, where the chain is void, from
-kernel K4.
+kernel K4. With norm_groups G > 1 (the JAX package's `nn.GroupNorm(G)`)
+each GroupNorm runs on its own (`layers.group_norm`: K4's sums per group,
+then the affine), so conv1 is K2 with swish and no fold and the tail K1
+with no fold; the block then emits no statistics.
 
 The block computes in the dtype of its parameters and input: float32, or
 bfloat16 (validation under `--compute_dtype bf16`), where only the 'fused'
@@ -26,7 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ucdir_tpu_torch.models.layers import Conv1, Conv3, SimpleGate, cached
+from ucdir_tpu_torch.models.layers import (Conv1, Conv3, SimpleGate, cached,
+                                           group_norm)
 from ucdir_tpu_torch.ops.akgm import (akgm_block_tail,
                                       akgm_block_tail_packed, akgm_mix,
                                       pack_grouped_weight)
@@ -65,36 +69,6 @@ def norm1_affine(x, scale, bias, totals_=None, eps: float = 1e-5):
     return a.to(x.dtype), t.to(x.dtype)
 
 
-def group_norm1(x, a, t):
-    """x * a + t in float32 for float32 (a, t) of `norm1_affine_f32`,
-    rounded to x's dtype: GroupNorm(1) applied outside a kernel, as flax's
-    GroupNorm normalizes a bfloat16 input. Differentiable in x, a and t; a
-    bfloat16 x is saved for backward as it is, never as its float32 copy."""
-    if x.dtype == torch.float32:
-        return x * a[:, None, None, :] + t[:, None, None, :]
-    return _GroupNorm1.apply(x, a, t)
-
-
-class _GroupNorm1(torch.autograd.Function):
-    """`group_norm1` of a low-precision x with the gradients of its
-    composition (x's float32 copy times a, plus t, rounded): dx the float32
-    g * a rounded to x's dtype, da and dt the float32 sums over the pixels
-    of g * x and of g. It saves x, not x's float32 copy."""
-
-    @staticmethod
-    def forward(ctx, x, a, t):
-        ctx.save_for_backward(x, a)
-        return (x.float() * a[:, None, None, :]
-                + t[:, None, None, :]).to(x.dtype)
-
-    @staticmethod
-    def backward(ctx, g):
-        x, a = ctx.saved_tensors
-        g = g.float()
-        return ((g * a[:, None, None, :]).to(x.dtype),
-                (g * x).sum(dim=(1, 2)), g.sum(dim=(1, 2)))
-
-
 def guide_maps(block: 'ResnetBlockDY3h', guide, size):
     """The block's spatial attention maps from the guide image resized to
     `size` (bilinear, no antialias): conv1x1 -> SimpleGate -> conv3x3."""
@@ -110,19 +84,16 @@ class ResnetBlockDY3h(nn.Module):
     def __init__(self, dim: int, dim_out: int, nl_emb_dim: int,
                  norm_groups: int = 1, nset: int = 8, tail: str = 'fused'):
         super().__init__()
-        if norm_groups != 1:
-            raise NotImplementedError(
-                'ResnetBlockDY3h: only norm_groups=1 (the shipped configs) is '
-                'ported; see ROADMAP.md')
         if tail not in TAILS:
             raise ValueError('tail must be one of %s, got %r' % (TAILS, tail))
         self.dim, self.dim_out, self.nset = dim, dim_out, nset
         self.tail = tail
+        self.norm_groups = norm_groups
         self.noise_func = nn.Sequential(nn.Linear(nl_emb_dim, nset), nn.SiLU(),
                                         nn.Linear(nset, nset))
-        self.norm1 = nn.GroupNorm(1, dim)
+        self.norm1 = nn.GroupNorm(norm_groups, dim)
         self.conv1 = Conv3(dim, dim_out)
-        self.norm2 = nn.GroupNorm(1, dim_out)
+        self.norm2 = nn.GroupNorm(norm_groups, dim_out)
         self.conv2 = nn.Sequential(nn.Conv2d(3, 2 * nset, 1), SimpleGate(),
                                    nn.Conv2d(nset, nset, 3, padding=1))
         self.spdyconv = nn.Conv2d(dim_out, dim_out * nset, 3, padding=1,
@@ -143,29 +114,38 @@ class ResnetBlockDY3h(nn.Module):
 
     def forward(self, x, time_emb, guide, g_maps=None, in_stats=None):
         """x (B, H, W, dim) NHWC; in_stats: chained ((B,) sum, (B,) sumsq) of
-        x or None. Returns (out, ((B,) sum, (B,) sumsq) of out)."""
+        x or None. Returns (out, ((B,) sum, (B,) sumsq) of out), the
+        statistics None where norm_groups > 1."""
         if x.dtype != torch.float32 and self.tail != 'fused':
             raise NotImplementedError(
                 "tail=%r in %s: the kernel of this tail takes float32 only; "
                 "see ROADMAP.md" % (self.tail, x.dtype))
         attw = self.noise_func(time_emb)                        # (B, nset)
-        a1, t1 = norm1_affine(x, self.norm1.weight, self.norm1.bias, in_stats)
-        h, h_stats = self.conv1(x, act='swish', norm_scale=a1, norm_shift=t1,
-                                emit_stats=True)
-        a2, t2 = norm1_affine(h, self.norm2.weight, self.norm2.bias,
-                              totals(h_stats))
+        if self.norm_groups == 1:
+            a1, t1 = norm1_affine(x, self.norm1.weight, self.norm1.bias,
+                                  in_stats)
+            h, h_stats = self.conv1(x, act='swish', norm_scale=a1,
+                                    norm_shift=t1, emit_stats=True)
+            a2, t2 = norm1_affine(h, self.norm2.weight, self.norm2.bias,
+                                  totals(h_stats))
+        else:
+            h = self.conv1(group_norm(x, self.norm1), act='swish')
+            h = group_norm(h, self.norm2)
+            a2 = t2 = None
         if g_maps is None:
             g_maps = guide_maps(self, guide, x.shape[1:3])
         res = self.res_conv(x)
         attw = attw.contiguous()
+        chain = self.norm_groups == 1
         if self.tail == 'fused':
-            out, out_stats = akgm_block_tail(
+            y = akgm_block_tail(
                 h, g_maps, self.spdy_weight(), self.spdyconv.bias, res,
                 self.nset, norm_scale=a2, norm_shift=t2, attw=attw,
-                emit_stats=True)
-            return out, totals(out_stats)
+                emit_stats=chain)
+            return (y[0], totals(y[1])) if chain else (y, None)
         if self.tail == 'mix':
-            hh = h * a2[:, None, None, :] + t2[:, None, None, :]
+            hh = h if a2 is None else (h * a2[:, None, None, :]
+                                       + t2[:, None, None, :])
             y = akgm_mix(hh, g_maps * attw[:, None, None, :],
                          self.spdy_weight(), self.spdyconv.bias, self.nset)
             out = swish(y) + res
@@ -174,5 +154,4 @@ class ResnetBlockDY3h(nn.Module):
                 h, g_maps, self.packed_weight(), self.spdyconv.bias, res,
                 self.nset, norm_scale=a2, norm_shift=t2, attw=attw)
         # neither kernel emits statistics: one pass of K4 over the output
-        return out, totals(gn1_stats(out))
-
+        return out, totals(gn1_stats(out)) if chain else None

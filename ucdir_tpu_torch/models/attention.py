@@ -22,7 +22,8 @@ import math
 import torch
 from torch import nn
 
-from ucdir_tpu_torch.models.akgm import group_norm1, norm1_affine_f32
+from ucdir_tpu_torch.models.akgm import norm1_affine_f32
+from ucdir_tpu_torch.models.layers import group_norm, group_norm1
 
 _STREAM_TOKENS = 4096
 _CHUNK = 1024
@@ -119,10 +120,6 @@ class SelfAttention(nn.Module):
     def __init__(self, in_channel: int, n_head: int = 1,
                  norm_groups: int = 1):
         super().__init__()
-        if norm_groups != 1:
-            raise NotImplementedError(
-                'SelfAttention: only norm_groups=1 (the shipped configs) is '
-                'ported; see ROADMAP.md')
         self.n_head = n_head
         self.norm = nn.GroupNorm(norm_groups, in_channel)
         self.qkv = nn.Conv2d(in_channel, in_channel * 3, 1, bias=False)
@@ -134,8 +131,12 @@ class SelfAttention(nn.Module):
         nh, hd = self.n_head, c // self.n_head
         # one K4 pass and an affine: PyTorch's group_norm reduces each
         # (batch, group) in one thread block, one block for GroupNorm(1)
-        a, t = norm1_affine_f32(x, self.norm.weight, self.norm.bias)
-        norm = group_norm1(x, a, t).reshape(-1, c)
+        if self.norm.num_groups == 1:
+            norm = group_norm1(x, *norm1_affine_f32(x, self.norm.weight,
+                                                    self.norm.bias))
+        else:
+            norm = group_norm(x, self.norm)
+        norm = norm.reshape(-1, c)
         qkv = torch.matmul(norm, self.qkv.weight.reshape(3 * c, c).t())
         # channels are (n_head, 3 * head_dim), chunked into q, k, v
         qkv = qkv.reshape(b, h, w, nh, 3 * hd)

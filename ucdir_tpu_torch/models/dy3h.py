@@ -6,11 +6,17 @@ The module tree and parameter names are the reference's (`downs.0`,
 `ups.*`, `noise_level_mlp.{1,3}`, `final_conv.{0,3}`), so a reference state
 dict loads with `strict=True`.
 
+`resname` picks the residual block: 'ResnetBlockDY3h' (AKGM, guided) or
+'ResnetBlock' (SR3's, no guide: the guide is read by no block and
+`compute_guide_maps` returns {}); `norm_groups` goes to every block's
+GroupNorms and attention's.
+
 GroupNorm(1) statistics are chained: every producer kernel (downs_0, each
-block's tail, Down/Upsample) emits its output's per-(batch, channel) sums,
-the next block's folded norm uses their totals, and totals add across skip
-concats. Attention voids the chain; the next norm then takes its statistics
-with kernel K4.
+AKGM block's tail at norm_groups 1, Down/Upsample) emits its output's
+per-(batch, channel) sums, the next block's folded norm uses their totals,
+and totals add across skip concats. Attention, a `ResnetBlock` and an AKGM
+block at norm_groups > 1 void the chain; the next GroupNorm(1) (the head's)
+then takes its statistics with kernel K4.
 """
 from __future__ import annotations
 
@@ -20,46 +26,44 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ucdir_tpu_torch.models.akgm import (ResnetBlockDY3h, group_norm1,
-                                         guide_maps, norm1_affine_f32, totals)
+from ucdir_tpu_torch.models.akgm import (ResnetBlockDY3h, guide_maps,
+                                         norm1_affine_f32, totals)
 from ucdir_tpu_torch.models.attention import SelfAttention
 from ucdir_tpu_torch.models.layers import (Conv3, Downsample,
-                                           PositionalEncoding, Upsample,
-                                           crop_pad, pad_to_multiple)
+                                           PositionalEncoding, ResnetBlock,
+                                           Upsample, crop_pad, dropout_mask,
+                                           group_norm1, pad_to_multiple)
 from ucdir_tpu_torch.ops.conv import conv3x3_preact, swish
-from ucdir_tpu_torch.parallel.mesh import DataShard
+
+RESNAMES = ('ResnetBlockDY3h', 'ResnetBlock')
 
 
 class ResnetBlocWithAttn(nn.Module):
     def __init__(self, dim: int, dim_out: int, nl_emb_dim: int,
                  norm_groups: int = 1, with_attn: bool = False,
-                 tail: str = 'fused'):
+                 tail: str = 'fused', resname: str = 'ResnetBlockDY3h',
+                 dropout: float = 0.0):
         super().__init__()
-        self.res_block = ResnetBlockDY3h(dim, dim_out, nl_emb_dim,
-                                         norm_groups=norm_groups, tail=tail)
+        if resname == 'ResnetBlockDY3h':
+            # the AKGM block has no dropout, as in the reference
+            self.res_block = ResnetBlockDY3h(
+                dim, dim_out, nl_emb_dim, norm_groups=norm_groups, tail=tail)
+        else:
+            self.res_block = ResnetBlock(dim, dim_out, nl_emb_dim,
+                                         dropout=dropout,
+                                         norm_groups=norm_groups)
         self.attn = (SelfAttention(dim_out, norm_groups=norm_groups)
                      if with_attn else None)
 
-    def forward(self, x, time_emb, guide, g_maps=None, in_stats=None):
-        x, xs = self.res_block(x, time_emb, guide, g_maps, in_stats)
+    def forward(self, x, time_emb, guide, g_maps=None, in_stats=None,
+                dropout_generator=None):
+        if isinstance(self.res_block, ResnetBlock):
+            x, xs = self.res_block(x, time_emb, dropout_generator), None
+        else:
+            x, xs = self.res_block(x, time_emb, guide, g_maps, in_stats)
         if self.attn is not None:
             x, xs = self.attn(x), None
         return x, xs
-
-
-def dropout_mask(x, p: float, generator=None):
-    """Inverted-dropout mask for x, in x's dtype: 0 with probability p, else
-    1 / (1 - p), drawn in float32 from an explicit generator whatever x's
-    dtype, so that a bfloat16 step draws the float32 step's mask. A
-    `parallel.mesh.DataShard` in place of the generator draws the global
-    batch's mask and keeps this rank's rows."""
-    if isinstance(generator, DataShard):
-        u = generator.rand(x.shape, device=x.device, dtype=torch.float32)
-    else:
-        u = torch.rand(x.shape, device=x.device, dtype=torch.float32,
-                       generator=generator)
-    keep = u >= p
-    return keep.to(x.dtype) / (1. - p)
 
 
 def _cat_stats(a, b):
@@ -74,11 +78,16 @@ class DY3h(nn.Module):
                  channel_mults: Sequence[int] = (1, 2, 4, 8, 8),
                  attn_res: Sequence[int] = (8,), res_blocks: int = 3,
                  dropout: float = 0.0, image_size: int = 128,
-                 tail: str = 'fused'):
+                 tail: str = 'fused', resname: str = 'ResnetBlockDY3h'):
         """tail: how every AKGM block runs its tail, 'fused' | 'mix' |
         'packed' (models/akgm.py). dropout == 0 folds the head into one
-        pre-activated conv (K7)."""
+        pre-activated conv (K7). resname: the residual block, one of
+        RESNAMES."""
         super().__init__()
+        if resname not in RESNAMES:
+            raise ValueError('resname must be one of %s, got %r'
+                             % (RESNAMES, resname))
+        self.resname = resname
         self.inner_channel = inner_channel
         self.channel_mults = tuple(channel_mults)
         self.attn_res = tuple(attn_res)
@@ -93,7 +102,7 @@ class DY3h(nn.Module):
 
         def block(dim, dim_out, with_attn):
             return ResnetBlocWithAttn(dim, dim_out, nlc, norm_groups,
-                                      with_attn, tail)
+                                      with_attn, tail, resname, dropout)
 
         self.downs = nn.ModuleList([Conv3(in_channel, inner_channel)] + [
             block(d, do, a) if kind == 'block' else Downsample(do)
@@ -143,7 +152,8 @@ class DY3h(nn.Module):
         return downs, mid_channel, ups, pre_channel
 
     def guide_block_scales(self):
-        """Ordered (name, block, downscale factor) for every AKGM block."""
+        """Ordered (name, block, downscale factor) for every residual block
+        (each an AKGM block under resname 'ResnetBlockDY3h')."""
         out = []
         s = 1
         for i, layer in enumerate(self.downs):
@@ -163,9 +173,10 @@ class DY3h(nn.Module):
                      dropout_generator=None):
         """x (B, H, W, in_channel) with H, W multiples of 32; guide_maps:
         optional {block name: maps} from compute_guide_maps. In train() mode
-        the head's dropout draws its mask from `dropout_generator` (a
-        torch.Generator on x's device, or a DataShard of one; None: the
-        global generator)."""
+        the head's dropout and every `ResnetBlock`'s draw their masks, in
+        the order of the layers, from `dropout_generator` (a torch.Generator
+        on x's device, or a DataShard of one; None: the global
+        generator)."""
         gm = guide_maps or {}
         t = self.noise_level_mlp(noise_level)
 
@@ -177,10 +188,12 @@ class DY3h(nn.Module):
                 x, xs = layer(x, emit_stats=True)
                 xs = totals(xs)
             else:
-                x, xs = layer(x, t, guide, gm.get(f'downs.{i}'), xs)
+                x, xs = layer(x, t, guide, gm.get(f'downs.{i}'), xs,
+                              dropout_generator)
             feats.append((x, xs))
         for i, layer in enumerate(self.mid):
-            x, xs = layer(x, t, guide, gm.get(f'mid.{i}'), xs)
+            x, xs = layer(x, t, guide, gm.get(f'mid.{i}'), xs,
+                          dropout_generator)
         for i, layer in enumerate(self.ups):
             if isinstance(layer, Upsample):
                 x, xs = layer(x, emit_stats=True)
@@ -188,7 +201,8 @@ class DY3h(nn.Module):
             else:
                 skip, ss = feats.pop()
                 x, xs = layer(torch.cat([x, skip], dim=-1), t, guide,
-                              gm.get(f'ups.{i}'), _cat_stats(xs, ss))
+                              gm.get(f'ups.{i}'), _cat_stats(xs, ss),
+                              dropout_generator)
 
         # head: GroupNorm -> swish -> dropout -> conv3x3. Without dropout it
         # is one pre-activated conv (K7): neither the normalized nor the
@@ -218,7 +232,10 @@ def compute_guide_maps(module: DY3h, guide):
     """Every AKGM block's guide-attention maps for a fixed guide, computed
     once per reverse process (the guide is step-invariant).
     guide: (B, H, W, 3), the /32-padded network input size.
-    Returns {block name: (B, H // s, W // s, nset)}."""
+    Returns {block name: (B, H // s, W // s, nset)}, {} for a network with
+    no AKGM block (resname 'ResnetBlock')."""
+    if module.resname != 'ResnetBlockDY3h':
+        return {}
     B, H, W, _ = guide.shape
     per_scale, maps = {}, {}
     for name, layer, s in module.guide_block_scales():

@@ -1,4 +1,4 @@
-"""Network factory — `define_G` for the SID configuration. Counterpart of
+"""Network factory — `define_G`. Counterpart of
 `ucdir_tpu/models/factory.py` (reference: model/networks.py:88-95)."""
 from __future__ import annotations
 
@@ -6,6 +6,8 @@ import os
 from typing import Any, Dict
 
 from ucdir_tpu_torch.models.dy3h import DY3h
+
+UNETS = {'DY3h': DY3h}
 
 
 def tail_from_env() -> str:
@@ -20,11 +22,14 @@ def tail_from_env() -> str:
 
 
 def define_G(opt: Dict[str, Any]):
-    """The diffusion module of a parsed config (opt['model']): DY3h inside
-    ResiGaussianGuideDY, the pair this port carries. The AKGM tail is the
-    config's `unet.tail` or, without one, `tail_from_env()`, read once
-    here."""
-    from ucdir_tpu_torch.diffusion.base import ResiGaussianGuideDY
+    """The diffusion module of a parsed config (opt['model']): the
+    `diffusion_name` class of DIFFUSIONS (default GaussianDiffusion) around
+    the `unet_name` network of UNETS (default DY3h), the JAX package's
+    defaults. The AKGM tail is the config's `unet.tail` or, without one,
+    `tail_from_env()`, read once here. PerceptualGaussianDiffusion loads
+    its LPIPS from `model.lpips_weights` or UCDIR_TPU_LPIPS_WEIGHTS and
+    raises without them."""
+    from ucdir_tpu_torch.diffusion.base import DIFFUSIONS
 
     model_opt = opt['model']
     if model_opt['which_model_G'] != 'ucdir':
@@ -32,11 +37,9 @@ def define_G(opt: Dict[str, Any]):
                          % model_opt['which_model_G'])
     unet_name = model_opt.get('unet_name') or 'DY3h'
     diffusion_name = model_opt.get('diffusion_name') or 'GaussianDiffusion'
-    if unet_name != 'DY3h' or diffusion_name != 'ResiGaussianGuideDY':
-        raise NotImplementedError(
-            'the port carries DY3h in ResiGaussianGuideDY (the SID '
-            'configuration), not %s in %s; see ROADMAP.md'
-            % (unet_name, diffusion_name))
+    for name, known in ((unet_name, UNETS), (diffusion_name, DIFFUSIONS)):
+        if name not in known:
+            raise KeyError('%r: expected one of %s' % (name, sorted(known)))
     unet_cfg = {k: v for k, v in dict(model_opt['unet']).items()
                 if v is not None}
     unet_cfg['channel_mults'] = tuple(unet_cfg.get('channel_mults')
@@ -45,8 +48,14 @@ def define_G(opt: Dict[str, Any]):
     unet_cfg.setdefault('image_size', model_opt['diffusion']['image_size'])
     unet_cfg.setdefault('tail', tail_from_env())
     diff_cfg = dict(model_opt['diffusion'])
-    return ResiGaussianGuideDY(
-        denoise_fn=DY3h(**unet_cfg),
+    perceptual_fn = None
+    if diffusion_name == 'PerceptualGaussianDiffusion':
+        from ucdir_tpu_torch.metrics.lpips import make_lpips
+        perceptual_fn = make_lpips(model_opt.get('lpips_weights'))
+    return DIFFUSIONS[diffusion_name](
+        denoise_fn=UNETS[unet_name](**unet_cfg),
         image_size=diff_cfg.get('image_size', 128),
         channels=diff_cfg.get('channels', 3),
-        conditional=bool(diff_cfg.get('conditional', True)))
+        loss_type=diff_cfg.get('loss_type', 'l1'),
+        conditional=bool(diff_cfg.get('conditional', True)),
+        perceptual_fn=perceptual_fn)

@@ -1,5 +1,9 @@
 """Shared building blocks on NHWC tensors. Counterpart of
-`ucdir_tpu/models/layers.py`.
+`ucdir_tpu/models/layers.py`: the reflect pads, the noise-level encoding,
+the convolutions of DY3h, GroupNorm as a per-(batch, channel) affine, the
+dropout mask, and the SR3 residual block (`FeatureWiseAffine`, `Block`,
+`ResnetBlock`, on kernels K2 and K3) that `DY3h(resname='ResnetBlock')`
+runs.
 
 The convolution modules keep the reference's parameter names and OIHW
 layout (`weight`, `bias`), so a reference state dict loads unchanged; each
@@ -19,7 +23,9 @@ import torch
 from torch import nn
 
 from ucdir_tpu_torch.ops.conv import (conv1x1, conv3x3, pack_up_kernel,
-                                      upconv2x)
+                                      swish, upconv2x)
+from ucdir_tpu_torch.ops.stats import gn1_stats
+from ucdir_tpu_torch.parallel.mesh import DataShard
 
 
 def simple_gate(x, dim=-1):
@@ -166,3 +172,142 @@ class Downsample(nn.Module):
 
     def forward(self, x, emit_stats=False):
         return self.conv(x, emit_stats=emit_stats)
+
+
+def group_norm1(x, a, t):
+    """x * a + t in float32 for float32 (a, t) of `norm1_affine_f32`
+    (models/akgm.py) or `group_affine_f32`, rounded to x's dtype: a
+    GroupNorm applied outside a kernel, as flax's GroupNorm normalizes a
+    bfloat16 input. Differentiable in x, a and t; a bfloat16 x is saved for
+    backward as it is, never as its float32 copy."""
+    if x.dtype == torch.float32:
+        return x * a[:, None, None, :] + t[:, None, None, :]
+    return _GroupNorm1.apply(x, a, t)
+
+
+class _GroupNorm1(torch.autograd.Function):
+    """`group_norm1` of a low-precision x with the gradients of its
+    composition (x's float32 copy times a, plus t, rounded): dx the float32
+    g * a rounded to x's dtype, da and dt the float32 sums over the pixels
+    of g * x and of g. It saves x, not x's float32 copy."""
+
+    @staticmethod
+    def forward(ctx, x, a, t):
+        ctx.save_for_backward(x, a)
+        return (x.float() * a[:, None, None, :]
+                + t[:, None, None, :]).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, a = ctx.saved_tensors
+        g = g.float()
+        return ((g * a[:, None, None, :]).to(x.dtype),
+                (g * x).sum(dim=(1, 2)), g.sum(dim=(1, 2)))
+
+
+def group_affine_f32(x, scale, bias, groups: int, eps: float = 1e-5):
+    """GroupNorm(groups) of NHWC x as a per-(batch, channel) affine: float32
+    (a, t) with norm(x) == x * a + t. The per-channel sums come from one pass
+    of kernel K4 and add up per group; the variance is E[x^2] - mean^2 in
+    float32, clipped at 0, as flax's GroupNorm takes it. Differentiable in
+    x, scale and bias."""
+    B, H, W, C = x.shape
+    s, q = gn1_stats(x)
+    n = H * W * (C // groups)
+    mean = s.reshape(B, groups, -1).sum(dim=2) / n
+    var = (q.reshape(B, groups, -1).sum(dim=2) / n
+           - mean * mean).clamp_min(0.)
+    rstd = torch.rsqrt(var + eps).repeat_interleave(C // groups, dim=1)
+    mean = mean.repeat_interleave(C // groups, dim=1)
+    a = scale.float()[None, :] * rstd
+    return a, bias.float()[None, :] - mean * a
+
+
+def group_norm(x, norm: nn.GroupNorm):
+    """`norm` (an nn.GroupNorm, eps 1e-5, its weight and bias) applied to
+    NHWC x through `group_affine_f32` and `group_norm1`, in x's dtype."""
+    return group_norm1(x, *group_affine_f32(x, norm.weight, norm.bias,
+                                            norm.num_groups, norm.eps))
+
+
+def dropout_mask(x, p: float, generator=None):
+    """Inverted-dropout mask for x, in x's dtype: 0 with probability p, else
+    1 / (1 - p), drawn in float32 from an explicit generator whatever x's
+    dtype, so that a bfloat16 step draws the float32 step's mask. A
+    `parallel.mesh.DataShard` in place of the generator draws the global
+    batch's mask and keeps this rank's rows."""
+    if isinstance(generator, DataShard):
+        u = generator.rand(x.shape, device=x.device, dtype=torch.float32)
+    else:
+        u = torch.rand(x.shape, device=x.device, dtype=torch.float32,
+                       generator=generator)
+    keep = u >= p
+    return keep.to(x.dtype) / (1. - p)
+
+
+class FeatureWiseAffine(nn.Module):
+    """The noise-level embedding into the features: x + Dense(emb), or
+    (1 + gamma) * x + beta with use_affine_level. Parameters as the
+    reference's `noise_func.0` (an nn.Linear in an nn.Sequential)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 use_affine_level: bool = False):
+        super().__init__()
+        self.use_affine_level = use_affine_level
+        self.noise_func = nn.Sequential(
+            nn.Linear(in_channels, out_channels * (1 + use_affine_level)))
+
+    def forward(self, x, noise_embed):
+        h = self.noise_func(noise_embed)[:, None, None, :]
+        if self.use_affine_level:
+            gamma, beta = torch.chunk(h, 2, dim=-1)
+            return (1 + gamma) * x + beta
+        return x + h
+
+
+class Block(nn.Module):
+    """GroupNorm(groups) -> swish -> dropout -> 3x3 conv, with the
+    reference's parameter names (`block.0` the norm, `block.3` the conv).
+    The conv is K2 (the JAX package's is XLA's): its plain version rounds a
+    bf16 output where the kernel does, so card and host agree in bf16."""
+
+    def __init__(self, dim: int, dim_out: int, groups: int = 32,
+                 dropout: float = 0.0):
+        super().__init__()
+        self.p = dropout
+        self.block = nn.Sequential(
+            nn.GroupNorm(groups, dim), nn.SiLU(),
+            nn.Dropout(dropout) if dropout else nn.Identity(),
+            Conv3(dim, dim_out))
+
+    def forward(self, x, dropout_generator=None):
+        """x (B, H, W, dim) NHWC. In train() mode the dropout mask comes from
+        `dropout_generator` (a torch.Generator, a DataShard of one, or None:
+        the global generator)."""
+        h = swish(group_norm(x, self.block[0]))
+        if self.training and self.p > 0:
+            h = h * dropout_mask(h, self.p, dropout_generator)
+        return self.block[3](h.contiguous())
+
+
+class ResnetBlock(nn.Module):
+    """The SR3 residual block (reference ucdir.py:86-100; `resname:
+    ResnetBlock`): Block, the noise-level embedding added, Block with
+    dropout, plus the input (through a 1x1 conv, K3, where the width
+    changes)."""
+
+    def __init__(self, dim: int, dim_out: int, nl_emb_dim: int,
+                 dropout: float = 0.0, use_affine_level: bool = False,
+                 norm_groups: int = 32):
+        super().__init__()
+        self.block1 = Block(dim, dim_out, groups=norm_groups)
+        self.noise_func = FeatureWiseAffine(nl_emb_dim, dim_out,
+                                            use_affine_level)
+        self.block2 = Block(dim_out, dim_out, groups=norm_groups,
+                            dropout=dropout)
+        self.res_conv = (Conv1(dim, dim_out) if dim != dim_out
+                         else nn.Identity())
+
+    def forward(self, x, time_emb, dropout_generator=None):
+        h = self.noise_func(self.block1(x), time_emb)
+        return self.block2(h, dropout_generator) + self.res_conv(x)

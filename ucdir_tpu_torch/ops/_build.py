@@ -41,6 +41,11 @@ LAUNCHES = {'akgm_tail': 0, 'conv3x3': 0, 'conv1x1': 0, 'gn1_stats': 0,
             'akgm_tail_bf16': 0, 'conv3x3_bf16': 0, 'conv1x1_bf16': 0,
             'gn1_stats_bf16': 0, 'conv3x3_preact_bf16': 0,
             'akgm_tail_bwd_bf16': 0, 'conv3x3_bwd_bf16': 0}
+# Launches per kernel form since the last reset_launches(), 'kernel form'
+# -> n, for the wrappers that name a form where they launch: K1 and K5
+# 'fold' or 'nofold' (a GroupNorm folded in, or none), K2 and K6 the same
+# and '+swish' where the swish is applied.
+FORMS: dict = {}
 # the entry points on the tensor-core core, in the order of the library's
 # counters (`ucdir_tc_launches(i)`), and the counts at the last reset
 TC_ENTRIES = ('conv3x3_bf16', 'conv3x3_preact_bf16', 'conv1x1_bf16',
@@ -72,6 +77,7 @@ _SIGNATURES['gn1_stats_bf16'] = [_P] * 4 + [_I] * 3 + [_P]
 def reset_launches():
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    FORMS.clear()
     if _loaded():
         _tc_base[:] = _tc_counts()
 
@@ -208,14 +214,23 @@ def check(name: str, t, shape=None, *, device=None, dtype=torch.float32):
         raise ValueError('%s: must be contiguous' % name)
 
 
-def launch(kernel: str, *args):
+def launch(kernel: str, *args, form=None):
     """Calls the C entry point `ucdir_<kernel>`, raises on a launch error,
-    and counts the launch."""
+    and counts the launch (in FORMS too under `form`, where given)."""
     err = getattr(library(), 'ucdir_' + kernel)(*args)
     if err != 0:
         raise RuntimeError('%s: kernel launch failed with cudaError %d'
                            % (kernel, err))
     LAUNCHES[kernel] += 1
+    if form is not None:
+        key = kernel + ' ' + form
+        FORMS[key] = FORMS.get(key, 0) + 1
+
+
+def form(norm_scale, act=None) -> str:
+    """A launch's form for FORMS: 'fold' or 'nofold', then '+swish'."""
+    return ('nofold' if norm_scale is None else 'fold') + (
+        '+swish' if act == 'swish' else '')
 
 
 def on_host(x: torch.Tensor) -> bool:

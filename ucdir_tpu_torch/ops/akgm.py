@@ -106,7 +106,7 @@ def _akgm_block_tail_forward(h, att_sp, w, bias, res, nset, norm_scale,
                   res.data_ptr(), _build.ptr(norm_scale),
                   _build.ptr(norm_shift), out.data_ptr(), _build.ptr(s),
                   _build.ptr(q), _build.ptr(ws), B, H, W, C,
-                  _build.stream(h))
+                  _build.stream(h), form=_build.form(norm_scale))
     return out, s, q
 
 
@@ -333,7 +333,8 @@ def akgm_block_tail_backward_kernel(h, att_sp, w, bias, go, nset,
                   _build.ptr(norm_shift), do.data_ptr(), _build.ptr(aa),
                   dhh.data_ptr(), datt.data_ptr(), dw.data_ptr(),
                   dbias.data_ptr(), _build.ptr(dattw), ws.data_ptr(),
-                  _build.ptr(wsa), B, H, W, C, splits, _build.stream(h))
+                  _build.ptr(wsa), B, H, W, C, splits, _build.stream(h),
+                  form=_build.form(norm_scale))
     return dhh, datt, dw, dbias, dattw
 
 

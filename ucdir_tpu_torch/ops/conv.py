@@ -160,7 +160,8 @@ def _conv3x3_forward(x, w, bias, stride, act, norm_scale, norm_shift,
     _build.launch(kernel, x.data_ptr(), w.data_ptr(), bias.data_ptr(),
                   _build.ptr(norm_scale), _build.ptr(norm_shift),
                   out.data_ptr(), *ptrs, B, H, W, cin, cout, stride,
-                  int(act == 'swish'), _build.stream(x))
+                  int(act == 'swish'), _build.stream(x),
+                  form=_build.form(norm_scale, act))
     return out, s, q
 
 
@@ -317,7 +318,8 @@ def conv3x3_backward_kernel(x, w, bias, go, act, norm_scale, norm_shift):
                   wf.data_ptr(), bias.data_ptr(), _build.ptr(norm_scale),
                   _build.ptr(norm_shift), _build.ptr(dz), dxh.data_ptr(),
                   dw.data_ptr(), dbias.data_ptr(), ws.data_ptr(), B, H, W,
-                  cin, cout, int(act == 'swish'), splits, _build.stream(x))
+                  cin, cout, int(act == 'swish'), splits, _build.stream(x),
+                  form=_build.form(norm_scale, act))
     return dxh, dw, dbias
 
 

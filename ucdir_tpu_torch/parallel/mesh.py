@@ -29,7 +29,7 @@ class DataShard:
     """Draws from `generator` made at the global batch, of which a rank
     keeps its rows: one rank's share of what one process with the whole
     batch draws. A drawing function that finds one (the head's dropout mask,
-    `models.dy3h.dropout_mask`) calls its `rand` instead of `torch.rand`."""
+    `models.layers.dropout_mask`) calls its `rand` instead of `torch.rand`."""
 
     def __init__(self, generator: torch.Generator, rank: int, world: int):
         self.generator, self.rank, self.world = generator, rank, world

@@ -273,7 +273,11 @@ def _validate(opt, diffusion, val_loader, val_set, Metrics, logger):
                 val_set.sr_path[int(val_data['Index'][j])]).split('.')[:-1])
             hr_img = Metrics.tensor2img(visuals['HR'][j])
             lr_img = Metrics.tensor2img(visuals['LR'][j])
-            fake_img = Metrics.tensor2img(diffusion.pre_initx[j])
+            # the predictor's estimate, or the degraded input where the
+            # variant has no predictor (JAX sr.py:403-406)
+            fake_img = Metrics.tensor2img(
+                visuals['INF'][j] if diffusion.pre_initx is None
+                else diffusion.pre_initx[j])
             sr_final = Metrics.tensor2img(sr_last[j] if batch > 1
                                           else sr_last)
             base = '{}/{}_{}'.format(result_path, fname, opt['name'])

@@ -36,7 +36,10 @@ def step_loss(model, sched: NoiseSchedule, batch: Dict[str, torch.Tensor],
     train() mode) the dropout mask come from `generator`, in this order,
     drawn at the global batch, of which the rank keeps its rows; `draws` may
     inject the global batch's 'gammas' (world_size * B, 1) and 'noise'
-    (world_size * B, H, W, C), of which it keeps its rows too.
+    (world_size * B, H, W, C), of which it keeps its rows too. A model in
+    `sample_mode` 'refine' (NoDiffusion) takes the constant
+    sqrt_alphas_cumprod_prev[1] as its gammas, drawn or injected ones
+    ignored.
 
     compute_dtype (e.g. torch.bfloat16): mixed precision, as the JAX
     package's `make_train_step(compute_dtype=)`. The float32 parameters stay
@@ -50,7 +53,12 @@ def step_loss(model, sched: NoiseSchedule, batch: Dict[str, torch.Tensor],
     hr = batch['HR']
     b, h, w, c = hr.shape
     gammas = draws.get('gammas')
-    if gammas is None:
+    if getattr(model, 'sample_mode', 'reverse') == 'refine':
+        # NoDiffusion trains at the constant sqrt_alphas_cumprod_prev[1]
+        # (reference diffusion.py:638-644): nothing is drawn for it
+        gammas = sched.sqrt_alphas_cumprod_prev[1].expand(
+            b * world_size, 1).to(hr.dtype)
+    elif gammas is None:
         gammas = sample_continuous_gamma(sched, b * world_size, generator)
     noise = draws.get('noise')
     if noise is None:

@@ -12,6 +12,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from ucdir_tpu_torch.diffusion.sampler import unconditional_sample
 from ucdir_tpu_torch.eval import eval_step
 from ucdir_tpu_torch.models.factory import define_G
 from ucdir_tpu_torch.parallel.mesh import broadcast_
@@ -133,16 +134,17 @@ class Trainer:
             t = t.pin_memory().to(self.device, non_blocking=True)
         return t
 
-    def optimize_parameters(self):
+    def optimize_parameters(self, draws=None):
         """One optimizer step on the fed batch (reference model.py:104-122),
         the networks in opt['compute_dtype']; under a process group the fed
         batch is this rank's rows of the global batch, and the logged l_pix
-        the global batch's loss."""
+        the global batch's loss. draws: injected 'gammas' and 'noise' of the
+        global batch (`train_step`'s), on the trainer's device."""
         batch = {k: self.to_device(self.data[k]) for k in ('HR', 'SR')}
         loss = train_step(self.state, self.schedules['train'], batch,
                           generator=self.step_generator(self.iter),
-                          compute_dtype=self.compute_dtype, rank=self.rank,
-                          world_size=self.world_size)
+                          draws=draws, compute_dtype=self.compute_dtype,
+                          rank=self.rank, world_size=self.world_size)
         self.log_dict['l_pix'] = float(loss)
         self.iter += 1
 
@@ -191,10 +193,38 @@ class Trainer:
         else:
             final, initx = out
             self.SR = final.cpu().numpy()
-        self.pre_initx = initx.cpu().numpy()
+        # None for a variant with no predictor
+        self.pre_initx = None if initx is None else initx.cpu().numpy()
 
-    def get_current_visuals(self):
+    def sample(self, batch_size: int = 1, continous: bool = False,
+               noise=None):
+        """Unconditional generation (reference DDPM.sample, model.py:
+        140-147) of `batch_size` images of the config's diffusion
+        image_size and channels, under the current schedule with the
+        weights test() uses and noise from this trainer's generator (or
+        `noise(shape)`, injected). Sets and returns self.SR: the images
+        (B, H, W, C), or with continous the snapshots (frames, B, H, W,
+        C)."""
+        diff = self.opt['model']['diffusion']
+        size = int(diff.get('image_size', 128))
+        shape = (batch_size, size, size, int(diff.get('channels', 3)))
+        was_training = self.model.training
+        self.model.eval()
+        try:
+            out = unconditional_sample(
+                self.model, self.schedules[self.schedule_phase], shape,
+                noise=noise, generator=self.generator, continous=continous,
+                compute_dtype=self.compute_dtype)
+        finally:
+            self.model.train(was_training)
+        self.SR = (out[1] if continous else out).cpu().numpy()
+        return self.SR
+
+    def get_current_visuals(self, sample: bool = False):
         out = OrderedDict()
+        if sample:
+            out['SAM'] = self.SR
+            return out
         out['SR'] = self.SR
         out['INF'] = _host(self.data['SR'])
         out['HR'] = _host(self.data['HR'])

@@ -8,7 +8,11 @@
     ConvTranspose2x2 kernel (kh, kw, I, O)      -> (I, O, kh, kw)
 
 Keys follow the reference module tree (`downs.<i>.res_block.conv1.weight`,
-`final_conv.3.weight`, `predictor.upv6.weight`, ...).
+`final_conv.3.weight`, `predictor.upv6.weight`, ...). The plain SR3
+`ResnetBlock` (`resname: ResnetBlock`) maps `block{1,2}/{norm,conv}` to
+`block{1,2}.block.{0,3}` and `noise_func/noise_func` to
+`noise_func.noise_func.0`; a network with no predictor has no
+`predictor.*`. LPIPS weights convert apart (`lpips_from_jax`).
 """
 from __future__ import annotations
 
@@ -43,7 +47,14 @@ def _norm(node, prefix, out):
 
 def _res_block(p, prefix, out):
     for name, node in p.items():
-        if name.startswith('noise_func_'):
+        if name == 'noise_func':     # ResnetBlock's FeatureWiseAffine
+            _kernel_bias(node['noise_func'],
+                         prefix + 'noise_func.noise_func.0.', _dense, out)
+        elif name in ('block1', 'block2'):     # ResnetBlock's Block
+            _norm(node['norm'], '%s%s.block.0.' % (prefix, name), out)
+            _kernel_bias(node['conv'], '%s%s.block.3.' % (prefix, name),
+                         _conv, out)
+        elif name.startswith('noise_func_'):
             _kernel_bias(node, '%snoise_func.%s.' % (prefix, name[-1]),
                          _dense, out)
         elif name in ('norm1', 'norm2'):
@@ -57,7 +68,7 @@ def _res_block(p, prefix, out):
         elif name == 'spdyconv_bias':
             out[prefix + 'spdyconv.bias'] = np.asarray(node)
         else:
-            raise KeyError('unmapped ResnetBlockDY3h param: %s%s'
+            raise KeyError('unmapped residual block param: %s%s'
                            % (prefix, name))
 
 
@@ -116,3 +127,13 @@ def from_jax_grads(grads: Dict[str, Any]) -> Dict[str, np.ndarray]:
     layout change above is a permutation, so a gradient maps as its parameter
     does."""
     return {k: v.numpy() for k, v in from_jax_params(grads).items()}
+
+
+def lpips_from_jax(weights: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's LPIPS weights (`ucdir_tpu/metrics/lpips.py`: HWIO
+    conv{i}_w, conv{i}_b, lin{i}_w, numpy) -> the port's
+    (`ucdir_tpu_torch/metrics/lpips.py`: OIHW conv{i}_w), float32."""
+    return {k: torch.from_numpy(np.array(_conv(v) if k.endswith('_w')
+                                         and k.startswith('conv') else v,
+                                         np.float32))
+            for k, v in weights.items()}
