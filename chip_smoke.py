@@ -63,7 +63,12 @@ on any failure:
               and 512 at its /8 level, K2 conv1 192 -> 64 and 1024 -> 512,
               K5 and K6 at the train shapes at C = 64 and 512), in float32
               and bf16, each a result of its own ('<kernel> nofold',
-              '<kernel> nofold+swish').
+              '<kernel> nofold+swish'). The bf16 forms of K8 and K9 (on the
+              tensor cores: K8 on K1's grouped product, K9 on K2's dense
+              one) at the float32 rows' shapes and at C = 8, 16 and 32 on
+              the frame's /8 level, K9 with fold and attw: one bf16 ulp of
+              max(1, largest) and 99% of the plain version's bits; no
+              library call computes either.
   3. slice    the full-width SID model (random weights from --seed) restores
               a 96 x 96 input with 2 steps and injected noise on the card and
               on the host (plain versions); the outputs must agree.
@@ -109,13 +114,21 @@ on any failure:
               warm-up): seconds per step, peak memory, only the bf16 forms
               of K1..K6 launched, every call of K1, K2, K3, K5 and K6 in
               bf16 through the tensor-core core, masters, gradients, AdamW
-              state, EMA and the saved weights float32.
+              state, EMA and the saved weights float32. Then 2 such steps
+              (the first a warm-up) under each of the tails 'mix' and
+              'packed': K8's or K9's bf16 form launched 27 times a step,
+              through the tensor cores, the backward the autograd of the
+              plain version, no float32 kernel.
   8. variants the full-width model with `dropout: 0` (folded head, K7) and
               each AKGM tail ('fused' K1, 'mix' K8, 'packed' K9) restores a
               256 x 256 input with 2 DDPM steps and injected noise on the
               card and on the host: card and host agree for every tail,
               'mix' equals 'fused' on the card, and the launch counts are
-              those of the tail.
+              those of the tail; then each tail in bf16 (--compute_dtype
+              bf16), card against host within bf16's 1e-3 mean abs, the
+              tail's bf16 form 27 times a step, every launch of a
+              tensor-core entry through the tensor cores, no float32
+              kernel.
   9. fewstep  the 1424 x 2128 frame through the validation step of the
               `dropout: 0` model with ddim (5 steps), dpmpp (20) and
               dpmpp_sde (20), in float32 and then in bf16: seconds per
@@ -176,7 +189,7 @@ on any failure:
               at the SID width (AKGM, norm_groups 1; NoDiffusion's denoiser
               on the 3-channel initx; PerceptualGaussianDiffusion on random
               LPIPS weights written to a temp file): 2
-              Trainer.optimize_parameters at batch 4, crop 128, with
+              Trainer.optimize_parameters at batch 2, crop 128, with
               injected draws and dropout off, then the card's weights
               restore one 256 x 256 input with 2 DDPM steps (NoDiffusion:
               its refine pass) through Trainer.test, card against host
@@ -196,10 +209,19 @@ on any failure:
               form. Last, GaussianDiffusion with conditional: false on SR3's
               blocks generates one 128 x 128 image with 10 steps through
               Trainer.sample, card against host.
+ 15. eval1    the offline evaluator (`python -m ucdir_tpu_torch.eval1 -s
+              <dir>`, LPIPS and Inception on the card) over 4 generated
+              result pairs of 1024 x 1024 (16 patches of 256 each) with
+              random LPIPS and Inception weights: every metric line
+              finite, seconds per image; the Inception features of the 64
+              ground-truth patches card against host within 1e-4 of the
+              largest.
+Each phase's end is printed with the seconds since the build began.
 Then one JSON line of kernel results (each kernel's launches from the path
 that owns it: K1..K4 the main phase, K5 and K6 the train phase, K7 the
 fewstep phase, K8 and K9 their variants run, the bf16 forms the bf16 frame,
-K7's the bf16 `dropout: 0` slice and K5's and K6's the bf16 train steps;
+K7's the bf16 `dropout: 0` slice, K5's and K6's the bf16 train steps and
+K8's and K9's their tail's bf16 variants run;
 every path's counts beside them (phase 13's: `dist_valbatch` the batch of
 4, `dist_sid` the SID batch of 2, `dist_ddp` rank 0's steps, each also
 `_bf16`), and `tc_launches`, of a kernel's launches
@@ -282,7 +304,7 @@ KERNELS = {
 }
 # the bf16 forms: the same sources, the TPU kernels' bf16 instantiation
 BF16 = ('akgm_tail', 'conv3x3', 'conv1x1', 'gn1_stats', 'conv3x3_preact',
-        'akgm_tail_bwd', 'conv3x3_bwd')
+        'akgm_tail_bwd', 'conv3x3_bwd', 'akgm_mix', 'akgm_packed')
 KERNELS.update({k + '_bf16': KERNELS[k] for k in BF16})
 # the path whose run gives a kernel's `launches`
 OWNER = {'akgm_tail': 'main', 'conv3x3': 'main', 'conv1x1': 'main',
@@ -292,7 +314,9 @@ OWNER = {'akgm_tail': 'main', 'conv3x3': 'main', 'conv1x1': 'main',
          'akgm_tail_bf16': 'bf16', 'conv3x3_bf16': 'bf16',
          'conv1x1_bf16': 'bf16', 'gn1_stats_bf16': 'bf16',
          'conv3x3_preact_bf16': 'bf16_head',
-         'akgm_tail_bwd_bf16': 'train_bf16', 'conv3x3_bwd_bf16': 'train_bf16'}
+         'akgm_tail_bwd_bf16': 'train_bf16', 'conv3x3_bwd_bf16': 'train_bf16',
+         'akgm_mix_bf16': 'variants_mix_bf16',
+         'akgm_packed_bf16': 'variants_packed_bf16'}
 
 
 # per path, the launches of each entry point that went through the
@@ -429,6 +453,30 @@ def kernel_cases(gen, dev):
             bytes=nbytes(h, att, w, b, res, h, *kw.values())
             + (8 * C if fold else 0)))
         return h, att, w, b, res, kw, flop
+
+    def tail_cases_bf16(C, H, W, gen):
+        """K8 and K9 in bf16 (K9 with fold and attw) against their bf16
+        plain versions, each output within one bf16 ulp and 99% of the
+        plain version's bits; no library call computes either."""
+        bf = torch.bfloat16
+        h, att, w, b, kw, flop = akgm_operands(1, H, W, C, gen=gen, dtype=bf)
+        res = rnd(1, H, W, C, scale=0.5, gen=gen, dtype=bf)
+        cases.append(dict(
+            **kind('akgm_mix', bf), label='C=%d %dx%d' % (C, H, W),
+            kernel=lambda: akgm.akgm_mix(h, att, w, b, G),
+            plain=lambda: akgm.akgm_mix_reference(h, att, w, b, G),
+            library=None, stats=0, flop=flop, bits=0.99,
+            bytes=nbytes(h, att, w, b, h)))
+        wp = akgm.pack_grouped_weight(w, G).contiguous()
+        cases.append(dict(
+            **kind('akgm_packed', bf),
+            label='C=%d %dx%d fold+attw' % (C, H, W),
+            kernel=lambda: akgm.akgm_block_tail_packed(h, att, wp, b, res, G,
+                                                       **kw),
+            plain=lambda: akgm.akgm_block_tail_packed_plain(
+                h, att, wp, b, res, G, **kw),
+            library=None, stats=0, flop=H * W * C * (2 * 9 * C + 2 * G),
+            bits=0.99, bytes=nbytes(h, att, wp, b, res, h, *kw.values())))
 
     levels = ((64, 1), (128, 2), (256, 4), (512, 8))
     for C, s in levels:
@@ -666,6 +714,13 @@ def kernel_cases(gen, dev):
     g_k1 = torch.Generator(dev).manual_seed(gen.initial_seed() + 12)
     for C in (8, 16, 24, 32, 192):
         k1_case(C, h8, w8, gen=g_k1, dtype=bf)
+    # K8 and K9 in bf16 at the fp32 rows' shapes (the frame's levels) and
+    # at the narrow widths on the frame's /8 level, from a generator of
+    # their own
+    g_tails = torch.Generator(dev).manual_seed(gen.initial_seed() + 18)
+    for C, H, W in ([(C, H0 // s, W0 // s) for C, s in levels]
+                    + [(C, h8, w8) for C in (8, 16, 32)]):
+        tail_cases_bf16(C, H, W, gen=g_tails)
     for label, H, W, cin, cout, opts in val_convs:
         conv_case(label, 1, H, W, cin, cout, gen=g16, dtype=bf, **opts)
     conv1x1_case(H0, W0, 192, 64, gen=g16, dtype=bf)
@@ -1393,9 +1448,8 @@ def phase_train(dev, seed):
 
 def tensor_cores_only(path, launches):
     """Fails unless every launch on `path` of an entry point of the
-    tensor-core core (`_build.TC_ENTRIES`: K1, K2, K3, K5, K6 and K7 in
-    bf16)
-    went through it, and no other entry point's did."""
+    tensor-core core (`_build.TC_ENTRIES`: K1, K2, K3, K5, K6, K7, K8 and
+    K9 in bf16) went through it, and no other entry point's did."""
     from ucdir_tpu_torch.ops import _build
     wrong = {k: (TC[path][k], n) for k, n in launches.items()
              if TC[path][k] != (n if k in _build.TC_ENTRIES else 0)}
@@ -1512,6 +1566,98 @@ def phase_variants(dev, seed, counts):
     say('variants', "'mix' vs 'fused' on the card: max abs err %.3e (tol "
         "1e-5, the same function); 'packed' vs 'fused': %.3e (another "
         'network)' % (err, far))
+    # each tail in bf16, card against host (bf16_slice's gate), the tail's
+    # bf16 form BLOCKS times a step and no float32 kernel
+    forms = {tail: 'akgm_%s_bf16' % k for tail, k in
+             (('fused', 'tail'), ('mix', 'mix'), ('packed', 'packed'))}
+    for tail, form in forms.items():
+        host = build_model(seed, dropout=0.0, tail=tail)
+        host.load_state_dict(weights, strict=True)
+        card = copy.deepcopy(host).to(dev)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t = time.perf_counter()
+        got = eval_step(card, make_schedule(sched_opt, dev),
+                        torch.from_numpy(x).to(dev), noise=injected(draws, dev),
+                        compute_dtype=torch.bfloat16)[0]
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t
+        path = 'variants_%s_bf16' % tail
+        n = counts[path] = dict(_build.LAUNCHES)
+        TC[path] = _build.tc_launches()
+        t = time.perf_counter()
+        want = eval_step(host, make_schedule(sched_opt, 'cpu'),
+                         torch.from_numpy(x), noise=injected(draws, 'cpu'),
+                         compute_dtype=torch.bfloat16)[0]
+        t_host = time.perf_counter() - t
+        got = got.cpu()
+        if (got.shape != want.shape or got.dtype != torch.float32
+                or not torch.isfinite(got).all()):
+            fail("variants: tail '%s' in bf16 gives shape %s, dtype %s or "
+                 'non-finite values' % (tail, tuple(got.shape), got.dtype))
+        d = (got - want).abs()
+        mean = d.mean().item()
+        if not mean <= 1e-3:
+            fail("variants: tail '%s' in bf16 card vs host mean abs %.3e > "
+                 '1e-3' % (tail, mean))
+        expect = {'conv3x3_preact_bf16': steps, form: BLOCKS * steps}
+        expect.update({f: 0 for f in forms.values() if f != form})
+        wrong = {k: n[k] for k, v in expect.items() if n[k] != v}
+        fp32 = [k for k, v in n.items() if v and not k.endswith('_bf16')]
+        if wrong or fp32:
+            fail("variants: tail '%s' in bf16 launched %s, expected %s; "
+                 'float32 kernels launched: %s' % (tail, wrong, expect, fp32))
+        tensor_cores_only(path, n)
+        say('variants', "tail '%s' in bf16, dropout 0, full width, %dx%d, %d "
+            'DDPM steps: card vs host mean abs %.3e (tol 1e-3), max abs '
+            '%.3e; card %.2f s, host %.2f s; %s %d launches (%d a step), '
+            'no float32 kernel' % (tail, size, size, steps, mean,
+                                   d.max().item(), t_card, t_host, form,
+                                   n[form], n[form] // steps))
+
+
+def phase_tails_train_bf16(dev, seed, counts):
+    """`train_bf16`'s steps under the 'mix' and 'packed' tails, two each
+    (the first a warm-up): the forward through K8's or K9's bf16 form, BLOCKS
+    launches a step, the backward through the autograd of their plain
+    versions (the JAX package gives neither form a backward kernel); no
+    float32 kernel, every tensor-core entry's launch through the tensor
+    cores, masters and gradients float32."""
+    import torch
+    from ucdir_tpu_torch.configs import SID_MODEL
+    from ucdir_tpu_torch.trainer import Trainer
+
+    hr, lq = train_batch(seed)
+    for tail in ('mix', 'packed'):
+        model = copy.deepcopy(SID_MODEL)
+        model['unet']['tail'] = tail
+        path, form = 'train_bf16_' + tail, 'akgm_%s_bf16' % tail
+        with tempfile.TemporaryDirectory() as tmp:
+            trainer = Trainer(train_opt(tmp, 'bf16', model), device=dev,
+                              seed=seed)
+            batch, secs, losses, again, peak, per_step, launches = \
+                train_steps(dev, trainer, hr, lq, 2, path)
+            counts[path] = per_step
+            fp32 = [k for k, v in launches.items()
+                    if v and not k.endswith('_bf16')]
+            if per_step[form] != BLOCKS or fp32:
+                fail('%s: %s launched %d times a step (expected %d), float32 '
+                     'kernels launched %s' % (path, form, per_step[form],
+                                              BLOCKS, fp32))
+            tensor_cores_only(path, launches)
+            params = list(trainer.model.parameters())
+            if any(t.dtype != torch.float32 for t in params + [
+                    p.grad for p in params if p.grad is not None]):
+                fail('%s: a master weight or gradient is not float32' % path)
+            say(path, "Trainer.optimize_parameters in bf16 under tail '%s', "
+                'full width, crop %d (network %dx%d), batch %d, dropout '
+                '0.1: %.3f s for the step after a warm-up, losses %s, the '
+                'first step\'s draws again after %.6f, peak %.3f GiB; %s %d '
+                'launches a step, the backward the autograd of the plain '
+                'version; launches a step %s'
+                % (tail, TRAIN_CROP, TRAIN_NET, TRAIN_NET, batch, secs,
+                   json.dumps([round(v, 6) for v in losses]), again, peak,
+                   form, per_step[form], json.dumps(per_step)))
 
 
 def phase_fewstep(dev, seed, counts):
@@ -2359,7 +2505,7 @@ def phase_dist(dev, seed, counts):
 
 
 # ---------------------------------------------------------------- phase 14
-FAMILY_BATCH, FAMILY_CROP = 4, 128    # the variants' train steps
+FAMILY_BATCH, FAMILY_CROP = 2, 128    # the variants' train steps
 FAMILY_SIZE = 256                     # their restoration's input
 NG = 32                               # SR3's GroupNorm(32)
 UNCOND_SIZE = 128                     # the unconditional images
@@ -2732,6 +2878,116 @@ def phase_families(dev, seed, counts):
              % missing)
 
 
+# ---------------------------------------------------------------- phase 15
+EVAL_PAIRS = 4                    # the evaluator's result pairs
+EVAL_SIZE = 1024                  # their size: 16 patches of 256 each
+
+
+def inception_weights(path, seed):
+    """Random weights in the layout of a pytorch-fid InceptionV3 state dict
+    (convolutions at He's scale, so that the features keep their size
+    through the layers; random BatchNorm statistics), saved to `path`:
+    what the evaluator loads from UCDIR_TPU_INCEPTION_NPZ."""
+    import torch
+    from ucdir_tpu_torch.metrics.inception import InceptionV3Features
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, v in InceptionV3Features().state_dict().items():
+        if not k.endswith('.conv.weight'):
+            continue
+        pref, cout = k[:-len('.conv.weight')], v.shape[0]
+        sd[k] = torch.randn(v.shape, generator=g) * (2. / v[0].numel()) ** .5
+        sd[pref + '.bn.weight'] = 1 + 0.1 * torch.randn(cout, generator=g)
+        sd[pref + '.bn.bias'] = 0.1 * torch.randn(cout, generator=g)
+        sd[pref + '.bn.running_mean'] = torch.rand(cout, generator=g) - 0.5
+        sd[pref + '.bn.running_var'] = torch.rand(cout, generator=g) + 0.5
+    torch.save(sd, path)
+    return path
+
+
+def phase_eval1(dev, seed):
+    """The offline evaluator (`python -m ucdir_tpu_torch.eval1 -s <dir>`,
+    LPIPS and Inception on the card) over EVAL_PAIRS generated result pairs
+    of EVAL_SIZE x EVAL_SIZE with random LPIPS and Inception weights: every
+    metric line printed and finite, 16 patches an image, seconds per image;
+    then the Inception features of the ground-truth patches, card against
+    host, within 1e-4 of the largest."""
+    import contextlib
+    import io
+    import cv2
+    import numpy as np
+    import torch
+    from ucdir_tpu_torch import eval1
+    from ucdir_tpu_torch.metrics.fid import inception_features
+
+    rng = np.random.default_rng(seed + 16)
+    S = EVAL_SIZE
+    yy, xx = np.mgrid[0:S, 0:S] / (S - 1.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, 'results')
+        os.makedirs(src)
+        for i in range(EVAL_PAIRS):
+            hr = np.stack([127.5 + 90 * np.sin((5 + i) * xx + c)
+                           * np.cos((4 + i) * yy - c) for c in range(3)], -1)
+            hr = np.clip(hr + rng.normal(0, 8, hr.shape), 0, 255)
+            sr = np.clip(hr + rng.normal(0, 12, hr.shape), 0, 255)
+            cv2.imwrite(os.path.join(src, '%d_hr.png' % i),
+                        hr.astype(np.uint8))
+            cv2.imwrite(os.path.join(src, '%d_sr.png' % i),
+                        sr.astype(np.uint8))
+        inc = inception_weights(os.path.join(tmp, 'inception.pth'), seed)
+        env = {'UCDIR_TPU_LPIPS_WEIGHTS': lpips_weights(
+                   os.path.join(tmp, 'lpips.pth'), seed),
+               'UCDIR_TPU_INCEPTION_NPZ': inc}
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        out = io.StringIO()
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                eval1.main(['-s', src, '--device', str(dev)])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        text = out.getvalue()
+        lines = {w[0]: float(w[1]) for w in map(str.split, text.splitlines())
+                 if len(w) == 2 and w[0] in ('LPIPS', 'PSNR', 'SSIM', 'niqe',
+                                             'FID:', 'KID')}
+        if 'skipped' in text or len(lines) != 6 or not all(
+                math.isfinite(v) for v in lines.values()):
+            fail('eval1: metric lines %s from output %r' % (lines,
+                                                           text[-2000:]))
+        gt_pt = src + '_gt_pt'
+        files = sorted(os.listdir(gt_pt))
+        if len(files) != EVAL_PAIRS * (S // 256) ** 2:
+            fail('eval1: %d ground-truth patches, expected %d'
+                 % (len(files), EVAL_PAIRS * (S // 256) ** 2))
+        patches = np.stack([cv2.imread(os.path.join(gt_pt, f))
+                            for f in files])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        card = inception_features(patches, inc, device=dev)
+        t_card = time.perf_counter() - t
+        host = inception_features(patches, inc, device='cpu')
+        err, big = np.abs(card - host).max(), np.abs(host).max()
+        if not err <= 1e-4 * big:
+            fail('eval1: Inception features card vs host max abs err %.3e > '
+                 '1e-4 of the largest %.3e' % (err, big))
+        say('eval1', 'python -m ucdir_tpu_torch.eval1 -s <dir> on the card, '
+            '%d pairs of %dx%d (%d patches of 256 a side), random LPIPS and '
+            'Inception weights: %.3f s, %.3f s per image; %s; Inception '
+            'features of the %d patches card vs host max abs err %.3e (tol '
+            '1e-4 of the largest, %.3e), card %.3f s'
+            % (EVAL_PAIRS, S, S, len(files), secs, secs / EVAL_PAIRS,
+               json.dumps(lines), len(files), err, big, t_card))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -2763,26 +3019,43 @@ def main(argv=None):
            card, smi))
 
     results = {}
+    t0 = time.perf_counter()
+
+    def done(phase):
+        say('time', '%s done at %.1f s' % (phase, time.perf_counter() - t0))
+
     phase_build()
+    done('build')
     phase_kernels(dev, args.seed, results)
+    done('kernels')
     phase_slice(dev, args.seed)
     counts = {'main': phase_main(dev, args.seed)}
     sr32, counts['sid'] = phase_sid(dev, args.seed)
     phase_bf16(dev, args.seed, counts, sr32)
     del sr32
+    done('slice, main, sid, bf16')
     counts['train_slice'] = phase_train_slice(dev, args.seed)
     counts['train_slice_24'] = phase_train_slice(dev, args.seed,
                                                  inner_channel=24)
     counts['train_slice_bf16'] = phase_train_slice(dev, args.seed, 'bf16')
     counts['train'] = phase_train(dev, args.seed)
     counts['train_bf16'] = phase_train_bf16(dev, args.seed)
+    phase_tails_train_bf16(dev, args.seed, counts)
+    done('train_slice, train, train_bf16')
     phase_variants(dev, args.seed, counts)
+    done('variants')
     phase_fewstep(dev, args.seed, counts)
     phase_hires(dev, args.seed, counts)
+    done('fewstep, hires')
     phase_tasks(dev, args.seed, counts)
     phase_realsr(dev, args.seed, counts)
+    done('tasks, realsr')
     phase_dist(dev, args.seed, counts)
+    done('dist')
     phase_families(dev, args.seed, counts)
+    done('families')
+    phase_eval1(dev, args.seed)
+    done('eval1')
     unlaunched = [k for k in KERNELS if counts[OWNER[k]][k] == 0]
     if unlaunched:
         fail('kernels never launched on the path that owns them: %s'

@@ -334,21 +334,22 @@ def test_bf16_tiled_path_runs_in_bf16(rng):
     assert (outs[0] - outs[1]).abs().mean().item() < 0.05
 
 
-def test_bf16_tails_without_a_bf16_kernel_raise():
-    """K8 and K9 take float32 only: a bf16 model with tail 'mix' or
-    'packed' raises, it is never run in float32 instead."""
-    for tail in ('mix', 'packed'):
-        torch.manual_seed(0)
-        model = define_G({'model': tiny_model_opt()})
-        for _, layer, _ in model.denoise_fn.guide_block_scales():
-            layer.res_block.tail = tail
-        with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-            super_resolution(model.eval(),
-                             make_schedule(dict(SID_VAL_SCHEDULE,
-                                                n_timestep=1)),
-                             torch.zeros(1, 32, 32, 3),
-                             generator=torch.Generator(),
-                             compute_dtype=BF)
+@pytest.mark.parametrize('tail', ['mix', 'packed'])
+def test_bf16_tails_run_in_bf16(tail, monkeypatch):
+    """K8 and K9 have bf16 forms: a bf16 model with tail 'mix' or 'packed'
+    runs its tail's kernel wrapper on bf16 operands (never float32) and
+    returns float32 results."""
+    torch.manual_seed(0)
+    model = define_G({'model': tiny_model_opt(tail=tail)})
+    seen = dispatched(monkeypatch)
+    sr, initx = super_resolution(
+        model.eval(), make_schedule(dict(SID_VAL_SCHEDULE, n_timestep=1)),
+        torch.zeros(1, 32, 32, 3), generator=torch.Generator(),
+        compute_dtype=BF)
+    assert 'forward' in seen and all(v == {BF} for v in seen.values()), seen
+    assert '_akgm_block_tail_forward' not in seen
+    assert sr.dtype == initx.dtype == torch.float32
+    assert torch.isfinite(sr).all()
 
 
 def _tiny_yaml(tmp_path, **train):
@@ -391,17 +392,14 @@ def test_cli_bf16_refusals(tmp_path):
     """bf16 training runs (`-p train --compute_dtype bf16`, 2 iterations on
     the CPU: a finite l_pix and the in-train validation at iteration 2;
     tests/test_torch_port_bf16_train.py holds its checkpoints to float32),
-    and the 'mix' tail (UCDIR_TPU_NO_FUSED_TAIL=1), whose kernel K8 has no
-    bf16 form, raises, naming ROADMAP.md."""
+    and so does the 'mix' tail (UCDIR_TPU_NO_FUSED_TAIL=1), whose kernel K8
+    has its bf16 form."""
     _tiny_yaml(tmp_path, n_iter=2)
-    proc = _cli(tmp_path, '-p', 'train')
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    losses = [float(line.split('l_pix: ')[1].split()[0])
-              for line in proc.stderr.splitlines() if 'l_pix: ' in line]
-    assert len(losses) == 1 and np.isfinite(losses).all(), losses
-    assert '# Validation # PSNR: ' in proc.stderr
-    assert 'End of training.' in proc.stderr
-    proc = _cli(tmp_path, '-p', 'val', UCDIR_TPU_NO_FUSED_TAIL='1')
-    assert proc.returncode != 0
-    assert 'NotImplementedError' in proc.stderr
-    assert 'ROADMAP.md' in proc.stderr
+    for env in ({}, {'UCDIR_TPU_NO_FUSED_TAIL': '1'}):
+        proc = _cli(tmp_path, '-p', 'train', **env)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        losses = [float(line.split('l_pix: ')[1].split()[0])
+                  for line in proc.stderr.splitlines() if 'l_pix: ' in line]
+        assert len(losses) == 1 and np.isfinite(losses).all(), losses
+        assert '# Validation # PSNR: ' in proc.stderr
+        assert 'End of training.' in proc.stderr

@@ -29,8 +29,10 @@ without atomics: they are held to the same bits in a second call.
 K2 and K3 run on tiles of 128 pixels by 128 or 8 columns, or 256 by 64, in k
 slices of 16: their cases include cout 3, 8, 9 and 130, cin 4, 6 and 70, P
 one short of and one past a pixel tile, stride 2 on odd sizes and B = 3.
-The bf16 forms of K1, K2, K3, K4 and K7 (`_bf16` tests) take the same cases
-in bfloat16 against the bf16 plain versions. K1 in bf16 runs on the tensor
+The bf16 forms of K1, K2, K3, K4, K7, K8 and K9 (`_bf16` tests) take the
+same cases in bfloat16 against the bf16 plain versions; K8 and K9 in bf16
+run on the tensor cores (K8 on K1's grouped product, K9 on K2's dense one)
+at C = 8, 16, 24, 32, 64, 128, 192 and 512 and a ragged 195 x 283. K1 in bf16 runs on the tensor
 cores on K5's grouped product (groups below 8 channels merged: C = 8, 16,
 24, 32; the 64- and 128-column tiles; ragged 195 x 283), its statistics and
 K4's bf16 sums added in a fixed order (the same bits in a second call; K4
@@ -647,8 +649,8 @@ def launched(name, fn):
     out = fn()
     assert _build.LAUNCHES[name + '_bf16'] == n[name + '_bf16'] + 1
     assert _build.LAUNCHES[name] == n[name]
-    # K2, K3, K5, K6 and K7 in bf16 go through the tensor cores, nothing
-    # else does
+    # K1, K2, K3, K5, K6, K7, K8 and K9 in bf16 go through the tensor
+    # cores, nothing else does
     assert (_build.tc_launches()[name + '_bf16']
             == tc[name + '_bf16'] + (name + '_bf16' in _build.TC_ENTRIES))
     return out
@@ -963,15 +965,36 @@ def test_conv3x3_backward_bf16(dev, B, H, W, cin, cout, fold_act):
         assert torch.equal(got[i], again[i]), i
 
 
-def test_kernels_without_a_bf16_form_refuse_bf16(dev):
-    """K8 and K9 take float32: a bf16 operand raises, it is never cast."""
-    gen, G, C = torch.Generator(dev).manual_seed(16), 8, 16
-    h, att, w, b = bf16(*akgm_operands(gen, 1, 5, 6, C))
-    with pytest.raises(TypeError, match='float32'):
-        akgm.akgm_mix(h, att, w, b, G)
-    with pytest.raises(TypeError, match='float32'):
-        akgm.akgm_block_tail_packed(h, att, akgm.pack_grouped_weight(w, G),
-                                    b, h, G)
+# K8 and K9 in bf16 on the tensor cores: the narrow widths (K8's groups
+# merged as K1's), the frame's widths and a ragged /8 level of the frame
+TAILS_BF16_SHAPES = NARROW + [(2, 13, 21, 64), (1, 9, 130, 128),
+                              (1, 5, 7, 512), (1, 195, 283, 64)]
+
+
+@pytest.mark.parametrize('B,H,W,C', TAILS_BF16_SHAPES)
+def test_akgm_mix_bf16(dev, B, H, W, C):
+    """K8 in bf16 against its bf16 plain version, through the tensor
+    cores."""
+    gen, G = torch.Generator(dev).manual_seed(16), 8
+    h, att, w, b = bf16(*akgm_operands(gen, B, H, W, C))
+    got = launched('akgm_mix', lambda: akgm.akgm_mix(h, att, w, b, G))
+    check_bf16(got, akgm.akgm_mix_reference(h, att, w, b, G), 0)
+
+
+@pytest.mark.parametrize('B,H,W,C', TAILS_BF16_SHAPES)
+@pytest.mark.parametrize('fold', [False, True])
+def test_akgm_packed_bf16(dev, B, H, W, C, fold):
+    """K9 in bf16 (attw, with and without the fold) against its bf16 plain
+    version, through the tensor cores."""
+    gen, G = torch.Generator(dev).manual_seed(17), 8
+    h, att, w, b, res, kw = tail_operands(gen, B, H, W, C, fold)
+    h, att, w, b, res = bf16(h, att, w, b, res)
+    kw = {k: v.to(BF) for k, v in kw.items()}
+    wp = akgm.pack_grouped_weight(w, G).contiguous()
+    got = launched('akgm_packed', lambda: akgm.akgm_block_tail_packed(
+        h, att, wp, b, res, G, **kw))
+    check_bf16(got, akgm.akgm_block_tail_packed_plain(h, att, wp, b, res, G,
+                                                      **kw), 0)
 
 
 # ---- the forms that an AKGM block at norm_groups > 1 runs (its GroupNorms

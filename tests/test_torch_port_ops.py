@@ -176,16 +176,16 @@ def test_wrappers_refuse_other_devices():
 
 def test_check_refuses_host_and_half_tensors():
     # the kernels' argument check: CUDA, the entry's dtype, shape,
-    # contiguity; float16 has no entry point, bfloat16 only K1..K7's
+    # contiguity; float16 has no entry point, bfloat16 every kernel's
     with pytest.raises(ValueError, match='CUDA'):
         _build.check('x', torch.zeros(2, 3))
     with pytest.raises(TypeError, match='float32'):
         _build.entry('conv3x3', torch.zeros(2, 3, dtype=torch.float16))
-    for kernel in ('akgm_mix', 'akgm_packed'):
-        with pytest.raises(TypeError, match='ROADMAP'):
-            _build.entry(kernel, torch.zeros(2, 3, dtype=torch.bfloat16))
+    with pytest.raises(TypeError, match='ROADMAP'):
+        _build.entry('akgm_mix', torch.zeros(2, 3, dtype=torch.float16))
     assert _build.entry('conv3x3', torch.zeros(1)) == 'conv3x3'
-    for kernel in ('akgm_tail', 'akgm_tail_bwd', 'conv3x3_bwd'):
+    for kernel in ('akgm_tail', 'akgm_tail_bwd', 'conv3x3_bwd', 'akgm_mix',
+                   'akgm_packed'):
         assert _build.entry(kernel, torch.zeros(1, dtype=torch.bfloat16)
                             ) == kernel + '_bf16'
     kernels = {'akgm_tail', 'conv3x3', 'conv1x1', 'gn1_stats',
@@ -193,4 +193,4 @@ def test_check_refuses_host_and_half_tensors():
                'akgm_packed'}
     assert _build.LAUNCHES.keys() == kernels | {
         k + '_bf16' for k in _build.BF16_KERNELS}
-    assert set(_build.BF16_KERNELS) == kernels - {'akgm_mix', 'akgm_packed'}
+    assert set(_build.BF16_KERNELS) == kernels

@@ -341,10 +341,11 @@ def test_factory_reads_the_tail_switches(monkeypatch, env, want):
 
 
 def test_every_kernel_has_a_launch_count():
-    # every entry point, the bf16 forms of K1..K7 among them
+    # every entry point, the bf16 forms of K1..K9 among them
     kernels = {'akgm_tail', 'conv3x3', 'conv1x1', 'gn1_stats',
                'akgm_tail_bwd', 'conv3x3_bwd', 'conv3x3_preact', 'akgm_mix',
                'akgm_packed'}
     assert set(_build.LAUNCHES) == set(_build._SIGNATURES) == kernels | {
         'akgm_tail_bf16', 'conv3x3_bf16', 'conv1x1_bf16', 'gn1_stats_bf16',
-        'conv3x3_preact_bf16', 'akgm_tail_bwd_bf16', 'conv3x3_bwd_bf16'}
+        'conv3x3_preact_bf16', 'akgm_tail_bwd_bf16', 'conv3x3_bwd_bf16',
+        'akgm_mix_bf16', 'akgm_packed_bf16'}

@@ -35,7 +35,28 @@
 // Bound: fp32 FMA issue: 2 * 9 * C * C FLOP per pixel against 4 * (3 * C +
 // 8) bytes, the same count as K1's per-group product (the TPU kernel saved
 // 8x only against its own densified weights).
-#include "igemm_pc.cuh"
+//
+// K9 in bf16 (ucdir_akgm_packed_bf16) replaces B1p's bf16 instantiation and
+// runs on the tensor cores of igemm_tc.cuh: K2's bf16 3x3 product (one
+// group, 9C -> C, the weights by TMA from C = 16, tiles of 8 x 16 output
+// pixels by 128 or 64 columns, 8 below), with
+// - the staging tc::AttMul: the producers stage each 64-channel chunk's halo
+//   as it is, the ring bf16(-t / a) outside the image under the fold (the
+//   wrapper's ops/akgm.py packed_ring; 0 without it), and multiply each
+//   tap's run of 8 channels, as they copy it out of the halo, by the output
+//   pixel's mult = att * attw * a of the channels' groups, rounded once, the
+//   product rounded (mul.rn.bf16x2): B1p's staged scratch row;
+// - the epilogue packed_epilogue on the accumulator fragments: + the
+//   attention's bias term sum_j bf16(att * attw)[j] * bm[n][j] in float32,
+//   bm the wrapper's (B, C, 8) bias matrix under the fold's shift
+//   (ops/akgm.py packed_bias, B1p's bm), swish, + the residual, rounded
+//   once, stored a pair of columns a lane.
+// Bound: bf16 FLOP at 989 TFLOP/s on the tensor cores (2 * 9 * C * C + 16 C
+// a pixel), or at C = 64 the bytes at 3.35 TB/s (h, att, res, out: 6 C + 16
+// bytes a pixel). What it does about that bound: the product on the tensor
+// cores, every input value loaded once a tile and chunk (the halo), the
+// scale applied in the copy that K2 makes anyway.
+#include "igemm_tc.cuh"
 
 namespace {
 
@@ -215,6 +236,151 @@ int launch_tile(PackedArgs c, int B, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+namespace tc = ucdir::tc;
+using ucdir::bf16;
+
+// K9 bf16's epilogue operands: att, attw as the staging reads them; bm the
+// (B, C, 8) bias matrix, a column's 8 values one 16-byte run; res (B, H, W,
+// C).
+struct PackedTcArgs {
+  const bf16* att;
+  const bf16* attw;
+  const bf16* bm;
+  const bf16* res;
+};
+
+// The epilogue on the fragments: thread (warp w, lane l) holds rows 16 w +
+// l / 4 and + 8 of the tile and columns 8 j + 2 (l % 4) and + 1. C % 8 ==
+// 0: a pair of columns is in or out.
+template <class T>
+__device__ __forceinline__ void packed_epilogue(const float (&acc)[T::BN / 2],
+                                                const tc::TcArgs& p,
+                                                const PackedTcArgs& e,
+                                                const tc::TilePos& q) {
+  using EB = ucdir::Elem<bf16>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int H = p.g.Ho, W = p.g.Wo, C = p.cout;
+  float aw[G];
+#pragma unroll
+  for (int j = 0; j < G; ++j)
+    aw[j] = e.attw != nullptr ? EB::ldg(e.attw + q.b * G + j) : 1.f;
+  int64_t pix[2];
+  bool in[2];
+  float A[2][G];  // att * attw rounded, as the bias term takes it
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = 16 * warp + (lane >> 2) + 8 * r;
+    const int y = q.oy0 + row / p.tw, x = q.ox0 + row % p.tw;
+    in[r] = y < H && x < W;
+    pix[r] = ((int64_t)q.b * H + y) * W + x;
+    const uint4 u = tc::load16(in[r] ? e.att + pix[r] * G : e.att);
+    const uint32_t uw[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int j = 0; j < G; ++j)
+      A[r][j] = EB::rnd(((j & 1) ? EB::hi(uw[j / 2]) : EB::lo(uw[j / 2])) *
+                        aw[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < T::BN / 8; ++j) {
+    const int n = q.n0 + 8 * j + 2 * (lane & 3);
+    if (n >= C) continue;
+    const uint4 u0 = tc::load16(e.bm + ((int64_t)q.b * C + n) * G);
+    const uint4 u1 = tc::load16(e.bm + ((int64_t)q.b * C + n + 1) * G);
+    const uint32_t w0[4] = {u0.x, u0.y, u0.z, u0.w};
+    const uint32_t w1[4] = {u1.x, u1.y, u1.z, u1.w};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (!in[r]) continue;
+      float t0 = 0.f, t1 = 0.f;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        t0 = fmaf(A[r][g], (g & 1) ? EB::hi(w0[g / 2]) : EB::lo(w0[g / 2]),
+                  t0);
+        t1 = fmaf(A[r][g], (g & 1) ? EB::hi(w1[g / 2]) : EB::lo(w1[g / 2]),
+                  t1);
+      }
+      const uint32_t rw = __ldg(reinterpret_cast<const unsigned int*>(
+          e.res + pix[r] * C + n));
+      const float v0 = ucdir::swishf(acc[4 * j + 2 * r] + t0) + EB::lo(rw);
+      const float v1 =
+          ucdir::swishf(acc[4 * j + 2 * r + 1] + t1) + EB::hi(rw);
+      *reinterpret_cast<float*>(p.out + pix[r] * C + n) = EB::pack2(v0, v1);
+    }
+  }
+}
+
+// A persistent block walks tiles blockIdx.x, + gridDim.x, ... of the
+// (B, ntp, ntn) grid, as conv_tc_kernel, with AttMul's producers and
+// packed_epilogue.
+template <class T, bool BT>
+__global__ void __launch_bounds__(T::NT, 1)
+    packed_tc_kernel(const tc::TcArgs p, const PackedTcArgs e,
+                     const __grid_constant__ CUtensorMap mb) {
+  extern __shared__ uint8_t smem_raw[];
+  const tc::Ring<T> ring(smem_raw);
+  if (threadIdx.x == 0) ring.init(T::PW + (BT ? 1 : 0));
+  __syncthreads();
+  if (threadIdx.x >= T::NC) {
+    if constexpr (T::PREG != 128) tc::setmaxnreg_inc<T::PREG>();
+    tc::produce<T, tc::AttMul, BT, false, false>(p, &mb, &mb, ring);
+    return;
+  }
+  if constexpr (T::CREG != 128) tc::setmaxnreg_dec<T::CREG>();
+  int s = 0;
+  for (int t = blockIdx.x; t < p.tiles; t += gridDim.x, s += p.nk) {
+    float acc[T::BN / 2];
+    tc::consume<T, BT>(acc, ring, s, p.nk);
+    packed_epilogue<T>(acc, p, e, tc::tile_pos<false>(p, t));
+  }
+}
+
+template <class T, bool BT>
+int launch_packed_tc(tc::TcArgs c, const PackedTcArgs& e, int B,
+                     cudaStream_t st) {
+  CUtensorMap ma, mb;
+  int blocks = 0;
+  int err = tc::tile_grid<T, BT, false>(c, B, &ma, &mb);
+  if (!err) err = tc::grid_blocks(c.tiles, &blocks);
+  if (!err) err = tc::set_smem<packed_tc_kernel<T, BT>>(T::SMEM);
+  if (err) return err;
+  packed_tc_kernel<T, BT><<<blocks, T::NT, T::SMEM, st>>>(c, e, mb);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  ++tc::launch_count(tc::TC_AKGM_PACKED);
+  return 0;
+}
+
+int packed_tc(const bf16* h, const bf16* att, const bf16* attw,
+              const bf16* w, const bf16* bm, const bf16* res, const bf16* a,
+              const bf16* ring, bf16* out, int B, int H, int W, int C,
+              cudaStream_t st) {
+  tc::TcArgs c = {};
+  c.x = h;
+  c.w = w;
+  c.a = a;
+  c.t = ring;
+  c.out = out;
+  c.g.H = c.g.Ho = H;
+  c.g.W = c.g.Wo = W;
+  c.g.C = C;
+  c.g.ks = 3;
+  c.g.stride = 1;
+  c.g.cin = C;
+  c.g.K = 9 * C;
+  c.cout = C;
+  c.patt = att;
+  c.pattw = attw;
+  const tc::Route r = tc::plan(c, B, false);
+  // AttMul runs on the halo's vector path: 16-byte runs of every operand
+  if (!c.halo || !pc::aligned(att, 16) || !pc::aligned(bm, 16) ||
+      !pc::aligned(res, 4) || !pc::aligned(out, 4))
+    return (int)cudaErrorMisalignedAddress;
+  const PackedTcArgs e = {att, attw, bm, res};
+  if (r.bn == 8) return launch_packed_tc<tc::Tile<8>, false>(c, e, B, st);
+  if (r.bn == 128) return launch_packed_tc<tc::Tile<128>, true>(c, e, B, st);
+  return launch_packed_tc<tc::Tile<64>, true>(c, e, B, st);
+}
+
 }  // namespace
 
 // h, res, out (B, H, W, C) NHWC; att (B, H, W, 8); attw (B, 8) or null;
@@ -256,4 +422,19 @@ extern "C" int ucdir_akgm_packed(const float* h, const float* att,
   if (C >= 32) return launch_tile<pc::Thin<32>>(c, B, st);
   if (C >= 16) return launch_tile<pc::Thin<16>>(c, B, st);
   return launch_tile<pc::Thin<8>>(c, B, st);
+}
+
+// K9 in bf16 on the tensor cores: every operand and out bf16; w (9 * C, C)
+// packed as above; bm (B, C, 8) the bias matrix (ops/akgm.py packed_bias,
+// transposed); a (B, C) the fold's scale and ring (B, C) its border value
+// bf16(-t / a), or both null. C must be a multiple of 8; h, a, ring, att and
+// bm 16-byte aligned (cudaErrorMisalignedAddress otherwise).
+extern "C" int ucdir_akgm_packed_bf16(const bf16* h, const bf16* att,
+                                      const bf16* attw, const bf16* w,
+                                      const bf16* bm, const bf16* res,
+                                      const bf16* a, const bf16* ring,
+                                      bf16* out, int B, int H, int W, int C,
+                                      void* stream) {
+  return packed_tc(h, att, attw, w, bm, res, a, ring, out, B, H, W, C,
+                   (cudaStream_t)stream);
 }

@@ -83,6 +83,15 @@
 // operand read once per tile, the product on the tensor cores, and at C =
 // 64 (K = 72, two flat slices a tile) the epilogue's shuffles shared by a
 // quad's 4 slabs.
+//
+// K8 in bf16 (ucdir_akgm_mix_bf16) replaces B10's bf16 instantiation and is
+// K1 bf16's product (the same merged groups and tiles, the input staged as
+// it is: pc::Raw) with MixOutEpi as its epilogue, which rounds where B10
+// rounds: nowhere but the output. Per slab and row each candidate z = acc +
+// b_j in float32, times att_j (a bf16 value) in float32, the 8 terms over
+// the quad by two shuffles, and lane k of the quad stores its run of the
+// tile's channels, each rounded once. No fold, attw, swish, residual or
+// statistics. Bound as K1 bf16's, its bytes without the residual.
 #include "igemm_tc.cuh"
 #include "tile_sums.cuh"
 
@@ -383,22 +392,19 @@ int tail(const float* h, const float* att, const float* attw, const float* w,
   return launch<true>(c, ssum, ssq, B, H, W, C, (cudaStream_t)stream);
 }
 
-// K1 in bf16 on the tensor cores (the header's bf16 paragraph): K5's z
-// recompute (akgm_tail_bwd.cu) with TailEpi as its epilogue, then the
-// statistics over the tiles.
-int tail_tc(const bf16* h, const bf16* att, const bf16* attw, const bf16* w,
-            const bf16* bias, const bf16* res, const bf16* a, const bf16* t,
-            bf16* out, float* ssum, float* ssq, float* ws, int B, int H,
-            int W, int C, cudaStream_t st) {
-  namespace tc = ucdir::tc;
+// K1's and K8's bf16 product on the tensor cores: K5's z recompute
+// (akgm_tail_bwd.cu) run forward over h (folded where a and t are given),
+// m groups merged into one of m * cg channels on the caller's
+// block-diagonal weights (ops/akgm.py k1_tc_merge, tc_merged_weights):
+// below 8 channels a group, and until a group fills a 128-column tile.
+ucdir::tc::TcArgs grouped_args(const bf16* h, const bf16* w, const bf16* bias,
+                               const bf16* a, const bf16* t, int H, int W,
+                               int C) {
   const int cg = C / G;
-  // m groups merged into one of m * cg channels on the caller's
-  // block-diagonal weights (ops/akgm.py k1_tc_merge, tc_merged_weights):
-  // below 8 channels a group, and until a group fills a 128-column tile
   int m = 1;
   while ((m * cg) % 8 && m < G) m *= 2;
   while (m * C < 128 && m < G) m *= 2;
-  tc::TcArgs p = {};
+  ucdir::tc::TcArgs p = {};
   p.x = h;
   p.w = w;
   p.bias = bias;
@@ -416,8 +422,19 @@ int tail_tc(const bf16* h, const bf16* att, const bf16* attw, const bf16* w,
   p.xgs = m * cg;
   p.wgc = m * C;  // a group's weights: its columns
   p.wrows = p.g.K;
+  return p;
+}
+
+// K1 in bf16 (the header's bf16 paragraph): the product with TailEpi as its
+// epilogue, then the statistics over the tiles.
+int tail_tc(const bf16* h, const bf16* att, const bf16* attw, const bf16* w,
+            const bf16* bias, const bf16* res, const bf16* a, const bf16* t,
+            bf16* out, float* ssum, float* ssq, float* ws, int B, int H,
+            int W, int C, cudaStream_t st) {
+  namespace tc = ucdir::tc;
   const tc::TailArgs e = {att, attw, res, out, ws};
-  int err = tc::launch_grouped<pc::Affine, tc::TailEpi>(p, e, B, false, st);
+  int err = tc::launch_grouped<pc::Affine, tc::TailEpi>(
+      grouped_args(h, w, bias, a, t, H, W, C), e, B, false, st);
   if (err) return err;
   if (ws != nullptr) {
     const int ntp = (H + 7) / 8 * ((W + 15) / 16);
@@ -427,6 +444,110 @@ int tail_tc(const bf16* h, const bf16* att, const bf16* attw, const bf16* w,
     if (err) return err;
   }
   ++tc::launch_count(tc::TC_AKGM_TAIL);
+  return 0;
+}
+
+// K8 bf16's epilogue (the header's K8 paragraph), TailEpi's walk of the
+// slabs without its roundings, swish, residual and statistics.
+struct MixOutArgs {
+  const bf16* att;  // (B, H, W, 8)
+  bf16* out;        // (B, H, W, C)
+};
+
+struct MixOutEpi {
+  using Args = MixOutArgs;
+  static constexpr bool kPromote = false;
+  static constexpr int MAXS = 16;  // slabs a tile: 128 columns at most
+  float at[2][2];  // att of the lane's 2 candidates, rows a and b
+  int64_t pix[2];
+  bool in[2];
+  uint32_t bb[MAXS];  // the bias of the lane's 2 columns a slab
+
+  // rows 16 warp + lane / 4 and + 8 of the tile
+  __device__ __forceinline__ void begin(const ucdir::tc::TcArgs& p,
+                                        const MixOutArgs& e,
+                                        const ucdir::tc::TilePos& gq,
+                                        uint8_t*) {
+    using EB = Elem<bf16>;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int j0 = 2 * (lane & 3);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = 16 * warp + (lane >> 2) + 8 * r;
+      const int y = gq.oy0 + row / p.tw, x = gq.ox0 + row % p.tw;
+      in[r] = y < p.g.Ho && x < p.g.Wo;
+      pix[r] = ((int64_t)gq.b * p.g.Ho + y) * p.g.Wo + x;
+      float v[2] = {0.f, 0.f};
+      if (in[r]) EB::ld2(v, e.att + pix[r] * G + j0);
+      at[r][0] = v[0];
+      at[r][1] = v[1];
+    }
+  }
+
+  // before the tile's product: its bias, so that no load waits in the
+  // epilogue
+  template <class T>
+  __device__ __forceinline__ void prefetch(const ucdir::tc::TcArgs& p,
+                                           const MixOutArgs&,
+                                           const ucdir::tc::TilePos& gq) {
+    constexpr int NS = T::BN / 8;
+    static_assert(NS <= MAXS, "128 columns at most");
+    const int lane = threadIdx.x & 31;
+    const int nv = (gq.nend - gq.n0) / 8;
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+      bb[j] = j < nv ? __ldg(reinterpret_cast<const unsigned int*>(
+                           p.bias + gq.n0 + 8 * j + 2 * (lane & 3)))
+                     : 0u;
+  }
+
+  template <class T>
+  __device__ __forceinline__ void tile(const float (&acc)[T::BN / 2],
+                                       const ucdir::tc::TcArgs& p,
+                                       const MixOutArgs& e,
+                                       const ucdir::tc::TilePos& gq,
+                                       uint8_t*) {
+    using EB = Elem<bf16>;
+    constexpr int NS = T::BN / 8, LS = (NS + 3) / 4;
+    const int lane = threadIdx.x & 31, k = lane & 3;
+    const int C = p.cout / 8, nv = (gq.nend - gq.n0) / 8;
+    float om[2][LS] = {};  // o of the lane's slabs LS k .. LS k + LS - 1
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      if (j >= nv) continue;  // the same for the whole block
+      const float b0 = EB::lo(bb[j]), b1 = EB::hi(bb[j]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float o = (acc[4 * j + 2 * r] + b0) * at[r][0] +
+                  (acc[4 * j + 2 * r + 1] + b1) * at[r][1];
+        o += pc::shfl_xor(o, 1);
+        o += pc::shfl_xor(o, 2);
+        if (j / LS == k) om[r][j % LS] = o;
+      }
+    }
+    const int mine = min(max(nv - LS * k, 0), LS);
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (in[r] && mine > 0)
+        ucdir::tc::store_run<LS>(e.out + pix[r] * C + gq.n0 / 8 + LS * k,
+                                 om[r], mine);
+  }
+
+  template <class T>
+  __device__ __forceinline__ void end(const ucdir::tc::TcArgs&,
+                                      const MixOutArgs&,
+                                      const ucdir::tc::TilePos&, uint8_t*) {}
+};
+
+// K8 in bf16: the product of h as it is, with MixOutEpi.
+int mix_tc(const bf16* h, const bf16* att, const bf16* w, const bf16* bias,
+           bf16* out, int B, int H, int W, int C, cudaStream_t st) {
+  namespace tc = ucdir::tc;
+  const MixOutArgs e = {att, out};
+  const int err = tc::launch_grouped<pc::Raw, MixOutEpi>(
+      grouped_args(h, w, bias, nullptr, nullptr, H, W, C), e, B, false, st);
+  if (err) return err;
+  ++tc::launch_count(tc::TC_AKGM_MIX);
   return 0;
 }
 
@@ -478,4 +599,12 @@ extern "C" int ucdir_akgm_mix(const float* h, const float* att, const float* w,
   c.bias = bias;
   c.out = out;
   return launch<false>(c, nullptr, nullptr, B, H, W, C, (cudaStream_t)stream);
+}
+
+// K8 in bf16 on the tensor cores: h, att, bias and out bf16, w (9 * m *
+// C/8, 8 * C) as K1 bf16's (natural column order, narrow groups merged).
+extern "C" int ucdir_akgm_mix_bf16(const bf16* h, const bf16* att,
+                                   const bf16* w, const bf16* bias, bf16* out,
+                                   int B, int H, int W, int C, void* stream) {
+  return mix_tc(h, att, w, bias, out, B, H, W, C, (cudaStream_t)stream);
 }

@@ -161,6 +161,9 @@ struct TcArgs {
   // the backward's products (gconv_tc_kernel) only:
   const bf16* go;    // DZ epilogue: (B, H, W, cout) output cotangent
   const float* att;  // Dz staging: (B, H, W, 8) att * attw
+  // K9's staging (AttMul, akgm_packed.cu) only:
+  const bf16* patt;   // (B, H, W, 8) att
+  const bf16* pattw;  // (B, 8) attw, or null
 };
 
 // ---- PTX primitives
@@ -489,6 +492,20 @@ __device__ __forceinline__ uint4 stage8(uint4 v, const uint4& a,
   }
 }
 
+// K9's staging (akgm_packed.cu, the bf16 packed tail): the halo holds x as
+// it is, and outside the image the fold's ring -t / a (p.t, 0 without the
+// fold); each slice's run of 8 channels of output pixel p is multiplied by
+// mult[p][c] = att[p][g(c)] * attw[g(c)] * a[c] rounded once (a 1 without
+// the fold), g(c) = c / (C / 8) the channel's input group, and the product
+// rounded (mul.rn.bf16x2): the scale depends on the OUTPUT pixel, so it is
+// applied where a tap's slice is copied out of the halo, from a mult that a
+// producer thread forms once a tile and chunk for its rows (att_mult). One
+// group, 3x3, stride 1, the vector path (plan's halo) only. kAtt marks it,
+// as it marks pc::AttScaled, K9's float32 staging.
+struct AttMul : pc::Raw {
+  static constexpr bool kAtt = true;
+};
+
 // Where a tile lies: image b, pixel tile mt of the image, whose th x tw
 // output pixels start at (oy0, ox0), group g, columns n0 .. nend - 1; tile t
 // of the (B, ntp, ntn) grid of tiles, column tile fastest, so that the
@@ -720,7 +737,7 @@ __device__ __forceinline__ void load_halo(HaloSet<T, X>& h, const TcArgs& p,
   } else {
     const int ci = xo + 64 * c + 8 * kc;
     const bf16* xb = p.x + img * g.C + ci;
-    if (X::kAffine && valid && p.a != nullptr) {
+    if ((X::kAffine || X::kAtt) && valid && p.a != nullptr) {
       h.sa = __ldg(reinterpret_cast<const uint4*>(p.a + q.b * g.C + ci));
       h.st = __ldg(reinterpret_cast<const uint4*>(p.t + q.b * g.C + ci));
     } else {
@@ -757,6 +774,66 @@ __device__ __forceinline__ uint4 stage_halo(const HaloSet<T, X>& h, int j) {
   }
 }
 
+// AttMul: mult of the chunk's run (channels 64 c + 8 kc ..) for a producer
+// thread's AI rows of tile q, the fold's a of the run in sa (packed pairs;
+// 1s without the fold). att * attw and its product with a are exact in
+// float32 (three bf16 factors), so mult is rounded once. Rows outside the
+// image take 0.
+template <class T>
+__device__ __forceinline__ void att_mult(uint4 (&m)[T::AI], const TcArgs& p,
+                                         const TilePos& q, int c,
+                                         const uint4& sa, int r0, int kc) {
+  using EB = Elem<bf16>;
+  const Geom& g = p.g;
+  const int cg = g.C / 8;
+  const int c0 = 64 * c + 8 * kc;
+  float aw[8], a[8];
+  int grp[8];
+  const uint32_t sw[4] = {sa.x, sa.y, sa.z, sa.w};
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    aw[e] = p.pattw != nullptr ? EB::ldg(p.pattw + q.b * 8 + e) : 1.f;
+    a[e] = (e & 1) ? EB::hi(sw[e / 2]) : EB::lo(sw[e / 2]);
+    grp[e] = min((c0 + e) / cg, 7);
+  }
+#pragma unroll
+  for (int i = 0; i < T::AI; ++i) {
+    const int row = r0 + T::RS * i, ry = row / p.tw;
+    const int oy = q.oy0 + ry, ox = q.ox0 + row - ry * p.tw;
+    const bool in = oy < g.Ho && ox < g.Wo;
+    const uint4 u = load16(
+        in ? p.patt + (((int64_t)q.b * g.Ho + oy) * g.Wo + ox) * 8 : p.patt);
+    const uint32_t uw[4] = {u.x, u.y, u.z, u.w};
+    float A[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      A[j] = in ? ((j & 1) ? EB::hi(uw[j / 2]) : EB::lo(uw[j / 2])) * aw[j]
+                : 0.f;
+    float v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      float sel = A[0];
+#pragma unroll
+      for (int j = 1; j < 8; ++j) sel = grp[e] == j ? A[j] : sel;
+      v[e] = sel * a[e];
+    }
+    m[i] = make_uint4(__float_as_uint(EB::pack2(v[0], v[1])),
+                      __float_as_uint(EB::pack2(v[2], v[3])),
+                      __float_as_uint(EB::pack2(v[4], v[5])),
+                      __float_as_uint(EB::pack2(v[6], v[7])));
+  }
+}
+
+// 8 bf16 times 8 bf16, each product rounded (AttMul's copy of a slice).
+__device__ __forceinline__ uint4 mul8(const uint4& x, const uint4& m) {
+  using EB = Elem<bf16>;
+  return make_uint4(
+      __float_as_uint(EB::mul2(__uint_as_float(x.x), __uint_as_float(m.x))),
+      __float_as_uint(EB::mul2(__uint_as_float(x.y), __uint_as_float(m.y))),
+      __float_as_uint(EB::mul2(__uint_as_float(x.z), __uint_as_float(m.z))),
+      __float_as_uint(EB::mul2(__uint_as_float(x.w), __uint_as_float(m.w))));
+}
+
 // The producers of a 3x3, stride-1 convolution with the vector staging: per
 // 64-channel chunk of a tile they stage its halo, (TH + 2) x (TW + 2) input
 // pixels with the staging (fold, swish; Dz's products) applied once, into
@@ -784,15 +861,20 @@ __device__ __forceinline__ void produce_halo(const TcArgs& p,
   TilePos q = tile_pos<GR>(p, t);
   HaloSet<T, X> h;
   load_halo<T, X, GR>(h, p, q, c, pt);
+  constexpr bool kMul = X::kAtt;
+  uint4 mult[kMul ? T::AI : 1];
   while (t < p.tiles) {
     uint8_t* hbuf = ring.base + T::HBUF + hb * T::HP * 128;
+    if constexpr (kMul) att_mult<T>(mult, p, q, c, h.sa, r0, kc);
+    // outside the image: 0, or AttMul's ring (h.st: 0 past cin)
+    uint4 out = make_uint4(0u, 0u, 0u, 0u);
+    if constexpr (kMul) out = h.st;
 #pragma unroll
     for (int j = 0; j < T::HJ; ++j) {
       const int hp = r0 + T::NP / 8 * j;
       if (hp < T::HP)
         *reinterpret_cast<uint4*>(hbuf + swz(hp, kc)) =
-            ((h.in >> j) & 1u) ? stage_halo<T, X>(h, j)
-                               : make_uint4(0u, 0u, 0u, 0u);
+            ((h.in >> j) & 1u) ? stage_halo<T, X>(h, j) : out;
     }
     producer_sync<T::NP>();
     int tn = t, cn = c + 1;
@@ -824,9 +906,12 @@ __device__ __forceinline__ void produce_halo(const TcArgs& p,
       for (int i = 0; i < T::AI; ++i) {
         const int row = r0 + T::RS * i;
         const int hp = (row / T::TW + ty) * T::HW + row % T::TW + tx;
-        *reinterpret_cast<uint4*>(as + swz(row, kc)) =
-            ok ? *reinterpret_cast<const uint4*>(hbuf + swz(hp, ci >> 3))
-               : make_uint4(0u, 0u, 0u, 0u);
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (ok) {
+          v = *reinterpret_cast<const uint4*>(hbuf + swz(hp, ci >> 3));
+          if constexpr (kMul) v = mul8(v, mult[i]);
+        }
+        *reinterpret_cast<uint4*>(as + swz(row, kc)) = v;
       }
       finish(s, krow, kval, ws);
     }
@@ -999,7 +1084,8 @@ __device__ __forceinline__ void produce(const TcArgs& p, const CUtensorMap* ma,
   };
   if (p.halo) {
     produce_halo<T, X, GR>(p, ring, begin, finish);
-  } else if constexpr (!X::kDz) {  // dz columns come 8 to a channel
+  } else if constexpr (!X::kDz && !X::kAtt) {
+    // (dz columns come 8 to a channel; AttMul runs on the halo alone)
     if (!GR && p.vec)
       produce_vec<T, X>(p, ring, begin, finish);
     else
@@ -1187,7 +1273,7 @@ static __global__ void __launch_bounds__(256)
 // run can show which launches went through the tensor cores.
 enum Entry {
   TC_CONV3X3, TC_PREACT, TC_CONV1X1, TC_CONV3X3_BWD, TC_AKGM_BWD, TC_AKGM_TAIL,
-  TC_ENTRIES
+  TC_AKGM_MIX, TC_AKGM_PACKED, TC_ENTRIES
 };
 inline long long& launch_count(int entry) {
   static long long n[TC_ENTRIES] = {};

@@ -20,8 +20,8 @@ then the affine), so conv1 is K2 with swish and no fold and the tail K1
 with no fold; the block then emits no statistics.
 
 The block computes in the dtype of its parameters and input: float32, or
-bfloat16 (validation under `--compute_dtype bf16`), where only the 'fused'
-tail has its kernel's bf16 form (K8 and K9 take float32).
+bfloat16 (`--compute_dtype bf16`), where every tail runs its kernel's bf16
+form.
 """
 from __future__ import annotations
 
@@ -116,10 +116,6 @@ class ResnetBlockDY3h(nn.Module):
         """x (B, H, W, dim) NHWC; in_stats: chained ((B,) sum, (B,) sumsq) of
         x or None. Returns (out, ((B,) sum, (B,) sumsq) of out), the
         statistics None where norm_groups > 1."""
-        if x.dtype != torch.float32 and self.tail != 'fused':
-            raise NotImplementedError(
-                "tail=%r in %s: the kernel of this tail takes float32 only; "
-                "see ROADMAP.md" % (self.tail, x.dtype))
         attw = self.noise_func(time_emb)                        # (B, nset)
         if self.norm_groups == 1:
             a1, t1 = norm1_affine(x, self.norm1.weight, self.norm1.bias,

@@ -9,10 +9,10 @@ CPU tests import every module, and only a CUDA tensor reaches `library()`.
 
 Every C entry point launches on the stream it is given, allocates nothing,
 does not synchronise, and returns `cudaGetLastError()`; `launch` raises when
-that is not 0 and counts the launch in `LAUNCHES`. K1..K7 have a second
+that is not 0 and counts the launch in `LAUNCHES`. K1..K9 have a second
 entry point for bfloat16 operands, `ucdir_<kernel>_bf16` (`entry`), counted
-under its own name; K8 and K9 take float32. The bf16 forms of K1, K2, K3, K5,
-K6 and K7 run on the tensor-core core `csrc/igemm_tc.cuh`, which counts its own
+under its own name. The bf16 forms of K1, K2, K3, K5, K6, K7, K8 and K9 run
+on the tensor-core core `csrc/igemm_tc.cuh`, which counts its own
 successful calls per entry point (`ucdir_tc_launches`; a call of K1, K5 or
 K6 once all its launches have gone out); `tc_launches()` reads them.
 """
@@ -40,7 +40,8 @@ LAUNCHES = {'akgm_tail': 0, 'conv3x3': 0, 'conv1x1': 0, 'gn1_stats': 0,
             'akgm_mix': 0, 'akgm_packed': 0,
             'akgm_tail_bf16': 0, 'conv3x3_bf16': 0, 'conv1x1_bf16': 0,
             'gn1_stats_bf16': 0, 'conv3x3_preact_bf16': 0,
-            'akgm_tail_bwd_bf16': 0, 'conv3x3_bwd_bf16': 0}
+            'akgm_tail_bwd_bf16': 0, 'conv3x3_bwd_bf16': 0,
+            'akgm_mix_bf16': 0, 'akgm_packed_bf16': 0}
 # Launches per kernel form since the last reset_launches(), 'kernel form'
 # -> n, for the wrappers that name a form where they launch: K1 and K5
 # 'fold' or 'nofold' (a GroupNorm folded in, or none), K2 and K6 the same
@@ -49,11 +50,13 @@ FORMS: dict = {}
 # the entry points on the tensor-core core, in the order of the library's
 # counters (`ucdir_tc_launches(i)`), and the counts at the last reset
 TC_ENTRIES = ('conv3x3_bf16', 'conv3x3_preact_bf16', 'conv1x1_bf16',
-              'conv3x3_bwd_bf16', 'akgm_tail_bwd_bf16', 'akgm_tail_bf16')
+              'conv3x3_bwd_bf16', 'akgm_tail_bwd_bf16', 'akgm_tail_bf16',
+              'akgm_mix_bf16', 'akgm_packed_bf16')
 _tc_base = [0] * len(TC_ENTRIES)
 # the kernels with a bfloat16 entry point, `<kernel>_bf16`
 BF16_KERNELS = ('akgm_tail', 'conv3x3', 'conv1x1', 'gn1_stats',
-                'conv3x3_preact', 'akgm_tail_bwd', 'conv3x3_bwd')
+                'conv3x3_preact', 'akgm_tail_bwd', 'conv3x3_bwd', 'akgm_mix',
+                'akgm_packed')
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: pointers and the stream as void*, sizes and flags as int.

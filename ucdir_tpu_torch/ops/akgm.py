@@ -11,10 +11,11 @@ channel c read input group c // (C / G) (the reference's `.view(b, C, G, H,
 W)` of the grouped conv). The kernel-layout weights are the grouped HWIO
 kernel (3, 3, C / G, C * G) reshaped to (9 * C / G, C * G).
 
-K1 and its backward K5 also take bfloat16 operands, all of one dtype, and
-return bfloat16 (K1's statistics float32): the TPU kernels' bf16
+K1, its backward K5, K8 and K9 also take bfloat16 operands, all of one
+dtype, and return bfloat16 (K1's statistics float32): the TPU kernels' bf16
 instantiation, with their roundings (`akgm_block_tail_plain`,
-`akgm_block_tail_backward_plain`). K8 and K9 take float32.
+`akgm_block_tail_backward_plain`, `akgm_mix_reference`,
+`akgm_block_tail_packed_plain`).
 """
 from __future__ import annotations
 
@@ -32,7 +33,15 @@ from ucdir_tpu_torch.ops.stats import fold_stats_grad, gn1_stats_plain
 
 def akgm_mix_reference(h, att_sp, w, bias, nset: int):
     """Materializes the (B, H, W, C, G) candidates, as the reference does.
-    h (B, H, W, C); att_sp (B, H, W, G); w (9 * C / G, C * G); bias (C * G)."""
+    h (B, H, W, C); att_sp (B, H, W, G); w (9 * C / G, C * G); bias (C * G).
+
+    bfloat16: the plain version of K8 in bf16, as B10 computes it
+    (`_akgm_kernel` of ucdir_tpu/ops/akgm_pallas.py): each candidate's sum
+    over the taps and its bias, times att and the 8 terms added, all in
+    float32 on the operands' values; the output rounded once."""
+    if h.dtype == torch.bfloat16:
+        return akgm_mix_reference(h.float(), att_sp.float(), w.float(),
+                                  bias.float(), nset).to(h.dtype)
     B, H, W, C = h.shape
     cg = C // nset
     k = w.reshape(3, 3, cg, C * nset).permute(3, 2, 0, 1)
@@ -415,11 +424,17 @@ class _AkgmMix(torch.autograd.Function):
         if _build.on_host(h):
             return akgm_mix_reference(h, att_sp, w, bias, nset)
         B, H, W, C = h.shape
-        _check_operands('K8', h, att_sp, w, bias, nset, None, None, None)
-        wp, out = permuted_columns(w), torch.empty_like(h)
-        _build.launch('akgm_mix', h.data_ptr(), att_sp.data_ptr(),
-                      wp.data_ptr(), bias.data_ptr(), out.data_ptr(), B, H,
-                      W, C, _build.stream(h))
+        kernel = _build.entry('akgm_mix', h)
+        _check_operands('K8', h, att_sp, w, bias, nset, None, None, None,
+                        dtype=h.dtype)
+        # as K1's product: float32 the FMA core's permuted columns, bf16 the
+        # tensor cores' natural columns with narrow groups merged
+        wp = (tc_merged_weights(w, nset, k1_tc_merge(C, nset)).contiguous()
+              if h.dtype == torch.bfloat16 else permuted_columns(w))
+        out = torch.empty_like(h)
+        _build.launch(kernel, h.data_ptr(), att_sp.data_ptr(), wp.data_ptr(),
+                      bias.data_ptr(), out.data_ptr(), B, H, W, C,
+                      _build.stream(h))
         return out
 
     @staticmethod
@@ -457,7 +472,13 @@ def akgm_block_tail_packed_plain(h, att_sp, w_packed, bias, res, nset: int, *,
 
     k_j (3, 3, C / G, C) being rows tap * C + j * (C / G) + cg of w_packed.
     The output pixel's attention scales input group j against candidate j of
-    every output channel."""
+    every output channel.
+
+    bfloat16: as B1p computes in bf16 (`_akgm_block_kernel_packed` of
+    ucdir_tpu/ops/akgm_pallas.py), `_packed_plain_bf16`."""
+    if h.dtype == torch.bfloat16:
+        return _packed_plain_bf16(h, att_sp, w_packed, bias, res, nset,
+                                  norm_scale, norm_shift, attw)
     B, H, W, C = h.shape
     cg = C // nset
     if norm_scale is not None:
@@ -470,6 +491,80 @@ def akgm_block_tail_packed_plain(h, att_sp, w_packed, bias, res, nset: int, *,
     y = y.permute(0, 2, 3, 1).reshape(B, H, W, nset, C)
     y = torch.einsum('bhwjc,bhwj->bhwc', y, A) + A @ bias.reshape(C, nset).t()
     return swish(y) + res
+
+
+def packed_ring(norm_scale, norm_shift):
+    """(B, C) float32: the value of the packed tail's padding ring under the
+    fold, -t / a rounded to the operands' dtype where |a| > 1e-12, else 0
+    (`_ring` in `_akgm_block_forward_packed`): the affine maps it to about
+    0, and the shift term of `packed_bias` adds t back over every tap."""
+    a, t = norm_scale.float(), norm_shift.float()
+    return rounded(torch.where(a.abs() > 1e-12, -t / a, torch.zeros_like(a)),
+                   norm_scale.dtype)
+
+
+def packed_bias(w_packed, bias, norm_shift, nset: int, B: int):
+    """(B, G, C) float32: the matrix that the packed tail's attention
+    multiplies for its bias term, bias[i * G + j] at [j, i], plus under the
+    fold the shift's term sum_{tap, c in group j} t[c] * w_packed[tap * C +
+    c, i], summed in float32 on the operands' values and rounded to their
+    dtype (`bm` in `_akgm_block_forward_packed`)."""
+    C = w_packed.shape[1]
+    bm = bias.float().reshape(C, nset).t()[None].expand(B, nset, C)
+    if norm_shift is not None:
+        w_sum = w_packed.float().reshape(9, C, C).sum(0)
+        bm = bm + (norm_shift.float()[:, :, None] * w_sum[None]).reshape(
+            B, nset, C // nset, C).sum(2)
+    return rounded(bm, bias.dtype)
+
+
+# bytes of float32 im2col rows that `_packed_plain_bf16` stages at a time
+_PACKED_BAND_BYTES = 1 << 30
+
+
+def _packed_plain_bf16(h, att_sp, w_packed, bias, res, nset, norm_scale,
+                       norm_shift, attw):
+    """K9's plain version in bf16, in float32 on the operands' values: A =
+    att * attw; mult = A of the channel's group times a, rounded once
+    (without the fold, A rounded); the input padded by a ring of
+    `packed_ring` (0 without the fold), each staged value h[p + tap, c] *
+    mult[p, c] rounded; their float32 product with w_packed, plus A rounded
+    times `packed_bias`; swish and the residual in float32, the output
+    rounded once. B1p's source rounds att * attw to bf16 before it takes
+    the product with a; XLA keeps that product in float32 there (excess
+    precision), and with att * attw rounded first 20% to 30% of the outputs
+    differ from the Pallas kernel by an ulp. A product of three bf16 values
+    is exact in float32, so mult is that product rounded once. The staged
+    rows go in bands of image rows (about 1 GB each)."""
+    dt = h.dtype
+    B, H, W, C = h.shape
+    A = att_sp.float()
+    if attw is not None:
+        A = A * attw.float()[:, None, None, :]
+    mult = A.repeat_interleave(C // nset, dim=-1)              # (B, H, W, C)
+    A = rounded(A, dt)
+    hp = F.pad(h.float().permute(0, 3, 1, 2), (1, 1, 1, 1))
+    if norm_scale is None:
+        mult = rounded(mult, dt)
+    else:
+        mult = rounded(mult * norm_scale.float()[:, None, None, :], dt)
+        inner = torch.zeros(H + 2, W + 2, dtype=torch.bool, device=h.device)
+        inner[1:-1, 1:-1] = True
+        hp = torch.where(inner, hp, packed_ring(norm_scale, norm_shift)[
+            :, :, None, None])
+    wf = w_packed.float()
+    band = max(1, _PACKED_BAND_BYTES // (B * W * 9 * C * 4))
+    acc = []
+    for y0 in range(0, H, band):
+        y1 = min(H, y0 + band)
+        taps = torch.stack([hp[:, :, y0 + ty:y1 + ty, tx:tx + W]
+                            for ty in range(3) for tx in range(3)], dim=-1)
+        staged = rounded(taps.permute(0, 2, 3, 4, 1)
+                         * mult[:, y0:y1, :, None, :], dt)
+        acc.append(staged.reshape(B, y1 - y0, W, 9 * C) @ wf)
+    acc = torch.cat(acc, dim=1) + torch.einsum(
+        'bhwj,bjc->bhwc', A, packed_bias(w_packed, bias, norm_shift, nset, B))
+    return (swish(acc) + res.float()).to(dt)
 
 
 class _AkgmBlockTailPacked(torch.autograd.Function):
@@ -487,15 +582,24 @@ class _AkgmBlockTailPacked(torch.autograd.Function):
                 h, att_sp, w_packed, bias, res, nset, norm_scale=norm_scale,
                 norm_shift=norm_shift, attw=attw)
         B, H, W, C = h.shape
+        dt = h.dtype
+        kernel = _build.entry('akgm_packed', h)
         dev = _check_operands('K9', h, att_sp, w_packed, bias, nset,
-                              norm_scale, norm_shift, attw)
-        _build.check('res', res, (B, H, W, C), device=dev)
+                              norm_scale, norm_shift, attw, dtype=dt)
+        _build.check('res', res, (B, H, W, C), device=dev, dtype=dt)
         out = torch.empty_like(h)
-        _build.launch('akgm_packed', h.data_ptr(), att_sp.data_ptr(),
-                      _build.ptr(attw), w_packed.data_ptr(), bias.data_ptr(),
-                      res.data_ptr(), _build.ptr(norm_scale),
-                      _build.ptr(norm_shift), out.data_ptr(), B, H, W, C,
-                      _build.stream(h))
+        bm, t = bias, norm_shift
+        if dt == torch.bfloat16:
+            # the bias matrix (B, C, G), a column's G values a 16-byte run,
+            # and under the fold the ring's values in place of the shift
+            bm = packed_bias(w_packed, bias, norm_shift, nset, B).transpose(
+                1, 2).to(dt).contiguous()
+            t = (None if norm_scale is None else
+                 packed_ring(norm_scale, norm_shift).to(dt).contiguous())
+        _build.launch(kernel, h.data_ptr(), att_sp.data_ptr(),
+                      _build.ptr(attw), w_packed.data_ptr(), bm.data_ptr(),
+                      res.data_ptr(), _build.ptr(norm_scale), _build.ptr(t),
+                      out.data_ptr(), B, H, W, C, _build.stream(h))
         return out
 
     @staticmethod

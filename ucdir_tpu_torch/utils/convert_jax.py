@@ -12,7 +12,8 @@ Keys follow the reference module tree (`downs.<i>.res_block.conv1.weight`,
 `ResnetBlock` (`resname: ResnetBlock`) maps `block{1,2}/{norm,conv}` to
 `block{1,2}.block.{0,3}` and `noise_func/noise_func` to
 `noise_func.noise_func.0`; a network with no predictor has no
-`predictor.*`. LPIPS weights convert apart (`lpips_from_jax`).
+`predictor.*`. LPIPS and Inception weights convert apart (`lpips_from_jax`,
+`inception_from_jax`).
 """
 from __future__ import annotations
 
@@ -137,3 +138,30 @@ def lpips_from_jax(weights: Dict[str, Any]) -> Dict[str, torch.Tensor]:
                                          and k.startswith('conv') else v,
                                          np.float32))
             for k, v in weights.items()}
+
+
+def inception_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's Inception tree (`ucdir_tpu/metrics/inception.py`:
+    nested dicts of numpy arrays, each BasicConv's conv/kernel HWIO,
+    bn_scale, bn_bias, and fc/kernel (2048, 1000), fc/bias where the head is
+    there) -> the port's state dict (`ucdir_tpu_torch/metrics/inception.py`:
+    <path>.conv.weight OIHW, <path>.bn_scale, <path>.bn_bias, fc.weight
+    (1000, 2048), fc.bias), float32."""
+    out = {}
+
+    def walk(node, path):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, path + (k,))
+                continue
+            name = '.'.join(path)
+            if path == ('fc',):
+                v = _dense(v) if k == 'kernel' else v
+                out['fc.' + ('weight' if k == 'kernel' else k)] = v
+            elif k == 'kernel':
+                out[name + '.weight'] = _conv(v)
+            else:
+                out[name + '.' + k] = v
+    walk(params, ())
+    return {k: torch.from_numpy(np.array(v, np.float32))
+            for k, v in out.items()}
