@@ -23,9 +23,11 @@ on any failure:
               tile) and the 1024 -> 512 convs of the /8 level (128-wide
               tile), K1 and K8 at C = 8, 16 and 32 (the narrow tiles) on
               the frame's /8 level, and K5 at C = 32 (288 x 288) and 192 (36 x
-              36), widths of narrower models. K1, K5 and K6 run twice: K1's
-              statistics, K5's and K6's weight and bias gradients (and K5's
-              attention gradients) must be equal bit for bit; K6's library
+              36), widths of narrower models. K1, K2 (with statistics), K4,
+              K5 and K6 run twice: K1's, K2's and K4's statistics (per pixel
+              tile, then added in a fixed order; no atomics),
+              K5's and K6's weight and bias gradients (and K5's attention
+              gradients) must be equal bit for bit; K6's library
               time in the swish cases includes the F.conv2d that recomputes
               z. Then the bf16 forms of K1, K2, K3, K4 and K7 at the
               validation shapes against their bf16 plain versions: outputs
@@ -138,10 +140,33 @@ on any failure:
  10. hires    one 2848 x 4256 frame (the full-resolution Sony frame; 2976 x
               4384 after the pad, so it runs tiled: 24 tiles of 1024 x 1024
               per step) with ddim, 5 steps: seconds per frame and per step,
-              tiles per step, peak memory, K7 launches; the same frame in
-              bf16 with 2 steps, its peak below the float32 frame's; and the
-              tiled path ({skip: 128, padding: 16}, 200 x 260 input, 2 DDPM
-              steps) card against host.
+              tiles per step, peak memory, K7 launches;
+              the same frame in bf16 with 2 steps, its peak below the
+              float32 frame's; and the tiled path ({skip: 128, padding: 16},
+              200 x 260 input, 2 DDPM steps, on the resident path) card
+              against host.
+ 10b. resident  the full-resolution frame (2976 x 4384 padded, 24 windows of
+              1024) with 2 DDPM steps on the tile-resident path
+              (parallel/resident.py) and on the reassembling one
+              (UCDIR_TPU_NO_RESIDENT=1): the same bits in float32, s per
+              step and peak of each, launches; the resident path in bf16,
+              within 0.05 mean abs of the float32 frame; hires' small case
+              (200 x 260, {skip: 128, padding: 16}, 2 steps of DDPM on the
+              resident path and of ddim tiled;
+              `hires` holds it card against host) twice, the same bits,
+              then with its tiles over 2 gloo ranks sharing the card
+              (subprocesses of this script,
+              `--resident_worker`) and over one NCCL rank (a group of one:
+              the geometry's all_reduce and the gathers run through NCCL on
+              the card, the exchange has no peer), each the bits of one
+              process, and over NCCL on every card where there are several
+              (else a line saying why not); UCDIR_TPU_GN_SCOPE=tile with
+              UCDIR_TPU_GN_TILE=64 at 200 x 260, 2 DDPM steps, card against
+              host (1e-5), its unfolded K2 and K1 launched; ms per DY3h step
+              on the SID frame, canvas against tile scope (1024-px windows),
+              fp32 and bf16, as the difference of a 3-step and a 1-step
+              frame (so the cast to bf16, the predictor and the guide maps
+              drop out).
  11. tasks    the gop-deblur and jpg-restore configurations through the
               validation entry points (the port's config.parse, create_model,
               Trainer.feed_data and test; random weights, the SID model's
@@ -535,7 +560,7 @@ def kernel_cases(gen, dev):
             stats = form is None
             kw = dict(stride=stride, act=act, emit_stats=stats,
                       norm_scale=a, norm_shift=t)
-            # bf16: statistics added in a fixed order, the same bits again
+            # statistics added in a fixed order, the same bits again
             cases.append(dict(
                 **kind('conv3x3', dtype), label=label, form=form,
                 kernel=lambda: conv.conv3x3(x, w, b, **kw),
@@ -543,7 +568,7 @@ def kernel_cases(gen, dev):
                 library=lambda: F.conv2d(nchw(x), k, b, stride=stride,
                                          padding=1),
                 stats=2 if stats else 0,
-                fixed=() if dtype == f32 or not stats else (1, 2), flop=flop,
+                fixed=(1, 2) if stats else (), flop=flop,
                 bytes=(nbytes(x, w, b, a, t) + x.element_size() * n_out
                        + (8 * B * cout if stats else 0))))
             return
@@ -638,13 +663,12 @@ def kernel_cases(gen, dev):
 
     def k4_case(gen=gen, dtype=f32):
         xs = rnd(1, h8, w8, 1024, gen=gen, dtype=dtype)
-        # bf16: added per slab of pixels in a fixed order, the same bits
-        # again
+        # added per slab of pixels in a fixed order, the same bits again
         cases.append(dict(
             **kind('gn1_stats', dtype), label='C=1024 %dx%d' % (h8, w8),
             kernel=lambda: stats.gn1_stats(xs),
             plain=lambda: stats.gn1_stats_plain(xs),
-            library=None, stats=2, fixed=() if dtype == f32 else (0, 1),
+            library=None, stats=2, fixed=(0, 1),
             flop=3 * xs.numel(), bytes=nbytes(xs) + 8 * 1024))
 
     k4_case()
@@ -809,8 +833,8 @@ def phase_kernels(dev, seed, results):
         # are sums over up to 0.66 M pixels, held against the plain version
         # in float64) within 1e-4 of max(1, its largest magnitude); (B, C)
         # sums and sums of squares
-        # of up to 3.6 M values, added in another order (K1 per pixel tile,
-        # then over the tiles; K2, K4 with atomics), within 1e-5 of the
+        # of up to 3.6 M values, added in another order (per pixel tile, then
+        # over the tiles in a fixed order), within 1e-5 of the
         # largest sum of squares; a bf16 case's own `tol` (kernel_cases)
         n_out = len(got) - case['stats']
         if len(got) != len(want):
@@ -841,9 +865,9 @@ def phase_kernels(dev, seed, results):
                     fail('%s %s: result %d has %.4f of the plain version\'s '
                          'bits, below %.2f' % (name, label, i, same,
                                                case['bits']))
-        # K1's statistics (and in bf16 K2's and K4's sums), the weight and
-        # bias gradients of K5 and K6, and K5's attention gradients are added
-        # in a fixed order: a second call gives the same bits
+        # the statistics of K1, K2 and K4, the weight and bias gradients of
+        # K5 and K6, and K5's attention gradients are added in a fixed order:
+        # a second call gives the same bits
         if case.get('fixed'):
             again = flat(case['kernel']())
             for i in case['fixed']:
@@ -926,7 +950,7 @@ def injected(draws, d):
 
 def agree(phase, what, got, want, tol=1e-5):
     """Fails unless two results of one function, float32 on both sides with
-    sums in other orders (atomics, cuDNN, oneDNN) through ~70 layers and a
+    sums in other orders (tiles, cuDNN, oneDNN) through ~70 layers and a
     few steps, agree within `tol` abs on outputs in about [-2, 2]. Sound
     readings on an H100 are up to 6.6e-7 for DDPM steps, so 1e-5 leaves a
     margin of 15x; DDIM reads 5.4e-6 (its first step turns eps into x0 with
@@ -1239,7 +1263,7 @@ def phase_train_slice(dev, seed, compute_dtype=None, **unet):
              if n and (k.endswith('_bf16') != (dtype is not None))]
     if other:
         fail('train_slice: launched kernels of the other dtype: %s' % other)
-    # float32 on both sides, sums in other orders (atomics, cuDNN, oneDNN)
+    # float32 on both sides, sums in other orders (tiles, cuDNN, oneDNN)
     # through ~70 layers forward and back. Limits from readings on an H100
     # (PERF.md): the first loss within 1e-5 rel and the second, taken on
     # weights that AdamW's sign-like first step has moved, within 1e-4 rel
@@ -1843,6 +1867,351 @@ def phase_hires(dev, seed, counts):
         'DDPM steps: card vs host max abs err %.3e (tol 1e-5), %d tiles per '
         'step' % (err, n['conv3x3_preact'] // 2))
 
+
+# ---------------------------------------------------------------- phase 10b
+RES_STEPS = 2                     # DDPM steps of the full-resolution frame
+RES_SMALL = (200, 260)            # hires' small tiled case, H x W
+RES_TILE = {'skip': 128, 'padding': 16}
+GN_TILE = 64                      # UCDIR_TPU_GN_TILE of the gn_scope check
+
+
+def full_frame_ddpm(dev, seed, model, frame, resident, compute_dtype=None,
+                    steps=RES_STEPS):
+    """The 2848 x 4256 frame through the validation step with `steps` DDPM
+    steps on the resident path or the reassembling one (its draws from a
+    generator seeded alike every call): (output, s per step with the
+    predictor and the guide maps, peak GiB, launches)."""
+    import torch
+    from ucdir_tpu_torch.configs import SID_VAL_SCHEDULE
+    from ucdir_tpu_torch.eval import eval_step
+    from ucdir_tpu_torch.ops import _build
+    from ucdir_tpu_torch.schedule import make_schedule
+
+    model.resident = resident
+    sched = make_schedule(dict(SID_VAL_SCHEDULE, n_timestep=steps), dev)
+    gen = torch.Generator(dev).manual_seed(seed + 9)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t = time.perf_counter()
+    sr, _ = eval_step(model, sched, frame, pad=PAD, generator=gen,
+                      compute_dtype=compute_dtype)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    n = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    if sr.shape != frame.shape or not torch.isfinite(sr).all():
+        fail('resident: output has shape %s or non-finite values'
+             % (tuple(sr.shape),))
+    return sr, secs / steps, peak, n
+
+
+def small_case(seed):
+    """hires' small tiled case: a 200 x 260 input and the draws of 2 DDPM
+    steps and of 2 ddim steps, as numpy."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 10)
+    x = rng.uniform(-1, 1, (1,) + RES_SMALL + (3,)).astype(np.float32)
+    shape = (1, RES_SMALL[0] + 2 * PAD, RES_SMALL[1] + 2 * PAD, 3)
+    draws = [rng.standard_normal(shape).astype(np.float32) for _ in range(6)]
+    return x, draws[:3], draws[3:]
+
+
+def small_restorations(dev, seed, model, tile):
+    """small_case through eval_step with `tile`: (DDPM 2 steps, ddim 2
+    steps), each on the card, and the launches of the DDPM run."""
+    import torch
+    from ucdir_tpu_torch.configs import SID_VAL_SCHEDULE
+    from ucdir_tpu_torch.eval import eval_step
+    from ucdir_tpu_torch.ops import _build
+    from ucdir_tpu_torch.schedule import make_schedule
+
+    x, ddpm, ddim = small_case(seed)
+    sched = make_schedule(dict(SID_VAL_SCHEDULE, n_timestep=2), dev)
+    x = torch.from_numpy(x).to(dev)
+    _build.reset_launches()
+    a = eval_step(model, sched, x, noise=injected(ddpm, dev), tile=tile)[0]
+    n = dict(_build.LAUNCHES)
+    b = eval_step(model, sched, x, noise=injected(ddim, dev), tile=tile,
+                  sampler='ddim', sampling_timesteps=2)[0]
+    torch.cuda.synchronize()
+    return a, b, n
+
+
+def resident_worker(job_path):
+    """One rank of the resident phase (`--resident_worker <job.json>`, a
+    subprocess; torchrun's variables in the environment): small_case with
+    its tiles over the ranks, DDPM on the resident path and ddim tiled.
+    Writes rank<r>.pt (both outputs) and rank<r>.json."""
+    import torch
+    from ucdir_tpu_torch.utils.dist import exit_dist, get_dist_info, init_dist
+
+    with open(job_path) as f:
+        job = json.load(f)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = init_dist('pytorch', backend=job['backend'], device='cuda')
+    rank, world = get_dist_info()
+    model = build_model(job['seed'], dropout=0.0).to(dev)
+    t = time.perf_counter()
+    a, b, n = small_restorations(dev, job['seed'], model, dict(
+        RES_TILE, tile_chunk=world, distributed=True))
+    secs = time.perf_counter() - t
+    torch.save({'ddpm': a.cpu(), 'ddim': b.cpu()},
+               os.path.join(job['out'], 'rank%d.pt' % rank))
+    with open(os.path.join(job['out'], 'rank%d.json' % rank), 'w') as f:
+        json.dump({'rank': rank, 'world': world, 'device': str(dev),
+                   'secs': secs, 'launches': n}, f)
+    exit_dist()
+    return 0
+
+
+def ranks_against_one(dev, seed, one, backend, ranks):
+    """small_case over `ranks` ranks (subprocesses, `backend`) against one
+    process's (DDPM, ddim): fails unless every rank has its bits. Returns
+    the ranks' json."""
+    import torch
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = run_ranks({'seed': seed, 'backend': backend, 'out': tmp},
+                         tmp, ranks, worker='--resident_worker')
+        got = [torch.load(os.path.join(tmp, 'rank%d.pt' % r),
+                          weights_only=True) for r in range(ranks)]
+    for r, g in enumerate(got):
+        for k, want in zip(('ddpm', 'ddim'), one):
+            if not torch.equal(g[k], want.cpu()):
+                fail('resident: %s, rank %d of %d (%s): %s not the bits of '
+                     'one process, max abs diff %.3e'
+                     % (k, r, ranks, backend, k,
+                        (g[k] - want.cpu()).abs().max().item()))
+    return outs
+
+
+def phase_resident(dev, seed, counts):
+    """The tile-resident reverse process: the full-resolution frame on the
+    resident path against the reassembling one, one image's tiles over
+    ranks, and the tile-scoped GroupNorm."""
+    import torch
+    import torch.distributed as dist
+    from ucdir_tpu_torch.parallel.resident import ResidentPlan
+
+    model = build_model(seed, dropout=0.0).to(dev)
+
+    # 1. the full-resolution frame, DDPM, resident against reassembling
+    gen = torch.Generator(dev).manual_seed(seed + 8)
+    frame = torch.rand((1,) + FULL_FRAME + (3,), generator=gen,
+                       device=dev) * 2 - 1
+    plan = ResidentPlan(FULL_FRAME[0] + 2 * PAD, FULL_FRAME[1] + 2 * PAD,
+                        TILE, PAD)
+    # once each (the frame's ddim in `hires` has warmed the card at this
+    # size): the reassembling path, then the resident one
+    runs = []
+    for resident in (False, True):
+        out, secs, peak, n = full_frame_ddpm(dev, seed, model, frame,
+                                             resident)
+        # to the host, so that no run's peak holds another's output
+        runs.append((out.cpu(), secs, peak, n))
+        del out
+    res = runs[1][0]
+    n = counts['resident'] = runs[1][3]
+    launched('resident', n, FORWARD, None)
+    if n['conv3x3_preact'] != plan.n_tiles * RES_STEPS:
+        fail('resident: %d windows, %d steps, %d head launches'
+             % (plan.n_tiles, RES_STEPS, n['conv3x3_preact']))
+    same = torch.equal(runs[0][0], res)
+    diff = (runs[0][0] - res).abs().max().item()
+    say('resident', 'frame %dx%d, DDPM %d steps, %d windows of %d (%d '
+        'owning pixels), %d copies a step: reassembling %.3f, resident '
+        '%.3f s per step (the predictor and the guide maps in each), peak '
+        '%.3f against %.3f GiB; the same bits: %s (max abs diff %.3e); '
+        'launches %s'
+        % (FULL_FRAME + (RES_STEPS, plan.n_tiles, TILE, len(plan.owned),
+                         len(plan.copies), runs[0][1], runs[1][1],
+                         runs[0][2], runs[1][2], same, diff,
+                         json.dumps(n))))
+    del runs
+    if not same:
+        fail('resident: the full-resolution frame is not the reassembling '
+             'path\'s bits (max abs diff %.3e)' % diff)
+    # bf16's gate: within 0.05 mean abs of the float32 frame
+    r16, t16, p16, n16 = full_frame_ddpm(dev, seed, model, frame, True,
+                                         torch.bfloat16)
+    launched('resident', n16, FORWARD, 'bf16')
+    d16 = (r16.cpu() - res).abs().mean().item()
+    del res, r16
+    if not d16 < 0.05:
+        fail('resident: the bf16 frame is %.3e mean abs from float32\'s'
+             % d16)
+    say('resident', 'the same frame in bf16 on the resident path, DDPM %d '
+        'steps: %.3f s per step, peak %.3f GiB, %.3e mean abs from the '
+        'float32 frame (tol 0.05)' % (RES_STEPS, t16, p16, d16))
+    model.resident = True
+    del frame
+    torch.cuda.empty_cache()
+
+    # 2. small_case (hires' small case holds the resident path card against
+    # host): one process, twice, then two gloo ranks sharing the card
+    one = small_restorations(dev, seed, model, dict(RES_TILE))
+    again = small_restorations(dev, seed, model, dict(RES_TILE))
+    for k, a, b in zip(('DDPM', 'ddim'), one[:2], again[:2]):
+        if not torch.equal(a, b):
+            fail('resident: %s tiled, a second run on the card is not the '
+                 'first one\'s bits' % k)
+    say('resident', '%dx%d, tiles %s, DDPM (resident) and ddim (tiled) 2 '
+        'steps, one process: a second run the same bits'
+        % (RES_SMALL + (json.dumps(RES_TILE),)))
+    outs = ranks_against_one(dev, seed, one[:2], 'gloo', 2)
+    say('resident', '2 gloo ranks sharing the card (%s), the image\'s tiles '
+        'over them: DDPM (resident) and ddim (tiled) the bits of one '
+        'process on every rank; s per rank %s'
+        % (' '.join(r['device'] for r in outs),
+           ' '.join('%.3f' % r['secs'] for r in outs)))
+
+    # 3. one NCCL rank through the same code: a group of one runs the
+    # group's branches, so the geometry's all_reduce, the resident path's
+    # final all_gather and the tiled path's all_gather a step go through
+    # NCCL on the card; the exchange has no peer (NCCL takes one rank a
+    # card, so its batch_isend_irecv needs two cards)
+    calls = []
+    real = {k: getattr(dist, k) for k in ('all_reduce', 'all_gather',
+                                          'batch_isend_irecv')}
+
+    def counted(name):
+        def call(*args, **kwargs):
+            calls.append(name)
+            return real[name](*args, **kwargs)
+        return call
+
+    dist.init_process_group('nccl', init_method='tcp://127.0.0.1:%d'
+                            % free_port(), rank=0, world_size=1)
+    try:
+        for k in real:
+            setattr(dist, k, counted(k))
+        nccl = small_restorations(dev, seed, model, dict(
+            RES_TILE, tile_chunk=1, distributed=True))
+    finally:
+        for k, f in real.items():
+            setattr(dist, k, f)
+        dist.destroy_process_group()
+    for k, a, b in zip(('DDPM', 'ddim'), nccl[:2], one[:2]):
+        if not torch.equal(a, b):
+            fail('resident: %s on one NCCL rank is not one process\'s bits'
+                 % k)
+    # DDPM (resident): all_reduce, then all_gather; ddim: all_gather a step
+    want = ['all_reduce', 'all_gather'] + ['all_gather'] * 2
+    if calls != want:
+        fail('resident: one NCCL rank issued %s, not %s' % (calls, want))
+    say('resident', 'one NCCL rank: DDPM and ddim the bits of one process; '
+        'NCCL collectives on the card: %s; the p2p exchange not run (no '
+        'peer on a group of one)' % ' '.join(calls))
+
+    # 4. NCCL over every card
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        outs = ranks_against_one(dev, seed, one[:2], 'nccl', cards)
+        say('resident', 'NCCL over %d cards: DDPM and ddim the bits of one '
+            'process on every rank; s per rank %s'
+            % (cards, ' '.join('%.3f' % r['secs'] for r in outs)))
+    else:
+        say('resident', 'NCCL over several cards: not run, this machine '
+            'has %d card' % cards)
+    del one, again, nccl
+
+    # 5. the tile-scoped GroupNorm
+    gn_scope_check(dev, seed)
+
+
+def gn_scope_check(dev, seed):
+    """UCDIR_TPU_GN_SCOPE=tile: card against host at 200 x 260 with
+    64-px windows (2 DDPM steps, the K2 nofold+swish and K1 nofold forms
+    launched); ms per DY3h step on the SID frame, canvas against tile
+    scope, float32 and bf16, each a 3-step frame less a 1-step one."""
+    import numpy as np
+    import torch
+    from ucdir_tpu_torch.configs import SID_VAL_SCHEDULE
+    from ucdir_tpu_torch.eval import eval_step
+    from ucdir_tpu_torch.ops import _build
+    from ucdir_tpu_torch.schedule import make_schedule
+
+    env = {k: os.environ.get(k) for k in ('UCDIR_TPU_GN_SCOPE',
+                                          'UCDIR_TPU_GN_TILE')}
+    os.environ.update(UCDIR_TPU_GN_SCOPE='tile',
+                      UCDIR_TPU_GN_TILE=str(GN_TILE))
+    try:
+        host = build_model(seed, dropout=0.0)
+    finally:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if (host.denoise_fn.gn_scope, host.denoise_fn.gn_tile) != ('tile',
+                                                               GN_TILE):
+        fail('gn_scope: define_G did not read the switches')
+    model = copy.deepcopy(host).to(dev)
+    rng = np.random.default_rng(seed + 11)
+    x = rng.uniform(-1, 1, (1,) + RES_SMALL + (3,)).astype(np.float32)
+    shape = (1, RES_SMALL[0] + 2 * PAD, RES_SMALL[1] + 2 * PAD, 3)
+    draws = [rng.standard_normal(shape).astype(np.float32) for _ in range(3)]
+    sched_opt = dict(SID_VAL_SCHEDULE, n_timestep=2)
+    _build.reset_launches()
+    got = eval_step(model, make_schedule(sched_opt, dev),
+                    torch.from_numpy(x).to(dev),
+                    noise=injected(draws, dev))[0]
+    forms = dict(_build.FORMS)
+    want = eval_step(host, make_schedule(sched_opt, 'cpu'),
+                     torch.from_numpy(x), noise=injected(draws, 'cpu'))[0]
+    err = agree('gn_scope', 'tile scope card vs host', got, want)
+    for form in ('conv3x3 nofold+swish', 'akgm_tail nofold'):
+        if not forms.get(form):
+            fail('gn_scope: %s never launched: %s' % (form, forms))
+    model.denoise_fn.gn_scope = 'canvas'
+    base = eval_step(model, make_schedule(sched_opt, dev),
+                     torch.from_numpy(x).to(dev),
+                     noise=injected(draws, dev))[0]
+    say('gn_scope', 'UCDIR_TPU_GN_SCOPE=tile, UCDIR_TPU_GN_TILE=%d, %dx%d, '
+        '2 DDPM steps: card vs host max abs err %.3e (tol 1e-5), %.3e from '
+        'the canvas scope; forms %s'
+        % ((GN_TILE,) + RES_SMALL + (err, (got - base).abs().max().item(),
+                                     json.dumps(forms))))
+    del host, got, want, base
+
+    # ms per DY3h step on the SID frame (1024-px windows): a 3-step frame
+    # less a 1-step one, so that what a frame does once (the cast to bf16
+    # inside eval_step, the predictor, the guide maps, the pads) drops out
+    model.denoise_fn.gn_tile = 1024
+    gen = torch.Generator(dev).manual_seed(seed)
+    frame = torch.rand((1,) + SID_FRAME + (3,), generator=gen,
+                       device=dev) * 2 - 1
+    line = []
+    for dtype in (None, torch.bfloat16):
+        for scope in ('canvas', 'tile'):
+            model.denoise_fn.gn_scope = scope
+            torch.cuda.reset_peak_memory_stats(dev)
+            _build.reset_launches()
+            secs = {}
+            for steps in (1, 3):
+                sched = make_schedule(dict(SID_VAL_SCHEDULE,
+                                           n_timestep=steps), dev)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                sr = eval_step(model, sched, frame, pad=PAD, generator=gen,
+                               compute_dtype=dtype)[0]
+                torch.cuda.synchronize()
+                secs[steps] = time.perf_counter() - t
+                if not torch.isfinite(sr).all():
+                    fail('gn_scope: %s scope frame not finite' % scope)
+            step = (secs[3] - secs[1]) / 2
+            line.append('%s %s %.1f ms (once a frame %.1f ms, peak %.3f '
+                        'GiB, %s)' % (
+                            'bf16' if dtype else 'fp32', scope, 1e3 * step,
+                            1e3 * (secs[1] - step),
+                            torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                            json.dumps(dict(_build.FORMS))))
+    say('gn_scope', 'frame %dx%d (network %dx%d), ms per DY3h step (a '
+        '3-step frame less a 1-step one): %s'
+        % (SID_FRAME + NET_FRAME + ('; '.join(line),)))
+
 # ------------------------------------------------------------ phases 11-12
 # K1..K4, the forward kernels of the validation path, and K5, K6
 FORWARD = ('akgm_tail', 'conv3x3', 'conv1x1', 'gn1_stats')
@@ -2357,9 +2726,10 @@ def free_port():
         return s.getsockname()[1]
 
 
-def run_ranks(job, tmp, ranks):
-    """Runs `ranks` processes of ddp_worker on `job`; fails unless each
-    ends with 0 within 600 s. Returns their rank<r>.json."""
+def run_ranks(job, tmp, ranks, worker='--ddp_worker'):
+    """Runs `ranks` processes of this script's `worker` (ddp_worker, or
+    resident_worker) on `job`; fails unless each ends with 0 within 600 s.
+    Returns their rank<r>.json."""
     path = os.path.join(tmp, 'job.json')
     with open(path, 'w') as f:
         json.dump(job, f)
@@ -2371,7 +2741,7 @@ def run_ranks(job, tmp, ranks):
                        LOCAL_RANK=str(r), MASTER_ADDR='127.0.0.1',
                        MASTER_PORT=str(port))
             procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), '--ddp_worker',
+                [sys.executable, os.path.abspath(__file__), worker,
                  path], env=env, stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True))
         for r, p in enumerate(procs):
@@ -2993,10 +3363,15 @@ def main(argv=None):
     ap.add_argument('--seed', type=int, default=0)
     ap.add_argument('--ddp_worker', type=str, default=None,
                     help=argparse.SUPPRESS)
+    ap.add_argument('--resident_worker', type=str, default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.ddp_worker:
         sys.path.insert(0, ROOT)
         return ddp_worker(args.ddp_worker)
+    if args.resident_worker:
+        sys.path.insert(0, ROOT)
+        return resident_worker(args.resident_worker)
 
     import torch
     if not torch.cuda.is_available():
@@ -3047,6 +3422,8 @@ def main(argv=None):
     phase_fewstep(dev, args.seed, counts)
     phase_hires(dev, args.seed, counts)
     done('fewstep, hires')
+    phase_resident(dev, args.seed, counts)
+    done('resident')
     phase_tasks(dev, args.seed, counts)
     phase_realsr(dev, args.seed, counts)
     done('tasks, realsr')

@@ -9,8 +9,9 @@ not have.)
 
 Tolerance: float32 on both sides, 1e-4 of max(1, |reference|) for tensors
 and 1e-5 of the largest sum of squares for the (B, C) statistics, which
-the kernels add in another order than the plain versions (K2, K3 and K4
-with atomics). The backward kernels K5 and K6
+the kernels add in another order than the plain versions (K1, K2 and K4 per
+tile of pixels, then over the tiles in a fixed order, no atomics: the same
+bits in a second call). The backward kernels K5 and K6
 add their weight and bias gradients per chunk of pixels in a fixed order
 (the same bits in two calls), and K5 its attention gradients per pixel tile
 in a fixed order too: every output of theirs within 1e-4 of max(1, largest
@@ -225,11 +226,57 @@ def test_conv1x1(dev, B, H, W, cin, cout, act):
           conv.conv1x1_plain(x, w, b, act=act), 0)
 
 
+@pytest.mark.parametrize('B,H,W,cin,cout,stride', CONV3X3_SHAPES)
+def test_conv3x3_statistics_repeat_bit_for_bit(dev, B, H, W, cin, cout,
+                                               stride):
+    """K2 in float32 adds each pixel tile's statistics in warp order and
+    the tiles in a fixed order, no atomics: a second call gives the same
+    bits, the output too."""
+    x, w, b, kw = conv3x3_operands(dev, B, H, W, cin, cout, stride, True)
+    one, two = conv.conv3x3(x, w, b, **kw), conv.conv3x3(x, w, b, **kw)
+    for a, c in zip(conv._flat(one), conv._flat(two)):
+        assert torch.equal(a, c)
+
+
 @pytest.mark.parametrize('shape', [(2, 17, 19, 40), (1, 33, 65, 1024)])
 def test_gn1_stats(dev, shape):
     gen = torch.Generator(dev).manual_seed(4)
     x = rnd(gen, *shape, off=0.3)
-    check(stats.gn1_stats(x), stats.gn1_stats_plain(x), 2)
+    one = stats.gn1_stats(x)
+    check(one, stats.gn1_stats_plain(x), 2)
+    # per slab of 256 pixels, then over the slabs in a fixed order
+    for a, b in zip(one, stats.gn1_stats(x)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('kernel', ['conv3x3', 'gn1_stats'])
+def test_workspace_tile_count_checked(dev, monkeypatch, kernel, dtype):
+    """K2 and K4 take their workspace's tile count from the wrapper and
+    launch nothing where it is not their own: a wrapper whose geometry
+    drifted from the kernel's raises instead of writing past the
+    workspace."""
+    x, w, b, kw = conv3x3_operands(dev, 2, 17, 19, 40, 24, 1, True)
+    x, w, b = x.to(dtype), w.to(dtype), b.to(dtype)
+    for k in ('norm_scale', 'norm_shift'):
+        kw[k] = kw[k].to(dtype)
+    if kernel == 'conv3x3':
+        name = 'stats_tiles' if dtype == BF else 'pc_stats_tiles'
+        right = getattr(conv, name)
+        monkeypatch.setattr(conv, name, lambda *a: right(*a) + 1)
+        call = lambda: conv.conv3x3(x, w, b, **kw)  # noqa: E731
+    else:
+        monkeypatch.setattr(stats, 'gn1_slab', lambda C, dt=BF: 1)
+        call = lambda: stats.gn1_stats(x)  # noqa: E731
+    entry = _build.entry(kernel, x)
+    n = _build.LAUNCHES[entry]
+    with pytest.raises(RuntimeError, match='cudaError'):
+        call()
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[entry] == n
+    monkeypatch.undo()
+    call()
+    assert _build.LAUNCHES[entry] == n + 1
 
 
 @pytest.mark.parametrize('B,H,W,C', [(2, 13, 21, 64), (1, 9, 130, 128),

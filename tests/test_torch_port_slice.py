@@ -88,7 +88,9 @@ def test_slice_matches_jax_eval_step(rng):
 
 def test_untiled_limit_refuses_larger_inputs(monkeypatch):
     """Above the untiled limit the whole-image path refuses the input: it
-    goes to the tiled denoiser (1024-px tiles, 64-px halos) instead."""
+    goes to the tiled denoiser (1024-px tiles, 64-px halos) instead (DDPM on
+    the reassembling path: tests/test_torch_port_resident.py takes the
+    resident one)."""
     from ucdir_tpu_torch.parallel import tiled
 
     class Tiled(Exception):
@@ -96,8 +98,11 @@ def test_untiled_limit_refuses_larger_inputs(monkeypatch):
 
     def fake(denoiser, x_cond, guide, **kw):
         assert tuple(x_cond.shape) == (1, 2128, 2228, 3)
-        assert kw == dict(skip=1024, padding=64, tile_chunk=1)
+        assert kw == dict(skip=1024, padding=64, tile_chunk=1,
+                          distributed=False)
         raise Tiled
+
+    monkeypatch.setenv('UCDIR_TPU_NO_RESIDENT', '1')
 
     monkeypatch.setattr(tiled, 'tiled_denoise_fn', fake)
     model = define_G({'model': tiny_model_opt()})

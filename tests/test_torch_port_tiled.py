@@ -204,7 +204,10 @@ def test_should_tile(h, w, tile, want):
 
 def test_large_inputs_take_the_tiled_path(monkeypatch):
     """Above the untiled limit eval_step hands super_resolution the default
-    tile options, and super_resolution alone applies the same rule."""
+    tile options, and super_resolution alone applies the same rule (DDPM on
+    the reassembling path: tests/test_torch_port_resident.py takes the
+    resident one)."""
+    monkeypatch.setenv('UCDIR_TPU_NO_RESIDENT', '1')
     seen = []
 
     class Stop(Exception):
@@ -228,9 +231,10 @@ def test_large_inputs_take_the_tiled_path(monkeypatch):
         port_sampler.super_resolution(model, sched, torch.zeros(1, 80, 80, 3),
                                       generator=torch.Generator())
     assert seen == [((1, 1132, 1032, 3),
-                     dict(skip=1024, padding=64, tile_chunk=1)),
+                     dict(skip=1024, padding=64, tile_chunk=1,
+                          distributed=False)),
                     ((1, 80, 80, 3), dict(skip=1024, padding=64,
-                                          tile_chunk=1))]
+                                          tile_chunk=1, distributed=False))]
 
 
 # after sr.main: nothing of JAX or of the JAX package was imported

@@ -38,6 +38,7 @@
 // copy each tap's rows from it; the product side and that staging, which
 // share shared memory's bandwidth, bound it now (PERF.md §7).
 #include "igemm_tc.cuh"
+#include "tile_sums.cuh"
 
 namespace {
 
@@ -45,9 +46,9 @@ using ucdir::bf16;
 
 template <class E>
 ucdir::pc::ConvArgsT<E> conv_args(const E* x, const E* w, const E* bias,
-                                  const E* a, const E* t, E* out, float* ssum,
-                                  float* ssq, int H, int W, int cin, int cout,
-                                  int stride, int act) {
+                                  const E* a, const E* t, E* out, float* ws,
+                                  int H, int W, int cin, int cout, int stride,
+                                  int act) {
   ucdir::pc::ConvArgsT<E> c = {};
   c.x = x;
   c.w = w;
@@ -55,8 +56,7 @@ ucdir::pc::ConvArgsT<E> conv_args(const E* x, const E* w, const E* bias,
   c.a = a;
   c.t = t;
   c.out = out;
-  c.ssum = ssum;
-  c.ssq = ssq;
+  c.ws = ws;
   c.g.H = H;
   c.g.W = W;
   c.g.C = cin;
@@ -76,7 +76,7 @@ ucdir::tc::TcArgs tc_args(const bf16* x, const bf16* w, const bf16* bias,
                           int H, int W, int cin, int cout, int stride,
                           int act) {
   const ucdir::pc::ConvArgsT<bf16> c = conv_args(
-      x, w, bias, a, t, out, nullptr, nullptr, H, W, cin, cout, stride, act);
+      x, w, bias, a, t, out, nullptr, H, W, cin, cout, stride, act);
   ucdir::tc::TcArgs p = {};
   p.x = x;
   p.w = w;
@@ -94,17 +94,28 @@ ucdir::tc::TcArgs tc_args(const bf16* x, const bf16* w, const bf16* bias,
 }  // namespace
 
 // x (B, H, W, cin) NHWC; w (9 * cin, cout) with row tap * cin + ci; bias
-// (cout); a, t (B, cin) or null; out (B, Ho, Wo, cout); ssum, ssq zeroed
-// (B, cout) or null. Returns the launch's cudaError_t.
+// (cout); a, t (B, cin) or null; out (B, Ho, Wo, cout); ssum, ssq (B, cout)
+// written whole from ws, a (B, ceil(Ho * Wo / conv_tile_rows(cout)), 2,
+// cout) float workspace of per-tile sums, added by stats_reduce_kernel in a
+// fixed order; or all three null. ws_tiles: the workspace's pixel tiles, as
+// the caller allocated it; a count other than the kernel's launches nothing
+// and returns cudaErrorInvalidValue. Returns the launches' cudaError_t.
 extern "C" int ucdir_conv3x3(const float* x, const float* w, const float* bias,
                              const float* a, const float* t, float* out,
-                             float* ssum, float* ssq, int B, int H, int W,
-                             int cin, int cout, int stride, int act,
-                             void* stream) {
-  return ucdir::pc::launch_conv<ucdir::pc::Affine>(
-      conv_args(x, w, bias, a, t, out, ssum, ssq, H, W, cin, cout, stride,
-                act),
-      B, (cudaStream_t)stream);
+                             float* ssum, float* ssq, float* ws, int B, int H,
+                             int W, int cin, int cout, int stride, int act,
+                             int ws_tiles, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const ucdir::pc::ConvArgsT<float> c =
+      conv_args(x, w, bias, a, t, out, ws, H, W, cin, cout, stride, act);
+  const int rows = ucdir::pc::conv_tile_rows(cout);
+  const int ntp = (c.g.Ho * c.g.Wo + rows - 1) / rows;
+  if (ws != nullptr && ws_tiles != ntp) return (int)cudaErrorInvalidValue;
+  const int err = ucdir::pc::launch_conv<ucdir::pc::Affine>(c, B, st);
+  if (err || ws == nullptr) return err;
+  ucdir::stats_reduce_kernel<<<dim3((cout + 31) / 32, B), 1024, 0, st>>>(
+      ws, ssum, ssq, ntp, cout);
+  return (int)cudaGetLastError();
 }
 
 // K7: out = conv3x3(swish(x * a + t)) + bias, stride 1, no activation after
@@ -114,23 +125,28 @@ extern "C" int ucdir_conv3x3_preact(const float* x, const float* w,
                                     const float* t, float* out, int B, int H,
                                     int W, int cin, int cout, void* stream) {
   return ucdir::pc::launch_conv<ucdir::pc::Preact>(
-      conv_args(x, w, bias, a, t, out, nullptr, nullptr, H, W, cin, cout, 1,
-                0),
+      conv_args(x, w, bias, a, t, out, nullptr, H, W, cin, cout, 1, 0),
       B, (cudaStream_t)stream);
 }
 
 // K2 and K7 in bf16 on the tensor cores: x, w, bias, a, t and out bf16;
 // ssum, ssq (B, cout) float, written whole from ws, a float (B, 2, cout,
-// ceil(Ho * Wo / 128)) workspace, or all three null.
+// pixel tiles) workspace (tc::plan's 8 x 16 output pixels a tile), or all
+// three null. ws_tiles as for ucdir_conv3x3.
 extern "C" int ucdir_conv3x3_bf16(const bf16* x, const bf16* w,
                                   const bf16* bias, const bf16* a,
                                   const bf16* t, bf16* out, float* ssum,
                                   float* ssq, float* ws, int B, int H, int W,
                                   int cin, int cout, int stride, int act,
-                                  void* stream) {
+                                  int ws_tiles, void* stream) {
+  const ucdir::tc::TcArgs c =
+      tc_args(x, w, bias, a, t, out, ws, H, W, cin, cout, stride, act);
+  ucdir::tc::TcArgs p = c;
+  ucdir::tc::plan(p, B, false);
+  const int ntp = (p.g.Ho + p.th - 1) / p.th * ((p.g.Wo + p.tw - 1) / p.tw);
+  if (ws != nullptr && ws_tiles != ntp) return (int)cudaErrorInvalidValue;
   return ucdir::tc::launch_conv<ucdir::pc::Affine>(
-      tc_args(x, w, bias, a, t, out, ws, H, W, cin, cout, stride, act), ssum,
-      ssq, B, (cudaStream_t)stream, ucdir::tc::TC_CONV3X3);
+      c, ssum, ssq, B, (cudaStream_t)stream, ucdir::tc::TC_CONV3X3);
 }
 
 extern "C" int ucdir_conv3x3_preact_bf16(const bf16* x, const bf16* w,

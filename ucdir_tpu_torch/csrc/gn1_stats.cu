@@ -4,14 +4,15 @@
 // Replaces the TPU kernel B7 (ucdir_tpu/ops/stats_pallas.py _stats_forward).
 // The TPU kernel walked the rows of one image in order and carried the sums
 // in its output block; here blocks run in any order, so each block reduces a
-// 256-pixel by 32-channel slab in registers and shared memory and adds its
-// 32 partial sums into the zeroed (B, C) outputs with atomics.
+// 256-pixel by 32-channel slab in registers and shared memory (its warps'
+// sums added in warp order) and stores its 32 partial sums into a (B,
+// slabs, 2, C) workspace, which stats_reduce_kernel (tile_sums.cuh) adds in
+// a fixed order: no atomics, the same bits from call to call.
 // Bound: device-memory bandwidth (2 FLOP per 4-byte read). Each warp reads
 // 32 consecutive channels of one pixel, 128 contiguous bytes.
 //
 // The _bf16 entry point (the TPU kernel's bf16 instantiation: the float sums
-// of bf16 values) adds in a fixed order instead, with no atomics, so its
-// sums have the same bits from call to call:
+// of bf16 values) adds in a fixed order too:
 // - A block of 256 threads takes a slab of pixels by up to 256 channels:
 //   thread t holds chunk t % nk of 8 channels (nk = min(ceil(C / 8), 32)
 //   chunks a block) and pixel row t / nk of R = 256 / nk rows; it reads 16
@@ -37,8 +38,8 @@ constexpr int kWarps = 8;
 constexpr int kPixelsPerBlock = 256;
 
 __global__ void __launch_bounds__(kWarps * 32)
-    gn1_stats_kernel(const float* __restrict__ x, float* __restrict__ ssum,
-                     float* __restrict__ ssq, int P, int C) {
+    gn1_stats_kernel(const float* __restrict__ x, float* __restrict__ ws,
+                     int P, int C) {
   __shared__ float rs[kWarps][32];
   __shared__ float rq[kWarps][32];
   const int lane = threadIdx.x & 31;
@@ -64,8 +65,9 @@ __global__ void __launch_bounds__(kWarps * 32)
       s += rs[i][lane];
       q += rq[i][lane];
     }
-    atomicAdd(&ssum[(int64_t)b * C + c], s);
-    atomicAdd(&ssq[(int64_t)b * C + c], q);
+    float* r = ws + ((int64_t)b * gridDim.x + blockIdx.x) * 2 * C + c;
+    r[0] = s;
+    r[C] = q;
   }
 }
 
@@ -149,25 +151,36 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// x (B, P, C) with P = H * W; ssum, ssq zeroed (B, C). Returns the launch's
-// cudaError_t.
-extern "C" int ucdir_gn1_stats(const float* x, float* ssum, float* ssq, int B,
-                               int P, int C, void* stream) {
-  dim3 grid((P + kPixelsPerBlock - 1) / kPixelsPerBlock, (C + 31) / 32, B);
-  gn1_stats_kernel<<<grid, kWarps * 32, 0, (cudaStream_t)stream>>>(
-      x, ssum, ssq, P, C);
+// x (B, P, C) with P = H * W; ssum, ssq (B, C), written whole (no zeroing);
+// ws a float (B, ceil(P / 256), 2, C) workspace, ws_slabs its slabs as the
+// caller allocated it (another count launches nothing and returns
+// cudaErrorInvalidValue). Returns the first launch error.
+extern "C" int ucdir_gn1_stats(const float* x, float* ssum, float* ssq,
+                               float* ws, int B, int P, int C, int ws_slabs,
+                               void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int slabs = (P + kPixelsPerBlock - 1) / kPixelsPerBlock;
+  if (ws_slabs != slabs) return (int)cudaErrorInvalidValue;
+  gn1_stats_kernel<<<dim3(slabs, (C + 31) / 32, B), kWarps * 32, 0, st>>>(
+      x, ws, P, C);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  ucdir::stats_reduce_kernel<<<dim3((C + 31) / 32, B), 1024, 0, st>>>(
+      ws, ssum, ssq, slabs, C);
   return (int)cudaGetLastError();
 }
 
 // K4 on a bf16 x: ssum, ssq float (B, C), written whole (no zeroing), and
 // ws a float (B, slabs, 2, C) workspace, slabs = ceil(P / slab) with slab =
-// 256 / min(ceil(C / 8), 32) * 32 pixels. Returns the first launch error.
+// 256 / min(ceil(C / 8), 32) * 32 pixels, ws_slabs as for ucdir_gn1_stats.
+// Returns the first launch error.
 extern "C" int ucdir_gn1_stats_bf16(const bf16* x, float* ssum, float* ssq,
                                     float* ws, int B, int P, int C,
-                                    void* stream) {
+                                    int ws_slabs, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int nk = slab_chunks(C), slab = slab_pixels(C);
   const int slabs = (P + slab - 1) / slab;
+  if (ws_slabs != slabs) return (int)cudaErrorInvalidValue;
   const dim3 grid(slabs, ((C + 7) / 8 + nk - 1) / nk, B);
   if (C % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0)
     gn1_slab_kernel<true><<<grid, kThreads, 0, st>>>(x, ws, P, C, nk, slabs);

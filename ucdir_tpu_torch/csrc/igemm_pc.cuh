@@ -42,8 +42,10 @@
 //    (64 -> 3), which the staging bounds.
 // 4. The epilogue: bias, swish, 16-byte stores, and the (B, cout) sum and sum
 //    of squares reduced over the lanes of a warp that hold one column with
-//    shuffles before one shared-memory add per warp and column and one global
-//    atomic per block and column.
+//    shuffles, each warp's sums stored to a shared-memory slot of its own,
+//    the slots added in warp order and the tile's sums stored to a (B,
+//    pixel tiles, 2, cout) workspace, which the caller adds in a fixed order
+//    (tile_sums.cuh): no atomics, the same bits from call to call.
 //
 // The product ran on the tensor cores first (mma.sync m16n8k8 TF32 with a
 // 3xTF32 split, in this pipeline): about as fast as this form (the fragment
@@ -837,10 +839,19 @@ __device__ __forceinline__ int igemm_setup(float* smem, const Geom& g,
   return (g.K + T::BK - 1) / T::BK;
 }
 
+// Per consumer warp, its rows' per-column sums and sums of squares: (NC /
+// 32, 2, BN) floats of dynamic shared memory after T's layout, present where
+// the statistics are taken.
+template <class T>
+struct WarpSums {
+  static constexpr int OFF = T::SMEM_BYTES / 4;
+  static constexpr int BYTES = 4 * (T::NC / 32) * 2 * T::BN;
+};
+
 // Plain convolution epilogue of a consumer thread: + bias (null: none),
-// optional swish, rounded to E, store, and with stats the tile's per-column
-// sum and sum of squares of the stored values added into the buffer at
-// smem + T::RED. vec: N % GW == 0 and out aligned to a group of GW columns.
+// optional swish, rounded to E, store, and with stats the per-column sum and
+// sum of squares of the stored values of the thread's warp stored to its
+// WarpSums slot. vec: N % GW == 0 and out aligned to a group of GW columns.
 // DZ: the backward's dz = go * swish'(acc + bias) in place of the output,
 // go (B, P, N) read as the output is stored, rounded to E once, no
 // statistics.
@@ -852,7 +863,7 @@ __device__ __forceinline__ void conv_epilogue_pc(
     const E* __restrict__ go) {
   const int tn = threadIdx.x % T::NCX;
   const int tm = threadIdx.x / T::NCX;
-  float* red = smem + T::RED;
+  float* red = smem + WarpSums<T>::OFF + (threadIdx.x >> 5) * 2 * T::BN;
   float bj[T::TN], s[T::TN], q[T::TN];
 #pragma unroll
   for (int j = 0; j < T::TN; ++j) {
@@ -924,25 +935,32 @@ __device__ __forceinline__ void conv_epilogue_pc(
       q[j] += shfl_xor(q[j], m);
     }
     if ((threadIdx.x & 31) < T::NCX) {
-      atomicAdd(&red[tile_col<T>(tn, j)], s[j]);
-      atomicAdd(&red[T::BN + tile_col<T>(tn, j)], q[j]);
+      red[tile_col<T>(tn, j)] = s[j];
+      red[T::BN + tile_col<T>(tn, j)] = q[j];
     }
   }
 }
 
-// The whole block, after its consumers' epilogue: the tile's statistics into
-// the zeroed (B, N) buffers, one atomic per column.
+// The whole block, after its consumers' epilogue: the warps' sums added in
+// warp order, the tile's per-column sums stored at pixel tile mt of the
+// (B, ntp, 2, N) workspace.
 template <class T>
 __device__ __forceinline__ void flush_stats(const float* smem,
-                                            float* __restrict__ ssum,
-                                            float* __restrict__ ssq, int N,
-                                            int b, int n0) {
-  const float* red = smem + T::RED;
+                                            float* __restrict__ ws, int N,
+                                            int b, int mt, int ntp, int n0) {
+  const float* red = smem + WarpSums<T>::OFF;
   block_sync<T::NT>();
   for (int c = threadIdx.x; c < T::BN; c += T::NT) {
     if (n0 + c >= N) continue;
-    atomicAdd(&ssum[(int64_t)b * N + n0 + c], red[c]);
-    atomicAdd(&ssq[(int64_t)b * N + n0 + c], red[T::BN + c]);
+    float s = 0.f, q = 0.f;
+#pragma unroll
+    for (int w = 0; w < T::NC / 32; ++w) {
+      s += red[w * 2 * T::BN + c];
+      q += red[w * 2 * T::BN + T::BN + c];
+    }
+    float* r = ws + ((int64_t)b * ntp + mt) * 2 * N + n0 + c;
+    r[0] = s;
+    r[N] = q;
   }
 }
 
@@ -954,8 +972,7 @@ struct ConvArgsT {
   const E* a;         // (B, cin) or null
   const E* t;         // (B, cin) or null
   E* out;             // (B, Ho, Wo, cout)
-  float* ssum;        // zeroed (B, cout) or null
-  float* ssq;
+  float* ws;          // (B, pixel tiles, 2, cout) tile sums, or null: none
   const E* go;        // DZ: (B, Ho, Wo, cout) output cotangent
   Geom g;
   int cout, act;
@@ -989,11 +1006,12 @@ __global__ void __launch_bounds__(T::NT) conv_pc_kernel(ConvArgsT<E> c) {
   } else {
     float acc[T::TM][T::TN];
     consume<T>(acc, smem, nk);
-    conv_epilogue_pc<T, DZ, E>(acc, smem, c.bias, c.out, c.ssum != nullptr,
+    conv_epilogue_pc<T, DZ, E>(acc, smem, c.bias, c.out, c.ws != nullptr,
                             c.act, c.vec_out, c.g.Ho * c.g.Wo, c.cout, b, m0,
                             n0, c.go);
   }
-  if (c.ssum != nullptr) flush_stats<T>(smem, c.ssum, c.ssq, c.cout, b, n0);
+  if (c.ws != nullptr)
+    flush_stats<T>(smem, c.ws, c.cout, b, mt, gridDim.x / c.ntn, n0);
 }
 
 inline bool aligned(const void* p, uintptr_t bytes) {
@@ -1007,8 +1025,17 @@ int launch_tile(ConvArgsT<E> c, int B, cudaStream_t stream) {
               (!DZ || aligned(c.go, sizeof(E) * T::GW));
   c.ntn = (c.cout + T::BN - 1) / T::BN;
   const dim3 grid((unsigned)((P + T::BM - 1) / T::BM) * c.ntn, 1, B);
-  conv_pc_kernel<T, X, DZ, E><<<grid, T::NT, T::SMEM_BYTES, stream>>>(c);
+  const int smem = T::SMEM_BYTES + (c.ws ? WarpSums<T>::BYTES : 0);
+  static_assert(T::SMEM_BYTES + WarpSums<T>::BYTES <= 48 * 1024,
+                "static limit of dynamic smem");
+  conv_pc_kernel<T, X, DZ, E><<<grid, T::NT, smem, stream>>>(c);
   return (int)cudaGetLastError();
+}
+
+// The pixel rows of the tile launch_conv picks for cout: the statistics'
+// workspace holds ceil(Ho * Wo / rows) pixel tiles.
+inline int conv_tile_rows(int cout) {
+  return cout >= 128 ? Wide::BM : cout > 8 ? Mid::BM : Narrow::BM;
 }
 
 // Launches the convolution on the tile that cout selects. c.g, the pointers,

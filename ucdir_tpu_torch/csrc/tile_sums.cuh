@@ -1,6 +1,7 @@
 // The fixed-order second pass of the per-(image, channel) sums and sums of
-// squares that K1 (akgm_tail.cu, both cores) and K4 in bf16 (gn1_stats.cu)
-// store per tile of pixels into a (B, tiles, 2, C) float workspace: no
+// squares that K1 (akgm_tail.cu, both cores), K2 in float32 (conv3x3.cu,
+// igemm_pc.cuh) and K4 (gn1_stats.cu) store per tile of pixels into a (B,
+// tiles, 2, C) float workspace: no
 // atomics, so the sums have the same bits from call to call. An instance
 // per source that includes this header.
 #pragma once

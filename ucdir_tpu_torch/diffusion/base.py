@@ -45,6 +45,9 @@ class GaussianDiffusion(nn.Module):
     guide_in_train: Optional[str] = None
     guide_in_sample: Optional[str] = None
     sample_mode = 'reverse'
+    # tiled DDPM keeps its state tiled (parallel/resident.py); define_G sets
+    # it from UCDIR_TPU_NO_RESIDENT
+    resident = True
 
     def __init__(self, denoise_fn: nn.Module, image_size: int = 128,
                  channels: int = 3, loss_type: str = 'l1',

@@ -199,8 +199,13 @@ def super_resolution(model, sched: NoiseSchedule, x_in: torch.Tensor,
 
     sampler: 'ddpm' | 'ddim' | 'dpmpp' | 'dpmpp_sde'; the last three take
     `sampling_timesteps` steps, ddim also `eta`. tile_opts: {skip, padding,
-    tile_chunk} runs every denoiser call tiled (parallel/tiled.py); None
-    tiles, with the defaults, only inputs above UNTILED_MAX_PX.
+    tile_chunk, distributed} runs the denoiser tiled; None tiles, with the
+    defaults, only inputs above UNTILED_MAX_PX. Tiled DDPM keeps its state
+    tiled (parallel/resident.py) unless the model's `resident` is False
+    (UCDIR_TPU_NO_RESIDENT=1, read by define_G); the other samplers, and
+    DDPM then, tile inside every denoiser call (parallel/tiled.py).
+    distributed: one image's tiles over the ranks of the process group,
+    every rank calling with the same input and draws.
     compute_dtype: e.g. torch.bfloat16 runs the networks in that dtype (the
     module docstring); the results stay float32."""
     net, x_net = _nets(model, x_in, compute_dtype)
@@ -227,12 +232,20 @@ def super_resolution(model, sched: NoiseSchedule, x_in: torch.Tensor,
     if tile_opts is None and h * w > UNTILED_MAX_PX:
         tile_opts = {}
     if tile_opts is not None:
+        grid = dict(skip=tile_opts.get('skip', 1024),
+                    padding=tile_opts.get('padding', 64),
+                    tile_chunk=tile_opts.get('tile_chunk', 1),
+                    distributed=bool(tile_opts.get('distributed', False)))
+    if tile_opts is not None and sampler == 'ddpm' and model.resident:
+        # the state stays tiled for the whole reverse process, only window
+        # overlaps move between steps: the reassembling path's bits
+        from ucdir_tpu_torch.parallel.resident import resident_reverse
+        out = resident_reverse(net.denoise_fn, sched, x_in, x_net,
+                               guide_net, noise, continous=continous, **grid)
+        return _add_initx(out, initx, continous)
+    if tile_opts is not None:
         from ucdir_tpu_torch.parallel.tiled import tiled_denoise_fn
-        tiled = tiled_denoise_fn(
-            net.denoise_fn, x_net, guide_net,
-            skip=tile_opts.get('skip', 1024),
-            padding=tile_opts.get('padding', 64),
-            tile_chunk=tile_opts.get('tile_chunk', 1))
+        tiled = tiled_denoise_fn(net.denoise_fn, x_net, guide_net, **grid)
 
         def denoise(img, noise_level):
             return tiled(img.to(dt), noise_level.to(dt)).to(img.dtype)
@@ -259,6 +272,12 @@ def super_resolution(model, sched: NoiseSchedule, x_in: torch.Tensor,
                                    sde=(sampler == 'dpmpp_sde'))
     else:
         raise NotImplementedError(sampler)
+    return _add_initx(out, initx, continous)
+
+
+def _add_initx(out, initx, continous: bool):
+    """(sr, initx) or (sr, initx, snapshots) from a reverse loop's output,
+    initx added where the variant has one."""
     img, snaps = out if continous else (out, None)
     if initx is not None:
         img = img + initx

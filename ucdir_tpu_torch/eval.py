@@ -35,7 +35,9 @@ def eval_step(model, sched: NoiseSchedule, sr_img: torch.Tensor, *,
     """sr_img (B, H, W, 3) in [-1, 1] -> (sr, initx) or (sr, initx,
     snapshots), each cropped back to H x W; initx None for a variant with no
     predictor. NoDiffusion's refine pass is never tiled. tile: {skip, padding,
-    tile_chunk} for the tiled path (defaults 1024, 64, 1). compute_dtype:
+    tile_chunk, distributed} for the tiled path (defaults 1024, 64, 1,
+    False; distributed: the tiles over the process group's ranks, which
+    all call with the same input and draws). compute_dtype:
     the networks' dtype (None: the weights', float32), as
     `super_resolution` takes it; the results are float32."""
     x = reflect_pad(sr_img, pad, pad, pad, pad) if pad else sr_img

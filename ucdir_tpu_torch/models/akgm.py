@@ -35,6 +35,7 @@ from ucdir_tpu_torch.ops.akgm import (akgm_block_tail,
                                       akgm_block_tail_packed, akgm_mix,
                                       pack_grouped_weight)
 from ucdir_tpu_torch.ops.conv import swish
+from ucdir_tpu_torch.ops.gn_scope import tile_gn
 from ucdir_tpu_torch.ops.stats import gn1_stats
 
 TAILS = ('fused', 'mix', 'packed')
@@ -112,12 +113,22 @@ class ResnetBlockDY3h(nn.Module):
         return cached(self, 'packed', lambda: pack_grouped_weight(
             self.spdy_weight(), self.nset), self.spdyconv.weight)
 
-    def forward(self, x, time_emb, guide, g_maps=None, in_stats=None):
+    def forward(self, x, time_emb, guide, g_maps=None, in_stats=None,
+                gn_win=None):
         """x (B, H, W, dim) NHWC; in_stats: chained ((B,) sum, (B,) sumsq) of
-        x or None. Returns (out, ((B,) sum, (B,) sumsq) of out), the
-        statistics None where norm_groups > 1."""
+        x or None; gn_win: the GroupNorm(1) window of UCDIR_TPU_GN_SCOPE=tile
+        (ops/gn_scope.py) or None. Returns (out, ((B,) sum, (B,) sumsq) of
+        out), the statistics None where norm_groups > 1."""
         attw = self.noise_func(time_emb)                        # (B, nset)
-        if self.norm_groups == 1:
+        if self.norm_groups == 1 and gn_win is not None:
+            # per-window statistics vary over the map, so no per-(batch,
+            # channel) affine folds: normalize explicitly, K2 with swish and
+            # no fold, K1 with no fold; chained canvas totals are ignored
+            h = self.conv1(tile_gn(x, self.norm1.weight, self.norm1.bias,
+                                   gn_win), act='swish')
+            h = tile_gn(h, self.norm2.weight, self.norm2.bias, gn_win)
+            a2 = t2 = None
+        elif self.norm_groups == 1:
             a1, t1 = norm1_affine(x, self.norm1.weight, self.norm1.bias,
                                   in_stats)
             h, h_stats = self.conv1(x, act='swish', norm_scale=a1,
@@ -132,7 +143,8 @@ class ResnetBlockDY3h(nn.Module):
             g_maps = guide_maps(self, guide, x.shape[1:3])
         res = self.res_conv(x)
         attw = attw.contiguous()
-        chain = self.norm_groups == 1
+        # the statistics chain carries canvas totals: none under a window
+        chain = self.norm_groups == 1 and gn_win is None
         if self.tail == 'fused':
             y = akgm_block_tail(
                 h, g_maps, self.spdy_weight(), self.spdyconv.bias, res,

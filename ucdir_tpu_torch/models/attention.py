@@ -24,6 +24,7 @@ from torch import nn
 
 from ucdir_tpu_torch.models.akgm import norm1_affine_f32
 from ucdir_tpu_torch.models.layers import group_norm, group_norm1
+from ucdir_tpu_torch.ops.gn_scope import tile_gn
 
 _STREAM_TOKENS = 4096
 _CHUNK = 1024
@@ -125,13 +126,16 @@ class SelfAttention(nn.Module):
         self.qkv = nn.Conv2d(in_channel, in_channel * 3, 1, bias=False)
         self.out = nn.Conv2d(in_channel, in_channel, 1)
 
-    def forward(self, x):
-        """x (B, H, W, C) NHWC -> x + out(attention(norm(x)))."""
+    def forward(self, x, gn_win=None):
+        """x (B, H, W, C) NHWC -> x + out(attention(norm(x))); gn_win: the
+        GroupNorm(1) window of UCDIR_TPU_GN_SCOPE=tile or None."""
         b, h, w, c = x.shape
         nh, hd = self.n_head, c // self.n_head
         # one K4 pass and an affine: PyTorch's group_norm reduces each
         # (batch, group) in one thread block, one block for GroupNorm(1)
-        if self.norm.num_groups == 1:
+        if self.norm.num_groups == 1 and gn_win is not None:
+            norm = tile_gn(x, self.norm.weight, self.norm.bias, gn_win)
+        elif self.norm.num_groups == 1:
             norm = group_norm1(x, *norm1_affine_f32(x, self.norm.weight,
                                                     self.norm.bias))
         else:

@@ -34,6 +34,7 @@ from ucdir_tpu_torch.models.layers import (Conv3, Downsample,
                                            Upsample, crop_pad, dropout_mask,
                                            group_norm1, pad_to_multiple)
 from ucdir_tpu_torch.ops.conv import conv3x3_preact, swish
+from ucdir_tpu_torch.ops.gn_scope import SCOPES, gn_tile_window, tile_gn
 
 RESNAMES = ('ResnetBlockDY3h', 'ResnetBlock')
 
@@ -56,13 +57,15 @@ class ResnetBlocWithAttn(nn.Module):
                      if with_attn else None)
 
     def forward(self, x, time_emb, guide, g_maps=None, in_stats=None,
-                dropout_generator=None):
+                dropout_generator=None, gn_win=None):
         if isinstance(self.res_block, ResnetBlock):
-            x, xs = self.res_block(x, time_emb, dropout_generator), None
+            x, xs = self.res_block(x, time_emb, dropout_generator,
+                                   gn_win), None
         else:
-            x, xs = self.res_block(x, time_emb, guide, g_maps, in_stats)
+            x, xs = self.res_block(x, time_emb, guide, g_maps, in_stats,
+                                   gn_win)
         if self.attn is not None:
-            x, xs = self.attn(x), None
+            x, xs = self.attn(x, gn_win), None
         return x, xs
 
 
@@ -78,16 +81,23 @@ class DY3h(nn.Module):
                  channel_mults: Sequence[int] = (1, 2, 4, 8, 8),
                  attn_res: Sequence[int] = (8,), res_blocks: int = 3,
                  dropout: float = 0.0, image_size: int = 128,
-                 tail: str = 'fused', resname: str = 'ResnetBlockDY3h'):
+                 tail: str = 'fused', resname: str = 'ResnetBlockDY3h',
+                 gn_scope: str = 'canvas', gn_tile: int = 1024):
         """tail: how every AKGM block runs its tail, 'fused' | 'mix' |
         'packed' (models/akgm.py). dropout == 0 folds the head into one
         pre-activated conv (K7). resname: the residual block, one of
-        RESNAMES."""
+        RESNAMES. gn_scope, gn_tile: the statistics scope of every
+        GroupNorm(1), 'canvas' or 'tile' with gn_tile-px canvas windows
+        (ops/gn_scope.py)."""
         super().__init__()
         if resname not in RESNAMES:
             raise ValueError('resname must be one of %s, got %r'
                              % (RESNAMES, resname))
+        if gn_scope not in SCOPES:
+            raise ValueError('gn_scope must be one of %s, got %r'
+                             % (SCOPES, gn_scope))
         self.resname = resname
+        self.gn_scope, self.gn_tile = gn_scope, int(gn_tile)
         self.inner_channel = inner_channel
         self.channel_mults = tuple(channel_mults)
         self.attn_res = tuple(attn_res)
@@ -179,6 +189,14 @@ class DY3h(nn.Module):
         generator)."""
         gm = guide_maps or {}
         t = self.noise_level_mlp(noise_level)
+        # this call's input is the canvas of the tile-scoped GroupNorms
+        canvas = x.shape[1:3]
+
+        def win(a):
+            if self.gn_scope != 'tile':
+                return None
+            return gn_tile_window(canvas, a.shape[1], a.shape[2],
+                                  self.gn_tile)
 
         x, xs = self.downs[0](x, emit_stats=True)
         xs = totals(xs)
@@ -189,11 +207,11 @@ class DY3h(nn.Module):
                 xs = totals(xs)
             else:
                 x, xs = layer(x, t, guide, gm.get(f'downs.{i}'), xs,
-                              dropout_generator)
+                              dropout_generator, win(x))
             feats.append((x, xs))
         for i, layer in enumerate(self.mid):
             x, xs = layer(x, t, guide, gm.get(f'mid.{i}'), xs,
-                          dropout_generator)
+                          dropout_generator, win(x))
         for i, layer in enumerate(self.ups):
             if isinstance(layer, Upsample):
                 x, xs = layer(x, emit_stats=True)
@@ -202,13 +220,20 @@ class DY3h(nn.Module):
                 skip, ss = feats.pop()
                 x, xs = layer(torch.cat([x, skip], dim=-1), t, guide,
                               gm.get(f'ups.{i}'), _cat_stats(xs, ss),
-                              dropout_generator)
+                              dropout_generator, win(x))
 
         # head: GroupNorm -> swish -> dropout -> conv3x3. Without dropout it
         # is one pre-activated conv (K7): neither the normalized nor the
         # activated tensor is written. Dropout in between forces K2 on the
         # activated tensor.
         norm, _, drop, conv = self.final_conv
+        if drop.p == 0 and win(x) is not None:
+            # tile scope: normalize per window, then K7 with an identity
+            # affine
+            x = tile_gn(x, norm.weight, norm.bias, win(x))
+            one = x.new_ones(x.shape[0], x.shape[-1])
+            return conv3x3_preact(x, conv.kernel_weight(), conv.bias, one,
+                                  torch.zeros_like(one))
         a, t_ = norm1_affine_f32(x, norm.weight, norm.bias, xs)
         if drop.p == 0:
             return conv3x3_preact(x, conv.kernel_weight(), conv.bias,

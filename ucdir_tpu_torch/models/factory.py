@@ -6,6 +6,7 @@ import os
 from typing import Any, Dict
 
 from ucdir_tpu_torch.models.dy3h import DY3h
+from ucdir_tpu_torch.ops.gn_scope import gn_scope_from_env
 
 UNETS = {'DY3h': DY3h}
 
@@ -21,12 +22,21 @@ def tail_from_env() -> str:
     return 'fused'
 
 
+def resident_from_env() -> bool:
+    """Whether tiled DDPM keeps its state tiled (parallel/resident.py):
+    yes unless UCDIR_TPU_NO_RESIDENT=1, the JAX package's switch."""
+    return os.environ.get('UCDIR_TPU_NO_RESIDENT') != '1'
+
+
 def define_G(opt: Dict[str, Any]):
     """The diffusion module of a parsed config (opt['model']): the
     `diffusion_name` class of DIFFUSIONS (default GaussianDiffusion) around
     the `unet_name` network of UNETS (default DY3h), the JAX package's
     defaults. The AKGM tail is the config's `unet.tail` or, without one,
-    `tail_from_env()`, read once here. PerceptualGaussianDiffusion loads
+    `tail_from_env()`, read once here; so are the GroupNorm(1) scope and
+    window (`unet.gn_scope`, `unet.gn_tile`, else UCDIR_TPU_GN_SCOPE and
+    UCDIR_TPU_GN_TILE, ops/gn_scope.py), and the model's `resident`
+    (`resident_from_env`). PerceptualGaussianDiffusion loads
     its LPIPS from `model.lpips_weights` or UCDIR_TPU_LPIPS_WEIGHTS and
     raises without them."""
     from ucdir_tpu_torch.diffusion.base import DIFFUSIONS
@@ -47,15 +57,20 @@ def define_G(opt: Dict[str, Any]):
     unet_cfg['attn_res'] = tuple(unet_cfg.get('attn_res') or (8,))
     unet_cfg.setdefault('image_size', model_opt['diffusion']['image_size'])
     unet_cfg.setdefault('tail', tail_from_env())
+    scope, tile = gn_scope_from_env()
+    unet_cfg.setdefault('gn_scope', scope)
+    unet_cfg.setdefault('gn_tile', tile)
     diff_cfg = dict(model_opt['diffusion'])
     perceptual_fn = None
     if diffusion_name == 'PerceptualGaussianDiffusion':
         from ucdir_tpu_torch.metrics.lpips import make_lpips
         perceptual_fn = make_lpips(model_opt.get('lpips_weights'))
-    return DIFFUSIONS[diffusion_name](
+    model = DIFFUSIONS[diffusion_name](
         denoise_fn=UNETS[unet_name](**unet_cfg),
         image_size=diff_cfg.get('image_size', 128),
         channels=diff_cfg.get('channels', 3),
         loss_type=diff_cfg.get('loss_type', 'l1'),
         conditional=bool(diff_cfg.get('conditional', True)),
         perceptual_fn=perceptual_fn)
+    model.resident = resident_from_env()
+    return model

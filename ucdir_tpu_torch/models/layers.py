@@ -24,6 +24,7 @@ from torch import nn
 
 from ucdir_tpu_torch.ops.conv import (conv1x1, conv3x3, pack_up_kernel,
                                       swish, upconv2x)
+from ucdir_tpu_torch.ops.gn_scope import tile_gn
 from ucdir_tpu_torch.ops.stats import gn1_stats
 from ucdir_tpu_torch.parallel.mesh import DataShard
 
@@ -280,11 +281,16 @@ class Block(nn.Module):
             nn.Dropout(dropout) if dropout else nn.Identity(),
             Conv3(dim, dim_out))
 
-    def forward(self, x, dropout_generator=None):
+    def forward(self, x, dropout_generator=None, gn_win=None):
         """x (B, H, W, dim) NHWC. In train() mode the dropout mask comes from
         `dropout_generator` (a torch.Generator, a DataShard of one, or None:
-        the global generator)."""
-        h = swish(group_norm(x, self.block[0]))
+        the global generator). gn_win: the GroupNorm(1) window of
+        UCDIR_TPU_GN_SCOPE=tile (ops/gn_scope.py) or None."""
+        norm = self.block[0]
+        if norm.num_groups == 1 and gn_win is not None:
+            h = swish(tile_gn(x, norm.weight, norm.bias, gn_win))
+        else:
+            h = swish(group_norm(x, norm))
         if self.training and self.p > 0:
             h = h * dropout_mask(h, self.p, dropout_generator)
         return self.block[3](h.contiguous())
@@ -308,6 +314,7 @@ class ResnetBlock(nn.Module):
         self.res_conv = (Conv1(dim, dim_out) if dim != dim_out
                          else nn.Identity())
 
-    def forward(self, x, time_emb, dropout_generator=None):
-        h = self.noise_func(self.block1(x), time_emb)
-        return self.block2(h, dropout_generator) + self.res_conv(x)
+    def forward(self, x, time_emb, dropout_generator=None, gn_win=None):
+        h = self.noise_func(self.block1(x, gn_win=gn_win), time_emb)
+        return (self.block2(h, dropout_generator, gn_win)
+                + self.res_conv(x))

@@ -72,9 +72,12 @@ _SIGNATURES = {
     'akgm_packed': [_P] * 9 + [_I] * 4 + [_P],
 }
 _SIGNATURES.update({k + '_bf16': _SIGNATURES[k] for k in BF16_KERNELS})
-# K2's and K4's bf16 forms take a workspace for their fixed-order sums
-_SIGNATURES['conv3x3_bf16'] = [_P] * 9 + [_I] * 7 + [_P]
-_SIGNATURES['gn1_stats_bf16'] = [_P] * 4 + [_I] * 3 + [_P]
+# K2 and K4 take a workspace for their fixed-order sums and its tile count,
+# which the entry point checks against its own
+for _k in ('conv3x3', 'conv3x3_bf16'):
+    _SIGNATURES[_k] = [_P] * 9 + [_I] * 8 + [_P]
+for _k in ('gn1_stats', 'gn1_stats_bf16'):
+    _SIGNATURES[_k] = [_P] * 4 + [_I] * 4 + [_P]
 
 
 def reset_launches():

@@ -120,8 +120,19 @@ STATS_TILE = (8, 16)
 
 
 def stats_tiles(Ho, Wo):
-    """The pixel tiles of an Ho x Wo output."""
+    """The pixel tiles of an Ho x Wo output (the entry point checks the
+    count as for `pc_stats_tiles`)."""
     return -(-Ho // STATS_TILE[0]) * -(-Wo // STATS_TILE[1])
+
+
+def pc_stats_tiles(Ho, Wo, cout):
+    """The pixel tiles of K2's float32 form (`csrc/igemm_pc.cuh`
+    `conv_tile_rows`: 128 output pixels a tile at cout >= 128 or cout <= 8,
+    else 256), whose statistics it stores into a (B, tiles, 2, cout) float32
+    workspace and adds in a fixed order. The entry point is passed the
+    count and launches nothing where it differs from its own."""
+    rows = 128 if cout >= 128 or cout <= 8 else 256
+    return -(-(Ho * Wo) // rows)
 
 
 def _conv3x3_forward(x, w, bias, stride, act, norm_scale, norm_shift,
@@ -146,21 +157,21 @@ def _conv3x3_forward(x, w, bias, stride, act, norm_scale, norm_shift,
     out = torch.empty(B, Ho, Wo, cout, device=dev, dtype=dt)
     s = q = ws = None
     if emit_stats:
-        # float32: zeroed sums the kernel adds into; bf16: per-tile sums in
-        # a workspace, added in a fixed order into sums it writes whole
-        new = torch.zeros if dt == torch.float32 else torch.empty
-        s = new(B, cout, device=dev, dtype=torch.float32)
-        q = new(B, cout, device=dev, dtype=torch.float32)
-        if dt == torch.bfloat16:
-            ws = torch.empty(B, 2, cout, stats_tiles(Ho, Wo), device=dev,
-                             dtype=torch.float32)
-    ptrs = (_build.ptr(s), _build.ptr(q))
-    if dt == torch.bfloat16:
-        ptrs += (_build.ptr(ws),)
+        # per-tile sums in a workspace, added in a fixed order into sums the
+        # kernel writes whole
+        s = torch.empty(B, cout, device=dev, dtype=torch.float32)
+        q = torch.empty(B, cout, device=dev, dtype=torch.float32)
+        shape = ((B, 2, cout, stats_tiles(Ho, Wo)) if dt == torch.bfloat16
+                 else (B, pc_stats_tiles(Ho, Wo, cout), 2, cout))
+        ws = torch.empty(shape, device=dev, dtype=torch.float32)
     _build.launch(kernel, x.data_ptr(), w.data_ptr(), bias.data_ptr(),
                   _build.ptr(norm_scale), _build.ptr(norm_shift),
-                  out.data_ptr(), *ptrs, B, H, W, cin, cout, stride,
-                  int(act == 'swish'), _build.stream(x),
+                  out.data_ptr(), _build.ptr(s), _build.ptr(q),
+                  _build.ptr(ws), B, H, W, cin, cout, stride,
+                  int(act == 'swish'),
+                  0 if ws is None else ws.shape[3 if dt == torch.bfloat16
+                                                else 1],
+                  _build.stream(x),
                   form=_build.form(norm_scale, act))
     return out, s, q
 

@@ -11,6 +11,7 @@ and result files of the repo's `sr.py`:
                          [--search_ends 0.2,0.4,0.6]] [--compute_dtype bf16]
     torchrun --nproc_per_node N -m ucdir_tpu_torch.sr -p train|val \\
         --distributed ...
+    [-enable_wandb [-log_wandb_ckpt] [-log_eval]]
 
 Training saves the reference's checkpoint triple
 `I{iter}_E{epoch}_{gen,gen_ema,opt}.pth` and resumes from the prefix in the
@@ -28,9 +29,16 @@ sampler in float32, training runs them on a bfloat16 cast of the float32
 weights, which with the optimizer state, the EMA and the checkpoints stay
 float32. Validation inputs
 above 4.3 M px after the 64-px pad are restored tiled (1024-px tiles, 64-px
-halos) inside every denoising step; `--val_patch` instead runs a whole
-reverse process per tile, and `--search_params` sweeps the validation
-schedule.
+halos) inside every denoising step (DDPM keeps its state tiled across the
+steps, parallel/resident.py); `--val_patch` instead runs a whole reverse
+process per tile, and `--search_params` sweeps the validation schedule. With
+a `tile` dict in the config ({skip, padding, tile_chunk}) every input above
+skip x skip is tiled, and under --distributed the ranks then restore each
+validation image together, its tiles split over them, every rank walking
+the whole set and rank 0 saving. TensorBoard scalars and images go to the
+config's `path.tb_logger` where tensorboardX imports; `-enable_wandb` logs
+to W&B where `wandb` imports (else a warning), `-log_wandb_ckpt` uploads
+the latest checkpoints and `-log_eval` the validation table.
 """
 from __future__ import annotations
 
@@ -50,6 +58,12 @@ def _parser():
     p.add_argument('-p', '--phase', type=str, choices=['train', 'val'],
                    default='val')
     p.add_argument('-debug', '-d', action='store_true', dest='debug')
+    p.add_argument('-enable_wandb', action='store_true',
+                   help='log to W&B (needs the wandb package)')
+    p.add_argument('-log_wandb_ckpt', action='store_true',
+                   help='with -enable_wandb: upload the latest checkpoints')
+    p.add_argument('-log_eval', action='store_true',
+                   help='with -enable_wandb: log the validation table')
     p.add_argument('--checkpoint', type=str, default=None,
                    help='validation checkpoint prefix (loads '
                         '<prefix>_gen_ema.pth) or a .pth path')
@@ -97,6 +111,74 @@ def _global_mean(*sums_and_count):
     return tuple(v / count for v in vec[:-1])
 
 
+def _val_mean(diffusion, *sums_and_count):
+    """The validation mean: every rank's images' (`_global_mean`), or,
+    where the ranks restore the same images together, this rank's, taken
+    once."""
+    if diffusion.shares_images:
+        count = max(sums_and_count[-1], 1)
+        return tuple(v / count for v in sums_and_count[:-1])
+    return _global_mean(*sums_and_count)
+
+
+class _Logs:
+    """The run's TensorBoard writer and W&B logger, each None where it is
+    off or its package is absent; on rank 0 only."""
+
+    def __init__(self, opt, rank, logger):
+        self.tb = self.wandb = None
+        self.val_step = 0
+        if rank != 0:
+            return
+        tb_dir = opt['path'].get('tb_logger')
+        if tb_dir:
+            try:
+                from tensorboardX import SummaryWriter
+                self.tb = SummaryWriter(log_dir=tb_dir)
+            except ImportError:
+                self.tb = None
+        if opt['enable_wandb']:
+            try:
+                import wandb
+
+                from ucdir_tpu_torch.utils.wandb_logger import WandbLogger
+                self.wandb = WandbLogger(opt)
+                # validation metrics on their own step axis (reference
+                # sr.py:363-370)
+                wandb.define_metric('validation/val_step')
+                wandb.define_metric('epoch')
+                wandb.define_metric('validation/*', step_metric='val_step')
+            except ImportError as e:
+                logger.warning('wandb unavailable: %s', e)
+
+    def scalars(self, logs, step):
+        if self.tb is not None:
+            for k, v in logs.items():
+                self.tb.add_scalar(k, v, step)
+        if self.wandb is not None:
+            self.wandb.log_metrics(dict(logs))
+
+    def val_image(self, tag, idx, fake_img, sr_img, hr_img):
+        """(predictor | restored | target) side by side."""
+        row = np.concatenate((fake_img, sr_img, hr_img), axis=1)
+        if self.tb is not None:
+            self.tb.add_image(tag, np.transpose(row, [2, 0, 1]), idx)
+        if self.wandb is not None:
+            self.wandb.log_image('validation_{}'.format(idx), row)
+
+    def val_psnr(self, psnr, step):
+        if self.tb is not None:
+            self.tb.add_scalar('psnr', psnr, step)
+        if self.wandb is not None:
+            self.wandb.log_metrics({'validation/val_psnr': psnr,
+                                    'validation/val_step': self.val_step})
+            self.val_step += 1
+
+    def close(self):
+        if self.tb is not None:
+            self.tb.close()
+
+
 def val_patch(opt, val_loader, val_set, diffusion, Metrics, logger,
               skip: int = 1024, padding: int = 64):
     """Outer-loop tiled sampling: each tile runs its own full reverse process
@@ -129,8 +211,9 @@ def val_patch(opt, val_loader, val_set, diffusion, Metrics, logger,
         fname = ''.join(os.path.basename(
             val_set.sr_path[int(val_data['Index'][0])]).split('.')[:-1])
         base = '{}/{}_{}'.format(result_path, fname, opt['name'])
-        Metrics.save_jpg(sr_img, base + '_sr.png')
-        Metrics.save_jpg(hr_img, base + '_hr.png')
+        if _saves(diffusion):
+            Metrics.save_jpg(sr_img, base + '_sr.png')
+            Metrics.save_jpg(hr_img, base + '_hr.png')
         avg_psnr += Metrics.calculate_psnr(sr_img, hr_img)
     avg_psnr /= max(idx, 1)
     logger.info('# val_patch # PSNR: {:.4e}'.format(avg_psnr))
@@ -162,8 +245,9 @@ def search_params(opt, val_loader, diffusion, Metrics, logger,
                 sr_img = Metrics.tensor2img(visuals['SR'])
                 hr_img = Metrics.tensor2img(visuals['HR'])
                 psnr += Metrics.calculate_psnr(sr_img, hr_img)
-                Metrics.save_jpg(sr_img, '{}/s{}_e{}_{}_sr.png'.format(
-                    result_path, nt, le, idx))
+                if _saves(diffusion):
+                    Metrics.save_jpg(sr_img, '{}/s{}_e{}_{}_sr.png'.format(
+                        result_path, nt, le, idx))
                 if idx >= 3:
                     break
             found[(nt, le)] = psnr / max(idx, 1)
@@ -172,13 +256,23 @@ def search_params(opt, val_loader, diffusion, Metrics, logger,
     return found
 
 
-def _train(opt, diffusion, train_loader, val_loader, Metrics, logger):
+def _saves(diffusion) -> bool:
+    """Whether this rank writes the validation images: each rank its own
+    share's, or rank 0 alone where the ranks restore the same images (a
+    trainer without `shares_images` restores its own)."""
+    return not getattr(diffusion, 'shares_images', False) or \
+        diffusion.rank == 0
+
+
+def _train(opt, diffusion, train_loader, val_loader, Metrics, logger,
+           logs):
     """The training loop of the repo's sr.py: print every print_freq steps,
     validate with the live weights every val_freq steps and at step 50, save
-    at save_models and save_checkpoint_freq. Under a process group each rank
-    validates its shard, the logged PSNR is the whole set's, the images are
-    named after `current_step + rank` (the JAX package's naming, kept), and
-    rank 0 saves while the others wait."""
+    at save_models and save_checkpoint_freq; `logs` at the JAX CLI's points.
+    Under a process group each rank validates its shard (or, sharing each
+    image, the whole set, rank 0 saving), the logged PSNR is the whole
+    set's, the images are named after `current_step + rank` (the JAX
+    package's naming, kept), and rank 0 saves while the others wait."""
     rank = diffusion.rank
     current_step = diffusion.begin_step
     current_epoch = diffusion.begin_epoch
@@ -203,6 +297,7 @@ def _train(opt, diffusion, train_loader, val_loader, Metrics, logger):
                 for k, v in diffusion.get_current_log().items():
                     message += '{:s}: {:.4e} '.format(k, v)
                 logger.info(message)
+                logs.scalars(diffusion.get_current_log(), current_step)
 
             if (current_step % opt['train']['val_freq'] == 0
                     or current_step == 50):
@@ -220,22 +315,26 @@ def _train(opt, diffusion, train_loader, val_loader, Metrics, logger):
                     visuals = diffusion.get_current_visuals()
                     sr_img = Metrics.tensor2img(visuals['SR'])
                     hr_img = Metrics.tensor2img(visuals['HR'])
+                    fake_img = Metrics.tensor2img(visuals['INF'])
                     base = '{}/{}_{}_{}'.format(
                         result_path, current_step + rank, idx, opt['name'])
-                    Metrics.save_img(hr_img, base + '_hr.png')
-                    Metrics.save_img(sr_img, base + '_sr.png')
-                    Metrics.save_img(Metrics.tensor2img(visuals['LR']),
-                                     base + '_lr.png')
-                    Metrics.save_img(Metrics.tensor2img(visuals['INF']),
-                                     base + '_inf.png')
+                    if _saves(diffusion):
+                        Metrics.save_img(hr_img, base + '_hr.png')
+                        Metrics.save_img(sr_img, base + '_sr.png')
+                        Metrics.save_img(Metrics.tensor2img(visuals['LR']),
+                                         base + '_lr.png')
+                        Metrics.save_img(fake_img, base + '_inf.png')
+                    logs.val_image('Iter_{}'.format(current_step + rank),
+                                   idx, fake_img, sr_img, hr_img)
                     avg_psnr += Metrics.calculate_psnr(sr_img, hr_img)
-                (avg_psnr,) = _global_mean(avg_psnr, idx)
+                (avg_psnr,) = _val_mean(diffusion, avg_psnr, idx)
                 diffusion.set_new_noise_schedule(schedules['train'],
                                                  schedule_phase='train')
                 logger.info('# Validation # PSNR: {:.4e}'.format(avg_psnr))
                 logging.getLogger('val').info(
                     '<epoch:{:3d}, iter:{:8,d}> psnr: {:.4e}'.format(
                         current_epoch, current_step, avg_psnr))
+                logs.val_psnr(avg_psnr, current_step)
 
             # rank 0 saves; no rank goes on past a half-written triple
             if current_step % opt['train']['save_models'] == 0:
@@ -246,14 +345,20 @@ def _train(opt, diffusion, train_loader, val_loader, Metrics, logger):
                 if rank == 0:
                     logger.info('Saving models and training states.')
                     diffusion.save_network('latest', '')
+                    if logs.wandb is not None and opt['log_wandb_ckpt']:
+                        logs.wandb.log_checkpoint(current_epoch,
+                                                  current_step)
                 barrier()
+        if logs.wandb is not None:
+            logs.wandb.log_metrics({'epoch': current_epoch - 1})
     logger.info('End of training.')
 
 
-def _validate(opt, diffusion, val_loader, val_set, Metrics, logger):
-    """Restores every image of the rank's shard, batch by batch, saves each
-    image's results under its own name and logs the mean PSNR and SSIM over
-    every rank's images (JAX sr.py:390-430)."""
+def _validate(opt, diffusion, val_loader, val_set, Metrics, logger, logs):
+    """Restores every image of the rank's shard (or, sharing each image,
+    of the whole set), batch by batch, saves each image's results under its
+    own name and logs the mean PSNR and SSIM over every rank's images (JAX
+    sr.py:390-430), to W&B too where `logs` has it."""
     logger.info('Begin Model Evaluation. len ' + str(len(val_loader)))
     avg_psnr = avg_ssim = 0.0
     idx = 0
@@ -281,19 +386,30 @@ def _validate(opt, diffusion, val_loader, val_set, Metrics, logger):
             sr_final = Metrics.tensor2img(sr_last[j] if batch > 1
                                           else sr_last)
             base = '{}/{}_{}'.format(result_path, fname, opt['name'])
-            Metrics.save_jpg(sr_final, base + '_sr.png')
-            Metrics.save_jpg(hr_img, base + '_hr.png')
-            Metrics.save_jpg(lr_img, base + '_lr.png')
-            Metrics.save_jpg(fake_img, base + '_inf.png')
-            avg_psnr += Metrics.calculate_psnr(sr_final, hr_img)
-            avg_ssim += Metrics.calculate_ssim(sr_final, hr_img)
+            if _saves(diffusion):
+                Metrics.save_jpg(sr_final, base + '_sr.png')
+                Metrics.save_jpg(hr_img, base + '_hr.png')
+                Metrics.save_jpg(lr_img, base + '_lr.png')
+                Metrics.save_jpg(fake_img, base + '_inf.png')
+            psnr = Metrics.calculate_psnr(sr_final, hr_img)
+            ssim = Metrics.calculate_ssim(sr_final, hr_img)
+            avg_psnr += psnr
+            avg_ssim += ssim
+            if logs.wandb is not None and opt['log_eval']:
+                logs.wandb.log_eval_data(fake_img, sr_final, hr_img, psnr,
+                                         ssim)
 
-    avg_psnr, avg_ssim = _global_mean(avg_psnr, avg_ssim, idx)
+    avg_psnr, avg_ssim = _val_mean(diffusion, avg_psnr, avg_ssim, idx)
     logger.info('# Validation # PSNR: {:.4e}'.format(avg_psnr))
     logger.info('# Validation # SSIM: {:.4e}'.format(avg_ssim))
     logging.getLogger('val').info(
         '<epoch:{:3d}, iter:{:8,d}> psnr: {:.4e}, ssim: {:.4e}'.format(
             0, 0, avg_psnr, avg_ssim))
+    if logs.wandb is not None:
+        if opt['log_eval']:
+            logs.wandb.log_eval_table()
+        logs.wandb.log_metrics({'PSNR': float(avg_psnr),
+                                'SSIM': float(avg_ssim)})
     return avg_psnr, avg_ssim
 
 
@@ -326,7 +442,7 @@ def _run(args, device):
     from ucdir_tpu_torch import config as Logger
     from ucdir_tpu_torch import data as Data
     from ucdir_tpu_torch.metrics import core as Metrics
-    from ucdir_tpu_torch.trainer import create_model
+    from ucdir_tpu_torch.trainer import create_model, ranks_share_images
     from ucdir_tpu_torch.utils.dist import get_dist_info
     from ucdir_tpu_torch.utils.logging import setup_logger
 
@@ -339,7 +455,10 @@ def _run(args, device):
 
     opt = Logger.parse(args.config, phase=args.phase,
                        checkpoint=args.checkpoint, debug=args.debug,
+                       enable_wandb=args.enable_wandb,
                        num_processes=world_size)
+    opt['log_wandb_ckpt'] = args.log_wandb_ckpt
+    opt['log_eval'] = args.log_eval
     opt['sampler'] = args.sampler
     opt['sampling_timesteps'] = args.sampling_timesteps
     opt['compute_dtype'] = args.compute_dtype
@@ -349,6 +468,7 @@ def _run(args, device):
                  process_index=rank)
     logger = logging.getLogger('base')
     logger.info(Logger.dict2str(opt))
+    logs = _Logs(opt, rank, logger)
 
     train_loader = None
     if args.phase == 'train':
@@ -361,26 +481,38 @@ def _run(args, device):
     if args.phase == 'val':
         val_opt['val_batch'] = args.val_batch
     val_set = Data.create_dataset(val_opt, 'val')
-    val_loader = Data.create_dataloader(val_set, val_opt, 'val', rank=rank,
-                                        world_size=world_size)
+    # ranks that restore each image together all walk the whole set
+    shares = ranks_share_images(opt, world_size)
+    val_loader = Data.create_dataloader(
+        val_set, val_opt, 'val', rank=0 if shares else rank,
+        world_size=1 if shares else world_size)
     logger.info('Initial Dataset Finished')
     diffusion = create_model(opt, device=device, seed=args.seed)
     logger.info('Initial Model Finished')
 
-    if args.phase == 'train':
-        return _train(opt, diffusion, train_loader, val_loader, Metrics,
-                      logger)
-    if args.search_params:
-        logger.info('Begin Model Evaluation. len ' + str(len(val_loader)))
-        return search_params(
-            opt, val_loader, diffusion, Metrics, logger,
-            n_timesteps=tuple(int(s) for s in args.search_steps.split(',')),
-            linear_ends=tuple(float(s) for s in args.search_ends.split(',')))
-    if args.val_patch:
-        logger.info('Begin Model Evaluation. len ' + str(len(val_loader)))
-        return val_patch(opt, val_loader, val_set, diffusion, Metrics, logger,
-                         skip=args.patch_skip, padding=args.patch_padding)
-    return _validate(opt, diffusion, val_loader, val_set, Metrics, logger)
+    try:
+        if args.phase == 'train':
+            return _train(opt, diffusion, train_loader, val_loader, Metrics,
+                          logger, logs)
+        if args.search_params:
+            logger.info('Begin Model Evaluation. len '
+                        + str(len(val_loader)))
+            return search_params(
+                opt, val_loader, diffusion, Metrics, logger,
+                n_timesteps=tuple(int(s)
+                                  for s in args.search_steps.split(',')),
+                linear_ends=tuple(float(s)
+                                  for s in args.search_ends.split(',')))
+        if args.val_patch:
+            logger.info('Begin Model Evaluation. len '
+                        + str(len(val_loader)))
+            return val_patch(opt, val_loader, val_set, diffusion, Metrics,
+                             logger, skip=args.patch_skip,
+                             padding=args.patch_padding)
+        return _validate(opt, diffusion, val_loader, val_set, Metrics,
+                         logger, logs)
+    finally:
+        logs.close()
 
 
 if __name__ == '__main__':

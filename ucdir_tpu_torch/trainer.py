@@ -56,6 +56,15 @@ def local_seed(seed: int, rank: int) -> int:
     return seed + rank * 0x9E3779B1
 
 
+def ranks_share_images(opt, world_size: int) -> bool:
+    """Whether the ranks restore each validation image together, its tiles
+    split over them: under a process group of more than one rank with a
+    `tile` dict in the config (the JAX package's mesh, which shards one
+    image's tiles over its chips). Otherwise each rank restores its own
+    share of the images."""
+    return world_size > 1 and opt.get('tile') is not None
+
+
 class Trainer:
     """phase 'train': optimizer steps on fed batches, validation with the
     live weights, checkpoints as the reference's triple. phase 'val':
@@ -69,7 +78,11 @@ class Trainer:
     RNG contract is the JAX package's (`ucdir_tpu/trainer.py:45-55`): the
     training draws are the same on every rank (seeded from the seed and the
     step), the validation draws and the fed batches' noise are the rank's
-    own (`local_seed`). The initial weights are rank 0's."""
+    own (`local_seed`). The initial weights are rank 0's. With a `tile`
+    dict in the config the ranks restore each validation image together
+    (`shares_images`): its tiles split over them (tile_chunk the world size
+    unless the dict sets it), its draws rank 0's on every rank, so each
+    rank gets one process's bits."""
 
     def __init__(self, opt, device, seed: int = 0):
         name = opt.get('compute_dtype')
@@ -81,16 +94,17 @@ class Trainer:
         self.device = torch.device(device)
         self.seed = seed
         self.rank, self.world_size = get_dist_info()
+        self.shares_images = ranks_share_images(opt, self.world_size)
         self.model = define_G(opt).to(self.device)
         self.schedules = {}
         self.schedule_phase = None
         self.set_new_noise_schedule(
             opt['model']['beta_schedule'][opt['phase']], opt['phase'])
-        # validation noise, the rank's own; the training draws are seeded
-        # per step instead (optimize_parameters), so a resumed run repeats
-        # them
+        # validation noise, the rank's own (rank 0's where the ranks share
+        # each image); the training draws are seeded per step instead
+        # (optimize_parameters), so a resumed run repeats them
         self.generator = torch.Generator(self.device).manual_seed(
-            local_seed(seed + 1, self.rank))
+            local_seed(seed + 1, 0 if self.shares_images else self.rank))
         self.train_generator = torch.Generator(self.device)
         self.iter = 0
         self.begin_step = 0
@@ -168,10 +182,18 @@ class Trainer:
         this trainer's generator (or `noise(shape)`, injected); in the train
         phase with the live weights. opt['sampler'],
         opt['sampling_timesteps'] (default 20 for dpmpp, else 5) and
-        opt['tile'] choose the sampler and the tiled path, and
-        opt['compute_dtype'] the networks' dtype."""
+        opt['tile'] choose the sampler and the tiled path (over the ranks
+        where `shares_images`), and opt['compute_dtype'] the networks'
+        dtype."""
         sr = self.to_device(self.data['SR'])
         sampler = self.opt.get('sampler') or 'ddpm'
+        tile = self.opt.get('tile')
+        if self.shares_images:
+            # the ranks restore rank 0's input together (a feed that adds
+            # the rank's own noise, DDPM_bnoise's, would differ)
+            broadcast_([sr])
+            tile = {'tile_chunk': self.world_size, **tile,
+                    'distributed': True}
         steps = int(self.opt.get('sampling_timesteps')
                     or (20 if sampler == 'dpmpp' else 5))
         was_training = self.model.training
@@ -181,8 +203,7 @@ class Trainer:
                             sr, continous=continous, noise=noise,
                             generator=self.generator,
                             sampler=sampler, sampling_timesteps=steps,
-                            tile=self.opt.get('tile'),
-                            compute_dtype=self.compute_dtype)
+                            tile=tile, compute_dtype=self.compute_dtype)
         finally:
             self.model.train(was_training)
         if continous:
